@@ -1,0 +1,124 @@
+"""Film: filtered sample accumulation, development and PNG output.
+
+Counterpart of ``gopbrt_tpu/models/film.py`` (``Film``, ``new_film``,
+``add_samples_rows``, ``develop``, ``srgb_encode``, ``to_uint8``,
+``write_png``).  Unlike the JAX version, ``add_samples_rows`` accumulates
+into the film's tensors in place (one 1080p film is 33 MB; a pass makes no
+copy of it) and returns the same film.
+"""
+
+from __future__ import annotations
+
+import math
+import struct
+import zlib
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gopbrt_tpu_torch import resolve_device
+from gopbrt_tpu_torch.ops.filters import Filter, box_filter, evaluate
+
+
+class Film(NamedTuple):
+    rgb: torch.Tensor  # f32[H,W,3] weighted radiance sum
+    weight: torch.Tensor  # f32[H,W]  filter weight sum
+
+
+def new_film(width: int, height: int, device=None) -> Film:
+    """An empty film on ``device`` (None = the card)."""
+    device = resolve_device(device)
+    return Film(
+        rgb=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
+        weight=torch.zeros((height, width), dtype=torch.float32, device=device),
+    )
+
+
+def add_samples_rows(film: Film, row0: int, jitter: torch.Tensor,
+                     L: torch.Tensor, filt: Filter = box_filter(1.0)) -> Film:
+    """Row-aligned dense splat of one sample per pixel for the band of image
+    rows starting at ``row0`` (film.go:211-248 AddSample, as shifted dense
+    adds).  Taps outside the image and samples on rows at or past the
+    image's last row are dropped.
+
+    jitter: f32[rows, W, 2] sample offset within each pixel in [0, 1)^2.
+    L:      f32[rows, W, 3].
+    """
+    rows, w_img = L.shape[0], L.shape[1]
+    h_img = film.weight.shape[0]
+    if film.weight.shape[1] != w_img:
+        raise ValueError("band width differs from the film width")
+    rr = int(math.ceil(filt.radius))
+    jx, jy = jitter[..., 0], jitter[..., 1]
+    row_valid = (row0 + torch.arange(rows, device=L.device)) < h_img
+    acc_rgb = torch.zeros((rows + 2 * rr, w_img + 2 * rr, 3),
+                          dtype=torch.float32, device=L.device)
+    acc_w = torch.zeros((rows + 2 * rr, w_img + 2 * rr),
+                        dtype=torch.float32, device=L.device)
+    for oy in range(-rr, rr + 1):
+        for ox in range(-rr, rr + 1):
+            # offset from tap pixel center (x+ox+0.5) to sample (x+jx)
+            fw = evaluate(filt, ox + 0.5 - jx, oy + 0.5 - jy)
+            fw = torch.where(row_valid[:, None], fw, 0.0)
+            ys = slice(oy + rr, oy + rr + rows)
+            xs = slice(ox + rr, ox + rr + w_img)
+            acc_rgb[ys, xs] += fw[..., None] * L
+            acc_w[ys, xs] += fw
+    # fold the halo-extended band (image rows row0-rr ...) into the film
+    y0 = row0 - rr
+    lo, hi = max(0, y0), min(h_img, y0 + rows + 2 * rr)
+    if hi > lo:
+        film.rgb[lo:hi] += acc_rgb[lo - y0:hi - y0, rr:rr + w_img]
+        film.weight[lo:hi] += acc_w[lo - y0:hi - y0, rr:rr + w_img]
+    return film
+
+
+def develop(film: Film, gamma: bool = True, compat_go: bool = False) -> torch.Tensor:
+    """Resolve the film to display RGB in [0,1] (f32[H,W,3]).
+
+    compat_go reproduces film.go:142-179: no weight normalization, no gamma.
+    """
+    if compat_go:
+        return torch.clamp(film.rgb, 0.0, 1.0)
+    img = film.rgb / torch.clamp(film.weight[..., None], min=1e-8)
+    img = torch.clamp(img, min=0.0)
+    if gamma:
+        img = srgb_encode(img)
+    return torch.clamp(img, 0.0, 1.0)
+
+
+def srgb_encode(x: torch.Tensor) -> torch.Tensor:
+    x = torch.clamp(x, min=0.0)
+    return torch.where(
+        x <= 0.0031308,
+        12.92 * x,
+        1.055 * torch.pow(torch.clamp(x, min=1e-8), 1 / 2.4) - 0.055,
+    )
+
+
+def to_uint8(img: torch.Tensor) -> np.ndarray:
+    """Quantize on the image's device, then copy the bytes to the host."""
+    return torch.round(torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    body = tag + data
+    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
+
+
+def write_png(path: str, img) -> str:
+    """8-bit RGB PNG of the image f32[H,W,3] in [0,1], from the standard
+    library alone (zlib level 1, as film.py:207-217 encodes it): each row
+    is stored with filter type 0."""
+    px = to_uint8(torch.as_tensor(img))
+    h, w = px.shape[:2]
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # column 0: filter byte 0
+    raw[:, 1:] = px.reshape(h, 3 * w)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", header))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)))
+        f.write(_png_chunk(b"IEND", b""))
+    return path

@@ -1,0 +1,208 @@
+"""Brute-force ray-primitive tests in plain PyTorch.
+
+Counterpart of the math of ``gopbrt_tpu/ops/pallas_intersect.py::_prim_test``
+(sphere with z/phi clips, disk annulus with the phi wedge, world-space
+Moller-Trumbore triangle) and of the closest-hit loop of its kernels.  The
+CUDA twin of ``prim_test`` is ``csrc/prim_test.cuh``; the bounce megakernel
+(``ops/megakernel.py``) inlines both.
+
+One primitive is tested against a batch of rays: the primitive's entries
+are Python floats holding float32 values (a table row read on the host),
+the rays are float32 tensors.  A product or difference of two such floats
+rounds to the float32 result when the tensor op takes it; the phi_max
+trigonometry and the comparisons with pi and 2*pi run in np.float32, as
+the TPU kernel's SMEM scalars do.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
+
+BIG = 1e30
+_F = np.float32
+_TWO_PI_CLIP = _F(2.0 * math.pi - 1e-6)
+
+
+def _in_wedge(x, y, phi_max):
+    """phi(x, y) <= phi_max without atan2: the sign of the 2D cross product
+    against the phi_max ray (pallas_intersect.py:59-70)."""
+    sin_pm = float(np.sin(_F(phi_max)))
+    cos_pm = float(np.cos(_F(phi_max)))
+    cross = x * sin_pm - y * cos_pm
+    if _F(phi_max) <= _F(math.pi):
+        return (y >= 0.0) & (cross >= 0.0)
+    return ~((y < 0.0) & (cross < 0.0))
+
+
+def prim_test(ptype: int, m, pr, ox, oy, oz, dx, dy, dz, t_limit,
+              full_sph: bool = False, full_disk: bool = False,
+              tally=None, active=None) -> torch.Tensor:
+    """One primitive vs a batch of rays -> candidate t (BIG on a miss).
+
+    m: 12 world->object entries (row-major 3x4); pr: 9 params (see
+    ops/intersect.Primitives); t_limit: f32[N].  tally: optional dict that
+    counts, over the lanes of the bool mask ``active``, the tests one thread
+    per ray makes: "sphere_tests", "sphere_roots" (spheres whose
+    discriminant passes) and "disk_tests".
+    """
+    if ptype == TRIANGLE:
+        return _triangle(pr, ox, oy, oz, dx, dy, dz, t_limit)
+    if tally is not None:
+        key = "sphere_tests" if ptype == SPHERE else "disk_tests"
+        tally[key] = tally.get(key, 0) + int(active.sum())
+    oox = m[0] * ox + m[1] * oy + m[2] * oz + m[3]
+    ooy = m[4] * ox + m[5] * oy + m[6] * oz + m[7]
+    ooz = m[8] * ox + m[9] * oy + m[10] * oz + m[11]
+    odx = m[0] * dx + m[1] * dy + m[2] * dz
+    ody = m[4] * dx + m[5] * dy + m[6] * dz
+    odz = m[8] * dx + m[9] * dy + m[10] * dz
+    if ptype == SPHERE:
+        return _sphere(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_sph,
+                       tally, active)
+    if ptype == DISK:
+        return _disk(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_disk)
+    raise ValueError(f"unknown primitive type {ptype}")
+
+
+def _sphere(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_sph, tally=None,
+            active=None):
+    """Recentred quadratic (perpendicular-foot form) with reprojected clips
+    (params: radius, zmin, zmax, phimax)."""
+    radius = pr[0]
+    a = odx * odx + ody * ody + odz * odz
+    safe_a = torch.where(a == 0.0, 1.0, a)
+    t_foot = -(oox * odx + ooy * ody + ooz * odz) / safe_a
+    fx = oox + odx * t_foot
+    fy = ooy + ody * t_foot
+    fz = ooz + odz * t_foot
+    disc_core = radius * radius - (fx * fx + fy * fy + fz * fz)
+    ok = (disc_core >= 0.0) & (a > 0.0)
+    if tally is not None:
+        tally["sphere_roots"] = tally.get("sphere_roots", 0) + int((ok & active).sum())
+    delta = torch.sqrt(torch.clamp(disc_core, min=0.0) / safe_a)
+    lo = t_foot - delta
+    hi = t_foot + delta
+    olen = torch.sqrt(torch.clamp(oox * oox + ooy * ooy + ooz * ooz, min=1.0))
+    dlen = torch.sqrt(torch.clamp(a, min=1e-20))
+    t_eps = 1e-4 * olen / dlen
+
+    full = pr[1] <= -radius and pr[2] >= radius and _F(pr[3]) >= _TWO_PI_CLIP
+
+    def clip_ok(t):
+        if full_sph or full:
+            return True
+        px = oox + odx * t
+        py = ooy + ody * t
+        pz = ooz + odz * t
+        norm = torch.sqrt(torch.clamp(px * px + py * py + pz * pz, min=1e-20))
+        s = radius / norm
+        pz = pz * s
+        return (pz >= pr[1]) & (pz <= pr[2]) & _in_wedge(px * s, py * s, pr[3])
+
+    v0 = ok & (lo > t_eps) & (lo < t_limit) & clip_ok(lo)
+    v1 = ok & (hi > t_eps) & (hi < t_limit) & clip_ok(hi)
+    return torch.where(v0, lo, torch.where(v1, hi, BIG))
+
+
+def _disk(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_disk):
+    """Plane hit inside the annulus and the phi wedge (params: height,
+    radius, inner, phimax)."""
+    parallel = torch.abs(odz) < 1e-12
+    t_pl = (pr[0] - ooz) / torch.where(parallel, 1.0, odz)
+    pxd = oox + odx * t_pl
+    pyd = ooy + ody * t_pl
+    d2 = pxd * pxd + pyd * pyd
+    vd = (~parallel) & (t_pl > 1e-4) & (t_pl < t_limit) & (d2 <= pr[1] * pr[1])
+    if not full_disk:
+        vd = vd & (d2 >= pr[2] * pr[2])
+        if not _F(pr[3]) >= _TWO_PI_CLIP:
+            vd = vd & _in_wedge(pxd, pyd, pr[3])
+    return torch.where(vd, t_pl, BIG)
+
+
+def _triangle(pr, ox, oy, oz, dx, dy, dz, t_limit):
+    """World-space Moller-Trumbore (params: the three vertices)."""
+    e1 = [pr[3 + k] - pr[k] for k in range(3)]
+    e2 = [pr[6 + k] - pr[k] for k in range(3)]
+    pvx = dy * e2[2] - dz * e2[1]
+    pvy = dz * e2[0] - dx * e2[2]
+    pvz = dx * e2[1] - dy * e2[0]
+    det = e1[0] * pvx + e1[1] * pvy + e1[2] * pvz
+    degen = torch.abs(det) < 1e-12
+    inv_det = 1.0 / torch.where(degen, 1.0, det)
+    tvx, tvy, tvz = ox - pr[0], oy - pr[1], oz - pr[2]
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1[2] - tvz * e1[1]
+    qvy = tvz * e1[0] - tvx * e1[2]
+    qvz = tvx * e1[1] - tvy * e1[0]
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    tt = (e2[0] * qvx + e2[1] * qvy + e2[2] * qvz) * inv_det
+    vt = (~degen) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tt > 1e-4) & (
+        tt < t_limit
+    )
+    return torch.where(vt, tt, BIG)
+
+
+def prim_rows(prims: Primitives):
+    """(ptype, w2o 12-entry row, params row) per primitive, on the host."""
+    ptype = prims.prim_type.cpu().tolist()
+    w2o = prims.world_to_obj[:, :3, :].reshape(-1, 12).cpu().tolist()
+    params = prims.params.cpu().tolist()
+    return list(zip(ptype, w2o, params))
+
+
+def _full_flags(pinfo):
+    if pinfo is None:
+        return False, False
+    return pinfo.all_full_spheres, pinfo.all_full_disks
+
+
+def closest_hit(rows, pinfo, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
+                active=None):
+    """Brute closest hit over the table rows -> (t_best, idx_best), idx -1
+    on a miss (the megakernel's ``closest_hit``, pallas_megakernel.py:290).
+    tally / active: see ``prim_test``; every active lane tests every row."""
+    full_sph, full_disk = _full_flags(pinfo)
+    t_best = t_limit
+    idx_best = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
+    for p, (ptype, m, pr) in enumerate(rows):
+        tp = prim_test(ptype, m, pr, ox, oy, oz, dx, dy, dz, t_best,
+                       full_sph=full_sph, full_disk=full_disk, tally=tally,
+                       active=active)
+        better = tp < t_best
+        t_best = torch.where(better, tp, t_best)
+        idx_best = torch.where(better, p, idx_best)
+    return t_best, idx_best
+
+
+def first_hit(rows, pinfo, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
+              active=None):
+    """Index of the first row (in table order) hit closer than ``t_limit``,
+    -1 where none is: the any-hit loop of csrc/megakernel.cu ``occluded``,
+    which stops at that row.  Some row is hit exactly where the closest
+    hit under ``t_limit`` exists.  tally / active: see ``prim_test``; a lane
+    stops counting after its first hit."""
+    full_sph, full_disk = _full_flags(pinfo)
+    first = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
+    for p, (ptype, m, pr) in enumerate(rows):
+        testing = None if tally is None else active & (first < 0)
+        tp = prim_test(ptype, m, pr, ox, oy, oz, dx, dy, dz, t_limit,
+                       full_sph=full_sph, full_disk=full_disk, tally=tally,
+                       active=testing)
+        first = torch.where((first < 0) & (tp < t_limit), p, first)
+    return first
+
+
+def intersect_brute(prims: Primitives, o: torch.Tensor, d: torch.Tensor,
+                    t_max: torch.Tensor):
+    """Closest hit (hit[N], t[N], prim_idx[N]) over the whole table — the
+    plain counterpart of ``intersect_brute_pallas``."""
+    t, idx = closest_hit(prim_rows(prims), prims.pinfo, o[:, 0], o[:, 1],
+                         o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max)
+    hit = idx >= 0
+    return hit, torch.where(hit, t, t_max), torch.clamp(idx, min=0)
