@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU gate of the PyTorch/CUDA port: the demo path trace on one card.
+"""GPU gate of the PyTorch/CUDA port: the path traces on one card.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,32 @@ Phases, each printing a line; any failure raises, so the script exits
 non-zero and never prints the last line:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: compiles the CUDA sources of gopbrt_tpu_torch (first use);
-3. kernel vs plain: the bounce megakernel against its plain PyTorch
-   version on the same inputs — one 1920x273 band of the 1080p demo at
-   depth 10 (the main path's launch shape), and a lobe scene (checker
-   floor, matte, mirror, smooth and rough glass, sphere lamp) at 256x256,
-   depth 8;
-4. main path: ``render_pass`` of the demo at 1920x1080, 1 spp, depth 10,
-   through the normal entry points — one warm-up pass, then 5 timed
-   passes; the launch counter must grow by 4 per pass.  Then ``render`` at
-   4 spp, ``develop`` and ``write_png``;
-   One more pass runs under ``torch.profiler``: the host time of each
-   stage's range and the device's busy time;
+2. build: compiles the CUDA sources of gopbrt_tpu_torch (first use), one
+   nvcc per source, all at once;
+3. kernel vs plain, each kernel against its plain PyTorch version on the
+   same inputs:
+   - the bounce megakernel on one 1920x273 band of the 1080p demo at depth
+     10 (the main path's launch shape), and on a lobe scene (checker floor,
+     matte, mirror, smooth and rough glass, sphere lamp) at 256x256, depth 8;
+   - the closest-hit and any-hit kernels (csrc/intersect.cu) on every
+     launch of ``li_direct`` over one band of BASELINE config 1 at 1080p
+     (camera rays, shadow rays, the bounces' rays), and on a 300-prim table
+     of every shape kind (more prims than one shared-memory chunk);
+   - the general wavefront chain (``_li_wavefront`` on the intersection
+     kernels) against the megakernel on the demo band, depth 10, and
+     ``li_direct`` on the kernels against ``li_direct`` on the plain
+     intersection;
+4. main paths, each through ``render_pass`` with the launch counts set to 0
+   just before it and read just after; one warm-up pass, then 5 timed passes
+   and one more under ``torch.profiler`` (host ms of each ``render.*`` range,
+   the device's busy time):
+   - the demo at 1920x1080, 1 spp, path depth 10: 4 megakernel launches per
+     pass; then ``render`` at 4 spp, ``develop`` and ``write_png``;
+   - config 1 at 1920x1080, 1 spp, direct lighting depth 3, one light per
+     vertex: 16 closest-hit and 12 any-hit launches per pass;
+   - a scene outside the fast path (plastic, metal, Oren-Nayar, a triangle,
+     a disk lamp, a uv checker, the power light distribution) at
+     1920x1080, path depth 5: a finite, non-black image;
 5. the kernels line: time per launch, launches, bound, plain time.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -27,7 +41,9 @@ outside a checkout of the repository, the script fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -35,6 +51,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
@@ -42,8 +59,14 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # bytes per path: o, d, pixel, sample in (32), radiance out (12)
 BYTES_PER_PATH = 44
+# bytes per ray of the intersection kernels: o, d, t_max in (28); out hit,
+# t, prim (9) or occluded (1); bytes per table row: type, w2o, params (88)
+BYTES_PER_RAY_CLOSEST, BYTES_PER_RAY_ANY, BYTES_PER_PRIM = 37, 29, 88
 
 W, H, DEPTH = 1920, 1080, 10
+N_PASSES = 5
+# __global__ functions of csrc/*.cu, as the profiler names their launches
+OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel")
 
 
 def phase(name: str, msg: str) -> None:
@@ -77,6 +100,112 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def bound(flops: float, nbytes: float):
+    """(least ms on the card, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@contextlib.contextmanager
+def swapped_intersection(closest, any_hit):
+    """Route the integrators' intersections through other callables for the
+    duration (each gets the wrapped function as its first argument)."""
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+
+    saved = bi.intersect_brute_fused, bi.intersect_p_brute_fused
+    bi.intersect_brute_fused = lambda *a: closest(saved[0], *a)
+    bi.intersect_p_brute_fused = lambda *a: any_hit(saved[1], *a)
+    try:
+        yield
+    finally:
+        bi.intersect_brute_fused, bi.intersect_p_brute_fused = saved
+
+
+def recording(calls: list):
+    """Launch the kernels as usual and record each launch's inputs."""
+    def record(kind):
+        def call(fn, table, o, d, t_max):
+            calls.append((kind, table, o, d, t_max))
+            return fn(table, o, d, t_max)
+        return call
+    return swapped_intersection(record("intersect"), record("intersect_any"))
+
+
+def plain_intersection():
+    """The plain versions on the card's tensors, in place of the kernels."""
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+
+    return swapped_intersection(lambda _, *a: bi.intersect_brute(*a),
+                                lambda _, *a: bi.intersect_p_brute(*a))
+
+
+def close_t(t, ref):
+    """t agrees with ref: 1e-3 relative + 1e-4 (benchmarks/tpu_smoke.py:79-83)."""
+    return (t - ref).abs() < 1e-3 * ref.abs() + 1e-4
+
+
+def prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both) -> dict:
+    """The prim ids on lanes both hit with t clear (test_pallas.compare's
+    1e-6 bar): the kernel's prim must be the plain version's, or a tie, a
+    prim whose plain test meets the plain t (close_t) on that lane."""
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+
+    clear = both & ((t_k - t_p).abs() <= 1e-6 * t_p.clamp(min=1.0))
+    lanes = torch.nonzero(clear & (idx_k != idx_p)).flatten()
+    untied = 0
+    for p in idx_k[lanes].unique().tolist():
+        sel = lanes[idx_k[lanes] == p]
+        ptype, m, pr = table.rows[p]
+        tp = bi.prim_test(ptype, m, pr, o[sel, 0], o[sel, 1], o[sel, 2], d[sel, 0],
+                          d[sel, 1], d[sel, 2], t_max[sel], full_sph=table.full_sph,
+                          full_disk=table.full_disk)
+        untied += int((~close_t(tp, t_p[sel])).sum())
+    return {"clear": int(clear.sum()), "other_prim": int(lanes.numel()), "untied": untied}
+
+
+def check_intersect_call(kind, table, o, d, t_max):
+    """Kernel vs plain on one launch's inputs -> (agreeing fraction, max abs
+    t error over lanes both hit or the any-hit's max abs error, prim-id
+    mismatches of the closest hit or None)."""
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+
+    if kind == "intersect":
+        hit_k, t_k, idx_k = bi.intersect_brute_fused(table, o, d, t_max)
+        hit_p, t_p, idx_p = bi.intersect_brute(table, o, d, t_max)
+        same = (hit_k == hit_p) & close_t(t_k, t_p)
+        both = hit_k & hit_p
+        err = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
+        ids = prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both)
+        return float(same.float().mean()), err, ids
+    occ_k = bi.intersect_p_brute_fused(table, o, d, t_max)
+    occ_p = bi.intersect_p_brute(table, o, d, t_max)
+    return float((occ_k == occ_p).float().mean()), float((occ_k != occ_p).any()), None
+
+
+def check_agreement(what: str, agree: float, ids) -> None:
+    """The kernels' bars: > 0.999 of lanes agree, and no closest-hit lane
+    clear of ties names another prim."""
+    if agree <= 0.999:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version ({agree})")
+    if ids is not None and ids["untied"]:
+        raise AssertionError(f"{what}: the kernel names other prims {ids}")
+
+
+def intersect_flops(kind, table, o, d, t_max) -> int:
+    """fp32 operations the kernel's threads need on these rays: every
+    primitive test of the closest-hit sweep, or the any-hit's tests up to
+    each ray's first occluder, at ``megakernel.OPS_PER_EVENT`` each."""
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+    from gopbrt_tpu_torch.ops import megakernel
+
+    tally = {}
+    args = (table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max)
+    every = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    sweep = bi.closest_hit if kind == "intersect" else bi.first_hit
+    sweep(*args, tally=tally, active=every)
+    return megakernel.fp32_ops(tally)
+
+
 def lobe_scene(device):
     """Checker floor, matte / mirror / smooth-glass / rough-glass spheres
     and a sphere lamp, on the port's own builder."""
@@ -101,7 +230,121 @@ def lobe_scene(device):
     return scene, camera
 
 
+def feature_scene(device):
+    """Outside the fast path: plastic, metal and Oren-Nayar spheres, a
+    triangle, a uv-checker floor, a disk lamp and a point light under the
+    power light distribution (tests/test_torch_wavefront.py's scene)."""
+    from gopbrt_tpu_torch.models import camera as cam_mod
+    from gopbrt_tpu_torch.models.scene import SceneBuilder
+    from gopbrt_tpu_torch.ops import geom
+
+    b = SceneBuilder(light_strategy="power")
+    uvc = b.checkerboard_texture((0.9, 0.8, 0.2), (0.1, 0.2, 0.6), vs=(8.0, 0.0, 0.0),
+                                 vt=(0.0, 8.0, 0.0), mapping="uv")
+    b.disk(geom.rotate_x(-90.0), 30.0, b.matte(kd=(1.0, 1.0, 1.0), kd_tex=uvc))
+    b.sphere(geom.translate([-1.6, 0.8, 0.0]), 0.8,
+             b.plastic(kd=(0.2, 0.5, 0.8), ks=(0.3, 0.3, 0.3), roughness=0.1))
+    b.sphere(geom.translate([0.2, 0.8, -0.5]), 0.8, b.metal(f0=(0.95, 0.7, 0.3), roughness=0.2))
+    b.sphere(geom.translate([1.9, 0.7, 0.3]), 0.7, b.matte(kd=(0.7, 0.7, 0.6), sigma=25.0))
+    b.triangle((-3.0, 0.0, -2.5), (3.0, 0.0, -2.5), (0.0, 3.5, -2.5),
+               b.matte(kd=(0.6, 0.3, 0.3)))
+    lamp = b.disk(geom.matmul(geom.translate([0.0, 4.0, 1.0]), geom.rotate_x(90.0)), 1.0,
+                  b.matte(kd=0.0))
+    b.area_light(lamp, radiance=(12.0, 11.0, 10.0))
+    b.point_light(p=(3.0, 5.0, 3.0), intensity=(8.0, 8.0, 8.0))
+    camera = cam_mod.perspective_camera(
+        geom.look_at([0.0, 2.0, 6.0], [0.0, 0.8, 0.0], [0.0, 1.0, 0.0]), W, H,
+        fov_deg=50.0, device=device)
+    return b.build(device=device), camera
+
+
+def big_table(device, n_prims=300, n_rays=1 << 16, seed=7):
+    """A random table of every shape kind (full and clipped spheres, annulus
+    and wedge disks, triangles) larger than one shared-memory chunk of
+    csrc/intersect.cu, and rays aimed into it -> (packed table, o, d, t_max)."""
+    from gopbrt_tpu_torch.ops.brute_intersect import brute_table
+    from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
+    from gopbrt_tpu_torch.ops.static_info import PrimInfo
+
+    r = np.random.default_rng(seed)
+    kinds = r.integers(0, 3, n_prims)
+    o2w = np.tile(np.eye(4, dtype=np.float32), (n_prims, 1, 1))
+    params = np.zeros((n_prims, 9), np.float32)
+    for i, k in enumerate(kinds):
+        c = r.uniform(-20.0, 20.0, 3)
+        if k == TRIANGLE:
+            params[i] = (c + r.normal(size=(3, 3)) * 2.0).reshape(-1)
+            continue
+        o2w[i, :3, :3] *= r.uniform(0.5, 1.5)
+        o2w[i, :3, 3] = c
+        rad = r.uniform(0.5, 2.0)
+        phi = 2.0 * math.pi if r.random() < 0.5 else r.uniform(0.5, 6.0)
+        if k == SPHERE:
+            params[i, :4] = (rad, -rad * r.uniform(0.3, 1.0), rad * r.uniform(0.3, 1.0), phi)
+        else:
+            params[i, :4] = (r.uniform(-1.0, 1.0), rad, rad * r.uniform(0.0, 0.5), phi)
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+    prims = Primitives(
+        prim_type=t(kinds.astype(np.int32)), obj_to_world=t(o2w),
+        world_to_obj=t(np.linalg.inv(o2w.astype(np.float64)).astype(np.float32)),
+        params=t(params), material_id=t(np.zeros(n_prims, np.int32)),
+        area_light_id=t(np.full(n_prims, -1, np.int32)),
+        reverse_orientation=t(np.zeros(n_prims, bool)),
+        pinfo=PrimInfo(types=(SPHERE, DISK, TRIANGLE)),
+    )
+    o = r.normal(size=(n_rays, 3)) * 40.0
+    d = r.uniform(-20.0, 20.0, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(r.random(n_rays) < 0.5, 1e30, r.uniform(1e-4, 60.0, n_rays))
+    return (brute_table(prims), t(o.astype(np.float32)), t(d.astype(np.float32)),
+            t(t_max.astype(np.float32)))
+
+
+def timed_passes(render, film_mod, scene, camera, settings, dev):
+    """One warm-up pass, then N_PASSES timed ones with the launch counts set
+    to 0 just before -> (ms per pass, launch counts, film)."""
+    from gopbrt_tpu_torch import _build
+
+    film = film_mod.new_film(settings.width, settings.height, device=dev)
+    render.render_pass(scene, camera, film, settings, 0, device=dev)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for i in range(N_PASSES):
+        film = render.render_pass(scene, camera, film, settings, i + 1, device=dev)
+    torch.cuda.synchronize()
+    dt_ms = (time.perf_counter() - t0) / N_PASSES * 1e3
+    return dt_ms, dict(_build.LAUNCHES), film
+
+
+def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float) -> str:
+    """One more pass under the profiler, read by render_pass's stage ranges
+    (host time) and the device's busy time."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev)
+        torch.cuda.synchronize()
+    # a range shows twice, as a host event and as an annotation on the
+    # device's timeline; the device is busy for its kernels and copies
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    host = {k: sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.name == f"render.{k}" and e.device_type == cpu) / 1e3
+            for k in ("band_rays", "li", "splat")}
+    work = [e for e in prof.events()
+            if e.device_type == cuda and not e.name.startswith("render.")]
+    device_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    own_ms = sum(e.time_range.elapsed_us() for e in work
+                 if any(k in e.name for k in OWN_KERNELS)) / 1e3
+    busy = (f"device busy {device_ms:.3f} ms in {len(work)} kernels and copies, "
+            f"{own_ms:.3f} ms of it in the port's CUDA kernels; idle "
+            f"{1.0 - device_ms / pass_ms:.4f} of a timed pass"
+            if device_ms > 0 else "device time not measured")
+    return ("one profiled pass, host ms by range: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f"; {busy}")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     # ---- 1. device ----------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -109,9 +352,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gopbrt_tpu_torch import _build
     from gopbrt_tpu_torch.models import film as film_mod
-    from gopbrt_tpu_torch.models import render
+    from gopbrt_tpu_torch.models import gallery, integrators, render
     from gopbrt_tpu_torch.models.demo import (build_demo_camera, build_demo_scene,
                                               demo_settings)
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
     from gopbrt_tpu_torch.ops import megakernel
 
     smi = subprocess.run(
@@ -130,7 +374,8 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
     info = _build.build()
-    _build.load()
+    for name in info:
+        _build.load(name)
     build_s = time.perf_counter() - t0
     for name, rec in info.items():
         ptxas = [ln.strip() for ln in rec["log"].splitlines()
@@ -150,17 +395,17 @@ def main() -> int:
     out = torch.empty_like(o)
     launch = megakernel.make_launch(scene, o, d, pixel, sample, settings.seed, cfg,
                                     cone, out)
-    got = launch().clone()
+    mega = launch().clone()
     torch.cuda.synchronize()
     counts = {}
     ref = megakernel.path_li_plain(scene, o, d, pixel, sample, settings.seed, cfg,
                                    cone=cone, counts=counts)
-    if not bool(torch.isfinite(got).all()):
+    if not bool(torch.isfinite(mega).all()):
         raise AssertionError("demo band: non-finite kernel output")
-    frac, mean_rel, max_abs = agreement(got, ref)
-    phase("kernel-vs-plain", f"demo band {W}x{band_rows} ({n_band} lanes), depth {DEPTH}, "
-          f"cone on: {frac:.5f} of lanes within 1e-3, mean diff {mean_rel:.2e}, "
-          f"max abs err {max_abs:.3e}, mean L {float(ref.mean()):.6f}")
+    frac, mean_rel, max_abs = agreement(mega, ref)
+    phase("kernel-vs-plain", f"megakernel, demo band {W}x{band_rows} ({n_band} lanes), "
+          f"depth {DEPTH}, cone on: {frac:.5f} of lanes within 1e-3, mean diff "
+          f"{mean_rel:.2e}, max abs err {max_abs:.3e}, mean L {float(ref.mean()):.6f}")
     if not (frac > 0.99 and mean_rel < 2e-3):
         raise AssertionError("demo band: kernel disagrees with its plain version")
 
@@ -174,76 +419,111 @@ def main() -> int:
     if not bool(torch.isfinite(lgot).all()):
         raise AssertionError("lobe scene: non-finite kernel output")
     lfrac, lmean, lmax = agreement(lgot, lref)
-    phase("kernel-vs-plain", f"lobe scene 256x256, depth 8: {lfrac:.5f} of lanes within "
-          f"1e-3, mean diff {lmean:.2e}, max abs err {lmax:.3e}, "
+    phase("kernel-vs-plain", f"megakernel, lobe scene 256x256, depth 8: {lfrac:.5f} of "
+          f"lanes within 1e-3, mean diff {lmean:.2e}, max abs err {lmax:.3e}, "
           f"mean L {float(lref.mean()):.6f}")
     if not (lfrac > 0.98 and lmean < 1e-2):
         raise AssertionError("lobe scene: kernel disagrees with its plain version")
 
-    # kernel and plain times on the demo band (CUDA events, medians)
+    # the intersection kernels on every launch of li_direct over one band of
+    # config 1 at 1080p (the inputs the main path gives them)
+    scene1, camera1, set1 = gallery.config1(W, H, device=dev)
+    set1 = set1._replace(spp=1, samples_per_pass=1)
+    _, o1, d1, pix1, smp1 = render.band_rays(camera1, set1, band_rows, band_rows, 0)
+    cone1 = render._cone(camera1, set1)
+    calls = []
+    with recording(calls):
+        direct_k = integrators.li_direct(scene1, o1, d1, pix1, smp1, set1.seed,
+                                         max_depth=set1.max_depth, cone=cone1,
+                                         light_strategy=set1.light_strategy)
+    kinds = [c[0] for c in calls]
+    if kinds.count("intersect") != 4 or kinds.count("intersect_any") != 3:
+        raise AssertionError(f"li_direct made the launches {kinds}")
+    worst = {"intersect": (1.0, 0.0), "intersect_any": (1.0, 0.0)}
+    for i, call in enumerate(calls):
+        agree, err, ids = check_intersect_call(*call)
+        live = float((call[4] > 2e-4).float().mean())
+        phase("kernel-vs-plain", f"{call[0]} launch {i} of a config-1 band ({n_band} rays, "
+              f"{live:.4f} live): {agree:.6f} agree, max abs err {err:.3e}"
+              + ("" if ids is None else f", prim ids {ids}"))
+        check_agreement(f"{call[0]} launch {i}", agree, ids)
+        worst[call[0]] = (min(worst[call[0]][0], agree), max(worst[call[0]][1], err))
+    big = big_table(dev)
+    for kind in ("intersect", "intersect_any"):
+        agree, err, ids = check_intersect_call(kind, *big)
+        phase("kernel-vs-plain", f"{kind}, {big[0].count}-prim table of every shape kind, "
+              f"{big[1].shape[0]} rays: {agree:.6f} agree, max abs err {err:.3e}"
+              + ("" if ids is None else f", prim ids {ids}"))
+        check_agreement(f"{kind} on the big table", agree, ids)
+
+    # two chains of the port: li_direct on the kernels vs on the plain
+    # intersection; the general wavefront chain vs the megakernel
+    with plain_intersection():
+        direct_p = integrators.li_direct(scene1, o1, d1, pix1, smp1, set1.seed,
+                                         max_depth=set1.max_depth, cone=cone1,
+                                         light_strategy=set1.light_strategy)
+    dfrac, dmean, dmax = agreement(direct_k, direct_p)
+    phase("chain-vs-chain", f"li_direct on the kernels vs on the plain intersection, "
+          f"config-1 band: {dfrac:.5f} of lanes within 1e-3, mean diff {dmean:.2e}, "
+          f"max abs err {dmax:.3e}, mean L {float(direct_p.mean()):.6f}")
+    if not (dfrac > 0.99 and bool(torch.isfinite(direct_k).all())):
+        raise AssertionError("li_direct: the kernels change the result")
+    wave = integrators._li_wavefront(scene, o, d, pixel, sample, settings.seed, cfg,
+                                     cone=cone)
+    wfrac, wmean, wmax = agreement(wave, mega)
+    phase("chain-vs-chain", f"_li_wavefront on the kernels vs the megakernel, demo band, "
+          f"depth {DEPTH}: {wfrac:.5f} of lanes within 1e-3, mean diff {wmean:.2e}, "
+          f"max abs err {wmax:.3e}")
+    if not (wfrac > 0.98 and wmean < 1e-2):
+        raise AssertionError("the general chain disagrees with the megakernel")
+
+    # kernel and plain times at the main paths' launch shapes (CUDA events,
+    # medians); the bounds count what these inputs need
     kernel_ms = cuda_ms(launch, reps=9)
     plain_ms = cuda_ms(lambda: megakernel.path_li_plain(
         scene, o, d, pixel, sample, settings.seed, cfg, cone=cone), reps=3)
-    # the bound counts what this band's paths need: the events the plain
-    # version counted, each at its fp32 operations (megakernel.OPS_PER_EVENT)
     flops = megakernel.fp32_ops(counts)
-    phase("kernel-time", "events of the demo band as [count, fp32 ops]: " + json.dumps(
-        {k: [v, v * megakernel.OPS_PER_EVENT[k]] for k, v in counts.items()}))
-    nbytes = n_band * BYTES_PER_PATH + megakernel.TABLE_WORDS * 4
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    phase("kernel-time", f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms per band; "
-          f"bound {bound_ms:.5f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB); {bound_ms / kernel_ms:.4f} of the bound")
+    phase("kernel-time", "megakernel events of the demo band as [count, fp32 ops]: "
+          + json.dumps({k: [v, v * megakernel.OPS_PER_EVENT[k]] for k, v in counts.items()}))
+    mega_bound = bound(flops, n_band * BYTES_PER_PATH + megakernel.TABLE_WORDS * 4)
+    phase("kernel-time", f"megakernel {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms per band; "
+          f"bound {mega_bound[0]:.5f} ms by {mega_bound[1]} ({flops / 1e9:.3f} GFLOP); "
+          f"{mega_bound[0] / kernel_ms:.4f} of the bound")
+    timing = {}
+    for kind, fused, plain, per_ray in (
+            ("intersect", bi.intersect_brute_fused, bi.intersect_brute,
+             BYTES_PER_RAY_CLOSEST),
+            ("intersect_any", bi.intersect_p_brute_fused, bi.intersect_p_brute,
+             BYTES_PER_RAY_ANY)):
+        # the first launch of each: the camera rays, the first shadow rays
+        args = next(c[1:] for c in calls if c[0] == kind)
+        k_ms = cuda_ms(lambda: fused(*args), reps=21)
+        p_ms = cuda_ms(lambda: plain(*args), reps=5)
+        k_flops = intersect_flops(kind, *args)
+        b_ms, b_by = bound(k_flops, n_band * per_ray + args[0].count * BYTES_PER_PRIM)
+        timing[kind] = (k_ms, p_ms, b_ms, b_by)
+        phase("kernel-time", f"{kind} {k_ms:.4f} ms, plain {p_ms:.3f} ms per launch of "
+              f"{n_band} rays; bound {b_ms:.5f} ms by {b_by} ({k_flops / 1e9:.4f} GFLOP); "
+              f"{b_ms / k_ms:.4f} of the bound")
 
-    # ---- 4. main path ---------------------------------------------------
-    film = film_mod.new_film(W, H, device=dev)
-    render.render_pass(scene, camera, film, settings, 0, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    n_passes = 5
-    megakernel.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    for i in range(n_passes):
-        film = render.render_pass(scene, camera, film, settings, i + 1, device=dev)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_passes
-    launches = megakernel.LAUNCHES["megakernel"]
-    if launches != 4 * n_passes:
-        raise AssertionError(f"main path launched the megakernel {launches} times "
-                             f"in {n_passes} passes, expected {4 * n_passes}")
-    phase("main-path", f"{n_passes} passes of {W}x{H} 1 spp depth {DEPTH}: "
-          f"{dt * 1e3:.2f} ms per pass, {launches} megakernel launches")
+    # ---- 4. main paths --------------------------------------------------
+    # the demo, path depth 10: the megakernel only
+    dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
+    if launches != {"megakernel": 4 * N_PASSES}:
+        raise AssertionError(f"demo main path launched {launches} in {N_PASSES} passes, "
+                             f"expected {4 * N_PASSES} megakernel launches")
+    mega_launches = launches["megakernel"]
+    phase("main-path", f"demo: {N_PASSES} passes of {W}x{H} 1 spp depth {DEPTH}: "
+          f"{dt:.2f} ms per pass, launches {launches}")
     print(json.dumps({
-        "metric": "camera_rays_per_s_1080p_path_depth10",
-        "value": W * H / dt,
-        "unit": "rays/s",
-        "device": device_name,
-        "power_limit": power_limit,
+        "metric": "camera_rays_per_s_1080p_path_depth10", "value": W * H / (dt / 1e3),
+        "unit": "rays/s", "device": device_name, "power_limit": power_limit,
     }), flush=True)
-
-    # where one pass's time goes: one more pass under the profiler, read by
-    # render_pass's stage ranges (host time) and the device's busy time
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        render.render_pass(scene, camera, film, settings, n_passes + 1, device=dev)
-        torch.cuda.synchronize()
-    # a range shows twice, as a host event and as an annotation on the
-    # device's timeline; the device is busy for its kernels and copies
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    host = {k: sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.name == f"render.{k}" and e.device_type == cpu) / 1e3
-            for k in ("band_rays", "li", "splat")}
-    device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == cuda and not e.name.startswith("render.")) / 1e3
-    busy = (f"device busy {device_ms:.3f} ms, idle {1.0 - device_ms / (dt * 1e3):.4f} "
-            f"of a timed pass" if device_ms > 0 else "device time not measured")
-    phase("main-path", "one profiled pass, host ms by range: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
-          + f"; {busy}; the kernel is {4 * kernel_ms:.2f} ms (4 launches x "
-          f"{kernel_ms:.3f} ms)")
+    phase("main-path", "demo: " + profiled_pass(render, scene, camera, film, settings, dev, dt)
+          + f"; the kernel is {4 * kernel_ms:.2f} ms (4 launches x {kernel_ms:.3f} ms)")
 
     settings4 = demo_settings(W, H, spp=4, samples_per_pass=1)
-    megakernel.LAUNCHES.clear()
+    _build.LAUNCHES.clear()
     t0 = time.perf_counter()
     img = render.render(scene, camera, settings4, device=dev)
     torch.cuda.synchronize()
@@ -259,25 +539,78 @@ def main() -> int:
         raise AssertionError(f"render: image is black (mean {img_mean})")
     if not png.startswith(b"\x89PNG\r\n\x1a\n"):
         raise AssertionError("write_png: not a PNG")
-    phase("render", f"{W}x{H} 4 spp in {render_s:.3f} s "
-          f"({megakernel.LAUNCHES['megakernel']} launches), image mean {img_mean:.4f}, "
+    phase("render", f"demo {W}x{H} 4 spp in {render_s:.3f} s "
+          f"({_build.LAUNCHES['megakernel']} launches), image mean {img_mean:.4f}, "
           f"PNG {len(png)} bytes")
 
+    # config 1: direct lighting depth 3, one light per vertex
+    dt1, launches1, film1 = timed_passes(render, film_mod, scene1, camera1, set1, dev)
+    want = {"intersect": 16 * N_PASSES, "intersect_any": 12 * N_PASSES}
+    if launches1 != want:
+        raise AssertionError(f"config-1 main path launched {launches1} in {N_PASSES} "
+                             f"passes, expected {want}")
+    phase("main-path", f"config 1: {N_PASSES} passes of {W}x{H} 1 spp direct depth "
+          f"{set1.max_depth}: {dt1:.2f} ms per pass, launches {launches1}")
+    print(json.dumps({
+        "metric": "camera_rays_per_s_1080p_direct_depth3", "value": W * H / (dt1 / 1e3),
+        "unit": "rays/s", "device": device_name, "power_limit": power_limit,
+    }), flush=True)
+    img1 = film_mod.develop(film1)
+    if not (bool(torch.isfinite(img1).all()) and float(img1.mean()) > 0.01):
+        raise AssertionError("config 1: bad image")
+    k1 = timing["intersect"][0] * 16 + timing["intersect_any"][0] * 12
+    phase("main-path", "config 1: " + profiled_pass(render, scene1, camera1, film1, set1,
+                                                     dev, dt1)
+          + f"; the kernels are ~{k1:.2f} ms (16 + 12 launches at the first launches' times)")
+
+    # outside the fast path: the general chain, path depth 5
+    fscene, fcam = feature_scene(dev)
+    fset = render.RenderSettings(width=W, height=H, spp=1, max_depth=5, seed=5)
+    if fscene.fastinfo.ok:
+        raise AssertionError("the feature scene should lie outside the fast path")
+    dtf, launchesf, filmf = timed_passes(render, film_mod, fscene, fcam, fset, dev)
+    imgf = film_mod.develop(filmf)
+    if not (launchesf.get("intersect", 0) > 0 and launchesf.get("intersect_any", 0) > 0
+            and "megakernel" not in launchesf):
+        raise AssertionError(f"feature scene launched {launchesf}")
+    if not (bool(torch.isfinite(imgf).all()) and float(imgf.mean()) > 0.01):
+        raise AssertionError(f"feature scene: bad image (mean {float(imgf.mean())})")
+    fcalls = []
+    _, fo, fd, fpix, fsmp = render.band_rays(fcam, fset, band_rows, band_rows, 0)
+    with recording(fcalls):
+        integrators.li(fscene, fo, fd, fpix, fsmp, fset.seed, render.path_config(fset),
+                       cone=render._cone(fcam, fset))
+    fagree = []
+    for i, call in enumerate(fcalls):
+        agree, _, ids = check_intersect_call(*call)
+        check_agreement(f"feature scene {call[0]} launch {i}", agree, ids)
+        fagree.append(agree)
+    phase("main-path", f"feature scene (plastic, metal, Oren-Nayar, triangle, disk lamp, "
+          f"uv checker, power lights): {N_PASSES} passes of {W}x{H} 1 spp path depth 5: "
+          f"{dtf:.2f} ms per pass, launches {launchesf}, image mean {float(imgf.mean()):.4f}; "
+          f"kernels vs plain on one band's {len(fcalls)} launches: min agreement "
+          f"{min(fagree):.6f}")
+
     # ---- 5. kernels line ------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "megakernel",
-        "route": "cuda",
+    line = [{
+        "name": "megakernel", "route": "cuda",
         "source": "gopbrt_tpu_torch/csrc/megakernel.cu",
         "replaces": "gopbrt_tpu/ops/pallas_megakernel.py:255",
-        "launches": launches,
-        "launches_per_pass": launches // n_passes,
-        "max_abs_err": max_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}), flush=True)
+        "launches": mega_launches, "launches_per_pass": mega_launches // N_PASSES,
+        "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": mega_bound[0], "bound_by": mega_bound[1], "library_ms": None,
+    }]
+    for kind, line_no in (("intersect", 172), ("intersect_any", 276)):
+        k_ms, p_ms, b_ms, b_by = timing[kind]
+        line.append({
+            "name": kind, "route": "cuda", "source": "gopbrt_tpu_torch/csrc/intersect.cu",
+            "replaces": f"gopbrt_tpu/ops/pallas_intersect.py:{line_no}",
+            "launches": launches1[kind], "launches_per_pass": launches1[kind] // N_PASSES,
+            "max_abs_err": worst[kind][1], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -10,6 +10,7 @@ parallel, one ``nvcc`` each.  A failed build raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -26,15 +27,24 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# ctypes signature of each library's entry point
+# Launches of the CUDA kernels, by kernel name ("megakernel", "intersect",
+# "intersect_any").  Each wrapper adds one where it launches its kernel and
+# nowhere else; callers reset it with LAUNCHES.clear().
+LAUNCHES: collections.Counter = collections.Counter()
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# ctypes signature of each library's entry points, by library (source stem)
 _SIGNATURES = {
-    "megakernel": (
-        "gopbrt_path_li",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_uint]
-        + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                  ctypes.c_int, ctypes.c_void_p],
-    ),
+    "megakernel": {
+        "gopbrt_path_li":
+            [_P] * 5 + [_I, _P, _I, _I, _I, ctypes.c_uint]
+            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P],
+    },
+    "intersect": {
+        # o, d, t_max, n, ptype, w2o, params, n_prims, flags, outputs, stream
+        "gopbrt_intersect": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "gopbrt_intersect_any": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+    },
 }
 
 
@@ -84,10 +94,10 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str = "megakernel") -> ctypes.CDLL:
-    """The built library ``name`` with its entry point's ctypes signature."""
+    """The built library ``name`` with its entry points' ctypes signatures."""
     lib = ctypes.CDLL(build()[name]["path"])
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -3,11 +3,11 @@
 Counterpart of ``gopbrt_tpu/models/render.py``: ``RenderSettings``,
 ``camera_samples``, ``band_jitter_radiance``, ``render_wave_rows``,
 ``render_pass`` and ``render``.  Where the JAX driver scans the bands under
-``jit``, this one is a Python loop: one megakernel launch per band.  Crop
-windows, checkpoints, the Halton sampler and the direct integrator are a
-later slice and raise.  Each band's three stages run inside profiler ranges
-(``render.band_rays``, ``render.li``, ``render.splat``) that a
-``torch.profiler`` trace shows.
+``jit``, this one is a Python loop: one ``li`` (path) or ``li_direct``
+(direct lighting) call per band.  Crop windows, checkpoints, the Halton
+sampler and filters other than the box are a later slice and raise.  Each
+band's three stages run inside profiler ranges (``render.band_rays``,
+``render.li``, ``render.splat``) that a ``torch.profiler`` trace shows.
 """
 
 from __future__ import annotations
@@ -36,7 +36,11 @@ class RenderSettings(NamedTuple):
     max_depth: int = 5
     rr_threshold: float = 1.0
     seed: int = 0
-    integrator: str = "path"
+    integrator: str = "path"  # or "direct"
+    # NEE light strategy of the direct integrator: "one" =
+    # UniformSampleOneLight, "all" = every light at every vertex
+    # (directlighting.go:10-15, integrator.go:23-46)
+    light_strategy: str = "one"
     stratify: bool = True
     sampler: str = "stratified"  # or "random"
     filter: Filter = box_filter(1.0)
@@ -112,14 +116,20 @@ def band_jitter_radiance(scene, camera: cam_mod.Camera, settings: RenderSettings
                          row0: int, n_rows: int, sample_idx: int):
     """One sample for every pixel of the band of ``n_rows`` image rows from
     ``row0`` -> (jitter f32[rows,W,2], L f32[rows,W,3])."""
-    if settings.integrator != "path":
-        _not_ported(f"the {settings.integrator!r} integrator")
+    if settings.integrator not in ("path", "direct"):
+        raise ValueError(f"unknown integrator {settings.integrator!r}")
     with record_function("render.band_rays"):
         jitter, o, d, pixel, sample = band_rays(camera, settings, row0, n_rows,
                                                 sample_idx)
     with record_function("render.li"):
-        L = integrators.li(scene, o, d, pixel, sample, settings.seed,
-                           path_config(settings), cone=_cone(camera, settings))
+        if settings.integrator == "direct":
+            L = integrators.li_direct(scene, o, d, pixel, sample, settings.seed,
+                                      max_depth=settings.max_depth,
+                                      cone=_cone(camera, settings),
+                                      light_strategy=settings.light_strategy)
+        else:
+            L = integrators.li(scene, o, d, pixel, sample, settings.seed,
+                               path_config(settings), cone=_cone(camera, settings))
     w = settings.width
     return jitter.reshape(n_rows, w, 2), L.reshape(n_rows, w, 3)
 

@@ -1,12 +1,16 @@
 """Scene construction: a host-side builder producing device SoA tables.
 
 Counterpart of ``gopbrt_tpu/models/scene.py``: ``Scene``, ``Materials`` and
-the subset of ``SceneBuilder`` that the slice runs — spheres and disks;
-matte, mirror and glass (smooth and rough); constant and planar-checker
-textures; point, distant and sphere-area lights under the uniform light
-distribution.  The builder runs in NumPy on the host and ``build`` ends in
-``torch.as_tensor(..., device=device)``.  It builds no BVH: scenes of at
-most 64 prims never read one on the main path.
+the subset of ``SceneBuilder`` that the port runs — spheres, disks and
+world-space triangles; matte (Lambert and Oren-Nayar), mirror, glass
+(smooth and rough), plastic and metal; constant, checkerboard (planar and
+uv mapping) and uv textures; point, distant, and sphere- and disk-area
+lights under the uniform or the power light distribution.  The builder runs
+in NumPy on the host and ``build`` ends in ``torch.as_tensor(...,
+device=device)``.  It builds no BVH: scenes of at most 64 prims never read
+one.  Image textures, bump mapping, subsurface and null materials, media,
+animation, the spatial light grid and scenes above 64 prims raise
+``NotImplementedError`` naming their ROADMAP item.
 
 ``scene_from_arrays`` carries a scene across from tables given as NumPy
 arrays, so the tests render identical tables in both packages.
@@ -22,13 +26,15 @@ import numpy as np
 import torch
 
 from gopbrt_tpu_torch import resolve_device
-from gopbrt_tpu_torch.ops import megakernel, sampling
-from gopbrt_tpu_torch.ops.bsdf import GLASS, MATTE, MIRROR, NULLMAT, PLASTIC
+from gopbrt_tpu_torch.ops import lights as lights_ops
+from gopbrt_tpu_torch.ops import brute_intersect, megakernel, sampling
+from gopbrt_tpu_torch.ops.bsdf import GLASS, MATTE, METAL, MIRROR, NULLMAT, PLASTIC
 from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
 from gopbrt_tpu_torch.ops.lights import (
     LIGHT_AREA,
     LIGHT_DISTANT,
     LIGHT_POINT,
+    SHAPE_DISK,
     SHAPE_SPHERE,
     Lights,
 )
@@ -38,6 +44,8 @@ from gopbrt_tpu_torch.ops.texture import (
     MAP_UV,
     TEX_CHECKERBOARD,
     TEX_CONSTANT,
+    TEX_IMAGE,
+    TEX_UV,
     Textures,
 )
 
@@ -69,6 +77,8 @@ class Scene(NamedTuple):
     world_center: torch.Tensor  # f32[3]
     world_radius: torch.Tensor  # f32[]
     fastinfo: Optional[FastPathInfo] = None
+    # the primitive table packed for the brute intersection, made once
+    brute: Optional[brute_intersect.BruteTable] = None
     # the megakernel's packed tables, made once where the scene fits it
     kernel: Optional[megakernel.KernelTables] = None
 
@@ -107,7 +117,7 @@ def _not_ported(what: str, item: str):
 class SceneBuilder:
     """Accumulates primitives / materials / textures / lights, then builds."""
 
-    light_strategy: str = "uniform"
+    light_strategy: str = "uniform"  # or "power" (lightdistribution.go:3-9)
 
     _prim_type: list = field(default_factory=list)
     _o2w: list = field(default_factory=list)
@@ -135,17 +145,20 @@ class SceneBuilder:
         self, tex1_rgb, tex2_rgb, vs=(1.0, 0, 0), vt=(0, 1.0, 0), ds=0.0,
         dt=0.0, mapping: str = "planar",
     ) -> int:
-        """Checkerboard of two constant colours with planar mapping
-        (checkerboard.go:15-40, texture.go:29-46)."""
-        if mapping != "planar":
-            _not_ported("uv-mapped checkerboards", "open item 1.7")
+        """Checkerboard of two constant colours (checkerboard.go:15-40) with
+        planar or uv mapping (texture.go:29-46)."""
         return self._add_texture(
             dict(type=TEX_CHECKERBOARD, v1=_rgb(tex1_rgb), v2=_rgb(tex2_rgb),
-                 mapping=MAP_PLANAR, vs=tuple(vs), vt=tuple(vt), dsdt=(ds, dt))
+                 mapping=MAP_PLANAR if mapping == "planar" else MAP_UV,
+                 vs=tuple(vs), vt=tuple(vt), dsdt=(ds, dt))
         )
 
     def uv_texture(self) -> int:
-        _not_ported("uv textures", "open item 1.7")
+        """The (u, v) debug texture."""
+        return self._add_texture(
+            dict(type=TEX_UV, v1=(0, 0, 0), v2=(0, 0, 0), mapping=MAP_UV,
+                 vs=(1, 0, 0), vt=(0, 1, 0), dsdt=(0, 0))
+        )
 
     def image_texture(self, image, su=1.0, sv=1.0) -> int:
         _not_ported("image textures", "open item 1.7")
@@ -180,11 +193,18 @@ class SceneBuilder:
         return self._add_material(mat_type=GLASS, kr=_rgb(kr), kt=_rgb(kt),
                                   eta=eta, roughness=alpha)
 
-    def plastic(self, *args, **kwargs) -> int:
-        _not_ported("plastic", "open item 1.4")
+    def plastic(self, kd=(0.5, 0.5, 0.5), kd_tex=-1, ks=(0.25, 0.25, 0.25),
+                roughness=0.1, remap_roughness=True) -> int:
+        """Plastic: Lambert + GGX reflection (PBRT parity)."""
+        alpha = _remap(roughness) if remap_roughness else roughness
+        return self._add_material(mat_type=PLASTIC, kd=_rgb(kd), kd_tex=kd_tex,
+                                  kr=_rgb(ks), eta=1.5, roughness=max(alpha, 1e-3))
 
-    def metal(self, *args, **kwargs) -> int:
-        _not_ported("metal", "open item 1.4")
+    def metal(self, f0=(0.9, 0.6, 0.3), roughness=0.05, remap_roughness=True) -> int:
+        """Metal: GGX reflection with a Schlick conductor Fresnel."""
+        alpha = _remap(roughness) if remap_roughness else roughness
+        return self._add_material(mat_type=METAL, kr=_rgb(f0),
+                                  roughness=max(alpha, 1e-3))
 
     def subsurface(self, *args, **kwargs) -> int:
         _not_ported("subsurface scattering", "open item 1.7")
@@ -223,11 +243,23 @@ class SceneBuilder:
             material, reverse_orientation,
         )
 
-    def triangle(self, *args, **kwargs) -> int:
-        _not_ported("triangles", "TPU kernels 2.1 and 2.4")
+    def triangle(self, p0, p1, p2, material: int, reverse_orientation=False) -> int:
+        """Single world-space triangle (PBRT parity; the reference has none)."""
+        return self._add_prim(TRIANGLE, np.eye(4, dtype=np.float32),
+                              list(p0) + list(p1) + list(p2), material,
+                              reverse_orientation)
 
-    def triangle_mesh(self, *args, **kwargs) -> list:
-        _not_ported("triangle meshes and the BVH", "TPU kernels 2.3 and 2.4")
+    def triangle_mesh(self, o2w, vertices, indices, material: int,
+                      reverse_orientation=False) -> list:
+        """Triangle mesh, its vertices moved to world space at build.  Only
+        meshes that keep the scene at most 64 prims build: the BVH is TPU
+        kernel 2.3's slice."""
+        verts = np.asarray(vertices, np.float32)
+        m = np.asarray(o2w, np.float32)
+        verts = verts @ m[:3, :3].T + m[:3, 3]
+        return [self.triangle(verts[a], verts[b], verts[c], material,
+                              reverse_orientation)
+                for a, b, c in np.asarray(indices, np.int64).reshape(-1, 3)]
 
     def animate(self, *args, **kwargs) -> None:
         _not_ported("animation", "open item 1.7")
@@ -261,13 +293,16 @@ class SceneBuilder:
                                intensity=_rgb(radiance))
 
     def area_light(self, prim_id: int, radiance, two_sided=False) -> int:
-        """Diffuse-area emission on an existing sphere (diffuse.go:12-34)."""
-        if self._prim_type[prim_id] != SPHERE:
-            _not_ported("disk area lights", "open item 1.7")
+        """Diffuse-area emission on an existing sphere or disk
+        (diffuse.go:12-34, primitive.go:24-44)."""
+        ptype = self._prim_type[prim_id]
+        if ptype not in (SPHERE, DISK):
+            raise ValueError("area lights need sphere or disk shapes")
         o2w = self._o2w[prim_id]
         lid = self._add_light(
             type=LIGHT_AREA, p=tuple(o2w[:3, 3]), intensity=_rgb(radiance),
-            two_sided=bool(two_sided), prim=prim_id, shape=SHAPE_SPHERE,
+            two_sided=bool(two_sided), prim=prim_id,
+            shape=SHAPE_SPHERE if ptype == SPHERE else SHAPE_DISK,
             o2w=o2w, params=self._params[prim_id],
         )
         self._area_light[prim_id] = lid
@@ -281,9 +316,12 @@ class SceneBuilder:
         if pt == SPHERE:
             r = pr[0]
             lo, hi = np.array([-r, -r, pr[1]]), np.array([r, r, pr[2]])
-        else:
+        elif pt == DISK:
             r = pr[1]
             lo, hi = np.array([-r, -r, pr[0] - 1e-3]), np.array([r, r, pr[0] + 1e-3])
+        else:
+            v = pr.reshape(3, 3)
+            return v.min(axis=0), v.max(axis=0)
         corners = np.array(
             [[lo[0], lo[1], lo[2]], [hi[0], lo[1], lo[2]], [lo[0], hi[1], lo[2]],
              [hi[0], hi[1], lo[2]], [lo[0], lo[1], hi[2]], [hi[0], lo[1], hi[2]],
@@ -309,7 +347,7 @@ class SceneBuilder:
         if n > 64:
             _not_ported("scenes above 64 prims (BVH and clusters)",
                         "TPU kernels 2.3 and 2.4")
-        if self.light_strategy != "uniform":
+        if self.light_strategy not in ("uniform", "power"):
             _not_ported(f"the {self.light_strategy!r} light distribution",
                         "open item 1.6")
         if not self._materials:
@@ -355,6 +393,7 @@ class SceneBuilder:
         l_o2w = np.stack([r["o2w"] for r in lights])
         lo, hi = self.world_bounds()
         center = 0.5 * (lo + hi)
+        radius = float(np.linalg.norm(hi - center))
         arrays = {
             "prims.prim_type": ptypes,
             "prims.obj_to_world": o2w,
@@ -390,12 +429,16 @@ class SceneBuilder:
             "lights.w2o": np.linalg.inv(l_o2w.astype(np.float64)).astype(np.float32),
             "lights.params": np.stack([r["params"] for r in lights]),
             "world_center": center,
-            "world_radius": float(np.linalg.norm(hi - center)),
+            "world_radius": radius,
         }
-        # uniform light distribution (lightdistribution.go:3-9)
-        lf, lcdf, lint = sampling.distribution_1d(
-            torch.ones((max(len(lights), 1),), dtype=torch.float32)
-        )
+        # the light distribution (lightdistribution.go:3-9, 46-68)
+        if self.light_strategy == "power" and self._lights:
+            table = {k.split(".", 1)[1]: _as_table(arrays[k], "cpu")
+                     for k in arrays if k.startswith("lights.")}
+            weights = lights_ops.power(Lights(**table), radius)
+        else:
+            weights = torch.ones((len(lights),), dtype=torch.float32)
+        lf, lcdf, lint = sampling.distribution_1d(weights)
         arrays.update(light_func=lf.numpy(), light_cdf=lcdf.numpy(),
                       light_func_int=lint.numpy())
         infos = dict(pinfo=asdict(pinfo), minfo=asdict(minfo),
@@ -476,6 +519,8 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
         return {f: _as_table(arrays[f"{name}.{f}"], device)
                 for f in ARRAY_FIELDS[name]}
 
+    if TEX_IMAGE in np.asarray(arrays["textures.tex_type"]).tolist():
+        _not_ported("image textures", "open item 1.7")
     pinfo = PrimInfo(**{**infos["pinfo"], "types": tuple(infos["pinfo"]["types"])})
     minfo = MatInfo(**{**infos["minfo"],
                        "mat_types": tuple(infos["minfo"]["mat_types"])})
@@ -488,6 +533,7 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
         fastinfo=FastPathInfo(**infos["fastinfo"]),
         **top,
     )
+    scene = scene._replace(brute=brute_intersect.brute_table(scene.prims))
     if megakernel.fits(scene):
         scene = scene._replace(kernel=megakernel.kernel_tables(scene))
     return scene

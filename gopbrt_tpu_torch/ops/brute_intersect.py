@@ -1,10 +1,17 @@
-"""Brute-force ray-primitive tests in plain PyTorch.
+"""Brute-force ray intersection: the plain PyTorch tests and the wrappers of
+the CUDA kernels.
 
-Counterpart of the math of ``gopbrt_tpu/ops/pallas_intersect.py::_prim_test``
-(sphere with z/phi clips, disk annulus with the phi wedge, world-space
-Moller-Trumbore triangle) and of the closest-hit loop of its kernels.  The
-CUDA twin of ``prim_test`` is ``csrc/prim_test.cuh``; the bounce megakernel
-(``ops/megakernel.py``) inlines both.
+Counterpart of ``gopbrt_tpu/ops/pallas_intersect.py``: ``prim_test`` is the
+math of ``_prim_test`` (sphere with z/phi clips, disk annulus with the phi
+wedge, world-space Moller-Trumbore triangle); ``intersect_brute`` and
+``intersect_p_brute`` are the plain versions of ``_intersect_kernel`` and
+``_intersect_any_kernel``.  Their kernels are ``csrc/intersect.cu``, launched
+by ``intersect_brute_fused`` and ``intersect_p_brute_fused``: on CUDA
+tensors these launch the kernel (and count it in ``_build.LAUNCHES``), on
+CPU tensors they run the plain version.  The CUDA twin of ``prim_test`` is
+``csrc/prim_test.cuh``, which the bounce megakernel (``ops/megakernel.py``)
+inlines too.  All of them read the table as ``brute_table`` packs it, once
+per scene (``Scene.brute``).
 
 One primitive is tested against a batch of rays: the primitive's entries
 are Python floats holding float32 values (a table row read on the host),
@@ -17,10 +24,12 @@ the TPU kernel's SMEM scalars do.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
 
 BIG = 1e30
@@ -48,13 +57,13 @@ def prim_test(ptype: int, m, pr, ox, oy, oz, dx, dy, dz, t_limit,
     ops/intersect.Primitives); t_limit: f32[N].  tally: optional dict that
     counts, over the lanes of the bool mask ``active``, the tests one thread
     per ray makes: "sphere_tests", "sphere_roots" (spheres whose
-    discriminant passes) and "disk_tests".
+    discriminant passes), "disk_tests" and "triangle_tests".
     """
+    if tally is not None:
+        key = {SPHERE: "sphere_tests", DISK: "disk_tests"}.get(ptype, "triangle_tests")
+        tally[key] = tally.get(key, 0) + int(active.sum())
     if ptype == TRIANGLE:
         return _triangle(pr, ox, oy, oz, dx, dy, dz, t_limit)
-    if tally is not None:
-        key = "sphere_tests" if ptype == SPHERE else "disk_tests"
-        tally[key] = tally.get(key, 0) + int(active.sum())
     oox = m[0] * ox + m[1] * oy + m[2] * oz + m[3]
     ooy = m[4] * ox + m[5] * oy + m[6] * oz + m[7]
     ooz = m[8] * ox + m[9] * oy + m[10] * oz + m[11]
@@ -148,61 +157,172 @@ def _triangle(pr, ox, oy, oz, dx, dy, dz, t_limit):
     return torch.where(vt, tt, BIG)
 
 
-def prim_rows(prims: Primitives):
-    """(ptype, w2o 12-entry row, params row) per primitive, on the host."""
-    ptype = prims.prim_type.cpu().tolist()
-    w2o = prims.world_to_obj[:, :3, :].reshape(-1, 12).cpu().tolist()
-    params = prims.params.cpu().tolist()
-    return list(zip(ptype, w2o, params))
+FLAG_FULL_SPH = 1
+FLAG_FULL_DISK = 2
 
 
-def _full_flags(pinfo):
-    if pinfo is None:
-        return False, False
-    return pinfo.all_full_spheres, pinfo.all_full_disks
+class BruteTable(NamedTuple):
+    """The primitive table as the brute intersection reads it, packed once
+    per scene (``models/scene.scene_from_arrays`` stores it as
+    ``Scene.brute``): the kernels read the device tensors, the plain
+    versions the same rows on the host."""
+
+    ptype: torch.Tensor  # int32[P]
+    w2o: torch.Tensor  # f32[P,12]: world->object, row-major 3x4
+    params: torch.Tensor  # f32[P,9]
+    rows: list  # (ptype, w2o row, params row) per primitive, host floats
+    # all spheres full / all disks full: static on the TPU
+    # (pallas_intersect.py:240-246); when set, the partial-shape clips are
+    # skipped
+    full_sph: bool
+    full_disk: bool
+
+    @property
+    def count(self) -> int:
+        return len(self.rows)
+
+    @property
+    def flags(self) -> int:
+        return (FLAG_FULL_SPH if self.full_sph else 0) | (
+            FLAG_FULL_DISK if self.full_disk else 0)
 
 
-def closest_hit(rows, pinfo, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
+def brute_table(prims: Primitives) -> BruteTable:
+    """Pack ``prims`` for the intersection kernels and their plain versions."""
+    ptype = prims.prim_type.to(torch.int32).contiguous()
+    w2o = prims.world_to_obj[:, :3, :].reshape(prims.count, 12).contiguous()
+    params = prims.params.contiguous()
+    rows = list(zip(ptype.tolist(), w2o.tolist(), params.tolist()))
+    pinfo = prims.pinfo
+    return BruteTable(ptype, w2o, params, rows,
+                      pinfo is not None and pinfo.all_full_spheres,
+                      pinfo is not None and pinfo.all_full_disks)
+
+
+def closest_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
                 active=None):
     """Brute closest hit over the table rows -> (t_best, idx_best), idx -1
     on a miss (the megakernel's ``closest_hit``, pallas_megakernel.py:290).
     tally / active: see ``prim_test``; every active lane tests every row."""
-    full_sph, full_disk = _full_flags(pinfo)
     t_best = t_limit
     idx_best = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
-    for p, (ptype, m, pr) in enumerate(rows):
+    for p, (ptype, m, pr) in enumerate(table.rows):
         tp = prim_test(ptype, m, pr, ox, oy, oz, dx, dy, dz, t_best,
-                       full_sph=full_sph, full_disk=full_disk, tally=tally,
-                       active=active)
+                       full_sph=table.full_sph, full_disk=table.full_disk,
+                       tally=tally, active=active)
         better = tp < t_best
         t_best = torch.where(better, tp, t_best)
         idx_best = torch.where(better, p, idx_best)
     return t_best, idx_best
 
 
-def first_hit(rows, pinfo, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
+def first_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
               active=None):
     """Index of the first row (in table order) hit closer than ``t_limit``,
     -1 where none is: the any-hit loop of csrc/megakernel.cu ``occluded``,
     which stops at that row.  Some row is hit exactly where the closest
     hit under ``t_limit`` exists.  tally / active: see ``prim_test``; a lane
     stops counting after its first hit."""
-    full_sph, full_disk = _full_flags(pinfo)
     first = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
-    for p, (ptype, m, pr) in enumerate(rows):
+    for p, (ptype, m, pr) in enumerate(table.rows):
         testing = None if tally is None else active & (first < 0)
         tp = prim_test(ptype, m, pr, ox, oy, oz, dx, dy, dz, t_limit,
-                       full_sph=full_sph, full_disk=full_disk, tally=tally,
-                       active=testing)
+                       full_sph=table.full_sph, full_disk=table.full_disk,
+                       tally=tally, active=testing)
         first = torch.where((first < 0) & (tp < t_limit), p, first)
     return first
 
 
-def intersect_brute(prims: Primitives, o: torch.Tensor, d: torch.Tensor,
+def intersect_brute(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
                     t_max: torch.Tensor):
     """Closest hit (hit[N], t[N], prim_idx[N]) over the whole table — the
     plain counterpart of ``intersect_brute_pallas``."""
-    t, idx = closest_hit(prim_rows(prims), prims.pinfo, o[:, 0], o[:, 1],
-                         o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max)
+    t, idx = closest_hit(table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                         d[:, 2], t_max)
     hit = idx >= 0
     return hit, torch.where(hit, t, t_max), torch.clamp(idx, min=0)
+
+
+def intersect_p_brute(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
+                      t_max: torch.Tensor) -> torch.Tensor:
+    """Any hit closer than t_max (bool[N]) — the plain counterpart of
+    ``intersect_p_brute_pallas``: some row is hit in range."""
+    return first_hit(table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                     t_max) >= 0
+
+
+# ---------------------------------------------------------------------------
+# The wrappers of csrc/intersect.cu
+# ---------------------------------------------------------------------------
+
+
+def _check_rays(table: BruteTable, o, d, t_max):
+    if o.dtype != torch.float32 or d.dtype != torch.float32 or t_max.dtype != torch.float32:
+        raise TypeError("o, d and t_max must be float32")
+    n = o.shape[0]
+    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape or t_max.shape != (n,):
+        raise ValueError(f"o, d must be [N, 3] and t_max [N], got {tuple(o.shape)}, "
+                         f"{tuple(d.shape)}, {tuple(t_max.shape)}")
+    dev = o.device
+    if d.device != dev or t_max.device != dev or table.params.device != dev:
+        raise ValueError("rays, t_max and the primitive table must lie on one device")
+
+
+def _kernel_args(table: BruteTable, o, d, t_max):
+    """Pointers and scalars of a launch, all from tensors the caller holds
+    across the launch."""
+    if o.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
+    if not (o.is_contiguous() and d.is_contiguous() and t_max.is_contiguous()):
+        raise ValueError("o, d and t_max must be contiguous")
+    return (o.data_ptr(), d.data_ptr(), t_max.data_ptr(), o.shape[0],
+            table.ptype.data_ptr(), table.w2o.data_ptr(), table.params.data_ptr(),
+            table.count, table.flags)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def intersect_brute_fused(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
+                          t_max: torch.Tensor):
+    """Closest hit (hit bool[N], t f32[N], prim_idx int32[N]); t is t_max and
+    prim 0 on a miss.  CUDA tensors launch ``gopbrt_intersect`` of
+    csrc/intersect.cu on the current stream; CPU tensors run
+    ``intersect_brute``."""
+    _check_rays(table, o, d, t_max)
+    if o.device.type == "cpu":
+        return intersect_brute(table, o, d, t_max)
+    n = o.shape[0]
+    hit = torch.empty((n,), dtype=torch.bool, device=o.device)
+    t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=o.device)
+    if n == 0:
+        return hit, t, idx
+    fn = _build.load("intersect").gopbrt_intersect
+    err = fn(*_kernel_args(table, o, d, t_max), hit.data_ptr(), t.data_ptr(),
+             idx.data_ptr(), _stream(o.device))
+    if err != 0:
+        raise RuntimeError(f"intersect launch failed: cudaError_t {err}")
+    _build.LAUNCHES["intersect"] += 1
+    return hit, t, idx
+
+
+def intersect_p_brute_fused(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
+                            t_max: torch.Tensor) -> torch.Tensor:
+    """Any hit closer than t_max (bool[N]).  CUDA tensors launch
+    ``gopbrt_intersect_any`` of csrc/intersect.cu on the current stream;
+    CPU tensors run ``intersect_p_brute``."""
+    _check_rays(table, o, d, t_max)
+    if o.device.type == "cpu":
+        return intersect_p_brute(table, o, d, t_max)
+    n = o.shape[0]
+    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
+    if n == 0:
+        return occ
+    fn = _build.load("intersect").gopbrt_intersect_any
+    err = fn(*_kernel_args(table, o, d, t_max), occ.data_ptr(), _stream(o.device))
+    if err != 0:
+        raise RuntimeError(f"intersect_any launch failed: cudaError_t {err}")
+    _build.LAUNCHES["intersect_any"] += 1
+    return occ

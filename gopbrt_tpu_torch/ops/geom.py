@@ -20,13 +20,25 @@ PI = math.pi
 INV_PI = 1.0 / math.pi
 ONE_MINUS_EPSILON = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 SHADOW_EPSILON = 1e-4  # pkg/math/math.go:19
+# f32 machine epsilon / 2, the intended pkg/math/math.go:17 (geom.py:53)
+MACHINE_EPSILON = float(np.finfo(np.float32).eps) / 2.0
 
 _F32 = torch.float32
+
+
+def gamma(n: int) -> float:
+    """PBRT's conservative rounding-error bound n*eps / (1 - n*eps)."""
+    ne = n * MACHINE_EPSILON
+    return ne / (1 - ne)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 3-vector dot product -> [...]."""
     return torch.sum(a * b, dim=-1)
+
+
+def absdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.abs(dot(a, b))
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,6 +47,27 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def length_sq(v: torch.Tensor) -> torch.Tensor:
     return torch.sum(v * v, dim=-1)
+
+
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(length_sq(v))
+
+
+def face_forward(n: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Flip n into the hemisphere of v (pkg/geometry FaceForward)."""
+    return torch.where(dot(n, v)[..., None] < 0.0, -n, n)
+
+
+def spherical_direction(sin_theta, cos_theta, phi) -> torch.Tensor:
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                        cos_theta], dim=-1)
+
+
+def spherical_direction_xyz(sin_theta, cos_theta, phi, x, y, z) -> torch.Tensor:
+    """Spherical direction in the frame (x, y, z)."""
+    return (x * (sin_theta * torch.cos(phi))[..., None]
+            + y * (sin_theta * torch.sin(phi))[..., None]
+            + z * cos_theta[..., None])
 
 
 def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -141,3 +174,55 @@ def apply_point_affine(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def apply_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", m[..., :3, :3], v)
+
+
+# Per-lane transforms (m f32[N,4,4] gathered per lane) as products and
+# sums of the rows: elementwise ops, no batched matrix product.
+
+
+def _rows_dot(m3: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m3 @ v per lane: m3 f32[...,3,3], v f32[...,3]."""
+    return torch.sum(m3 * v[..., None, :], dim=-1)
+
+
+def lane_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """apply_point_affine for per-lane matrices."""
+    return _rows_dot(m[..., :3, :3], p) + m[..., :3, 3]
+
+
+def lane_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """apply_vector for per-lane matrices."""
+    return _rows_dot(m[..., :3, :3], v)
+
+
+def apply_normal(m_inv: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Normals transform by the inverse transpose (TransformNormal)."""
+    return _rows_dot(m_inv[..., :3, :3].transpose(-1, -2), n)
+
+
+def apply_point_error(m: torch.Tensor, p: torch.Tensor):
+    """Transformed point and its abs-error bound (transform.go:238-265):
+    gamma(3) * (|M| |p| + |t|)."""
+    err = gamma(3) * (_rows_dot(torch.abs(m[..., :3, :3]), torch.abs(p))
+                      + torch.abs(m[..., :3, 3]))
+    return lane_point(m, p), err
+
+
+def _nextafter_away(po: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """Each component of po one ulp away from zero where offset != 0.  The
+    forward pass only: the identity JVP of geom.py:335 comes with the
+    gradients slice."""
+    inf = torch.tensor(float("inf"), dtype=po.dtype, device=po.device)
+    up = torch.where(po > 0, torch.nextafter(po, inf), po)
+    dn = torch.where(po < 0, torch.nextafter(po, -inf), po)
+    return torch.where(offset > 0, up, torch.where(offset < 0, dn, po))
+
+
+def offset_ray_origin(p: torch.Tensor, p_err: torch.Tensor, n: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """Robust spawn point (ray.go:57-74): offset by dot(|n|, p_err) along
+    +-n toward w, then round away from p."""
+    d = dot(torch.abs(n), p_err)
+    offset = d[..., None] * n
+    offset = torch.where(dot(w, n)[..., None] < 0.0, -offset, offset)
+    return _nextafter_away(p + offset, offset)

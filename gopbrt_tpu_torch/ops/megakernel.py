@@ -15,13 +15,13 @@ The forward pass only: gradients (path replay) are a later slice.
 
 from __future__ import annotations
 
-import collections
 from typing import NamedTuple
 
 import torch
 
+from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.ops import rng
-from gopbrt_tpu_torch.ops.brute_intersect import BIG, closest_hit, first_hit, prim_rows
+from gopbrt_tpu_torch.ops.brute_intersect import BIG, closest_hit, first_hit
 from gopbrt_tpu_torch.ops.geom import INV_PI, PI, SHADOW_EPSILON
 from gopbrt_tpu_torch.ops.rng import (
     D_BSDF_LOBE,
@@ -33,10 +33,6 @@ from gopbrt_tpu_torch.ops.rng import (
     DIMS_PER_BOUNCE,
 )
 
-# Launches of the CUDA kernel, by kernel name.  The launch callable of
-# make_launch (which path_li_fused calls) adds one per launch; callers reset
-# it with LAUNCHES.clear().
-LAUNCHES: collections.Counter = collections.Counter()
 
 # shade-table column layout (per primitive, f32[P, SH_K]) — the layout of
 # pallas_megakernel.py:70-88
@@ -104,6 +100,9 @@ OPS_PER_EVENT = {
     "sphere_tests": 62,
     "sphere_roots": 18,
     "disk_tests": 49,  # prim_test.cuh:87-92, 120-125, + the sweep's compare
+    # prim_test.cuh:67-84 + the sweep's compare (csrc/intersect.cu only: the
+    # megakernel's scenes have no triangles)
+    "triangle_tests": 61,
     # a lane that hit: winner geometry :374-409, :439, shading frame
     # :470-488, BSDF sample inputs :621-623
     "hits": 204,
@@ -213,7 +212,7 @@ def pack_tables(scene) -> torch.Tensor:
     prims = scene.prims
     ltype, lpos, lint, laux = light_tables(scene)
     parts = dict(
-        w2o=prims.world_to_obj[:, :3, :].reshape(prims.count, 12),
+        w2o=scene.brute.w2o,
         params=prims.params,
         shade=shade_table(scene),
         ptype=prims.prim_type[:, None],
@@ -415,7 +414,6 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
     dev = o.device
     f32 = torch.float32
     prims = scene.prims
-    rows = prim_rows(prims)
     n_lights = scene.lights.count
     fi = scene.fastinfo
     any_glass = fi.has_glass or fi.has_rough_glass
@@ -431,7 +429,7 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
         return torch.cat([t, torch.zeros((1, t.shape[1]), dtype=f32, device=dev)])
 
     shade_t = with_zero_row(shade_table(scene))
-    w2o_t = with_zero_row(prims.world_to_obj[:, :3, :].reshape(prims.count, 12))
+    w2o_t = with_zero_row(scene.brute.w2o)
     rad_t = with_zero_row(prims.params[:, :1])[:, 0]
     ptf_t = with_zero_row(prims.prim_type.to(f32)[:, None])[:, 0]
     ltype, lpos, lint, laux = light_tables(scene)
@@ -468,7 +466,7 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
             return rng.u32_to_unit(rng.hash_combine(h_ps, dim0 + off))
 
         # ---- closest hit ------------------------------------------------
-        t, idx = closest_hit(rows, prims.pinfo, ox, oy, oz, dx, dy, dz,
+        t, idx = closest_hit(scene.brute, ox, oy, oz, dx, dy, dz,
                              torch.full((n,), BIG, dtype=f32, device=dev),
                              tally=counts, active=alive)
         hit = (idx >= 0) & alive
@@ -784,7 +782,7 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
             t_sh = torch.clamp(dist * (1.0 - SHADOW_EPSILON) - 1e-3, min=1e-4)
             t_sh = torch.where(contributes, t_sh, 1e-6)
             count("shadow_rays", contributes)
-            sh_first = first_hit(rows, prims.pinfo, shx, shy, shz, wix, wiy, wiz, t_sh,
+            sh_first = first_hit(scene.brute, shx, shy, shz, wix, wiy, wiz, t_sh,
                                  tally=counts, active=contributes)
             vis = contributes & (sh_first < 0)
             count("unoccluded", vis)
@@ -1027,8 +1025,6 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     if out.shape != o.shape or out.dtype != torch.float32 or out.device != o.device:
         raise ValueError("out must be float32 [N, 3] on the rays' device")
 
-    from gopbrt_tpu_torch import _build
-
     fn = _build.load().gopbrt_path_li
     kt = scene.kernel
     if kt is None:
@@ -1051,7 +1047,7 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
         err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
-        LAUNCHES["megakernel"] += 1
+        _build.LAUNCHES["megakernel"] += 1
         return out
 
     return launch

@@ -1,8 +1,10 @@
-"""The texture table and its tags.
+"""The texture table and its evaluation at hit points.
 
-Counterpart of the table types of ``gopbrt_tpu/ops/texture.py``.  Constant
-and planar-checker kd (with the ray-cone box filter) are evaluated inside
-the bounce megakernel (``ops/megakernel.py``).
+Counterpart of ``gopbrt_tpu/ops/texture.py``: the table types and
+``eval_spectrum`` with ``_st`` (uv and planar mapping), ``_bump_int`` and
+``_checker_filtered`` (the ray-cone box filter).  Constant, checkerboard
+and uv textures are ported; the image atlas (``_image_lookup``) waits for
+the builder's ``image_texture`` and evaluates to black here.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from gopbrt_tpu_torch.ops.geom import dot
 
 TEX_CONSTANT = 0
 TEX_CHECKERBOARD = 1
@@ -27,8 +31,70 @@ class Textures(NamedTuple):
     value1: torch.Tensor  # f32[T,3]
     value2: torch.Tensor  # f32[T,3]
     mapping: torch.Tensor  # int32[T]
-    vs: torch.Tensor  # f32[T,3]  planar s axis
-    vt: torch.Tensor  # f32[T,3]  planar t axis
+    vs: torch.Tensor  # f32[T,3]  planar s axis (or [su, sv, 0] for uv)
+    vt: torch.Tensor  # f32[T,3]  planar t axis (or [du, dv, 0] for uv)
     dsdt: torch.Tensor  # f32[T,2] offsets
     atlas: torch.Tensor  # f32[H,W,3] image atlas (1x1 black if unused)
     image_rect: torch.Tensor  # int32[T,4]
+
+
+def _st(tex: Textures, tex_id, p, uv):
+    """Mapped (s, t) (UVMapping2D.Map / PlanarMapping2D.Map)."""
+    mapping = tex.mapping[tex_id]
+    vs = tex.vs[tex_id]
+    vt = tex.vt[tex_id]
+    ds = tex.dsdt[tex_id]
+    s_uv = uv[..., 0] * vs[..., 0] + ds[..., 0]
+    t_uv = uv[..., 1] * vt[..., 1] + ds[..., 1]
+    s_pl = ds[..., 0] + dot(p, vs)
+    t_pl = ds[..., 1] + dot(p, vt)
+    is_uv = mapping == MAP_UV
+    return torch.where(is_uv, s_uv, s_pl), torch.where(is_uv, t_uv, t_pl)
+
+
+def _bump_int(x):
+    """Closed-form integral of the checker parity from 0 to x."""
+    h = x * 0.5
+    return torch.floor(h) + 2.0 * torch.clamp(h - torch.floor(h) - 0.5, min=0.0)
+
+
+def _checker_filtered(v1, v2, s, t, fw_s, fw_t):
+    """Box-filtered checkerboard over the (s, t) footprint: the exact
+    fractional coverage of the two colours."""
+    ds = torch.clamp(fw_s, min=1e-8)
+    dt = torch.clamp(fw_t, min=1e-8)
+    s_int = (_bump_int(s + ds) - _bump_int(s - ds)) / (2.0 * ds)
+    t_int = (_bump_int(t + dt) - _bump_int(t - dt)) / (2.0 * dt)
+    area2 = torch.clamp(s_int + t_int - 2.0 * s_int * t_int, 0.0, 1.0)
+    return v1 * (1.0 - area2)[..., None] + v2 * area2[..., None]
+
+
+def eval_spectrum(tex: Textures, tex_id, p, uv, fw=None):
+    """Spectrum texture ``tex_id`` (per lane) at p / uv -> rgb f32[N,3].
+
+    Checkerboard: floor(s) + floor(t) parity (checkerboard.go:30-40), or
+    with a footprint ``fw`` (f32[N], world units, from the ray cone) the
+    box-filtered closed form.  tex_id < 0 gives black.
+    """
+    safe_id = torch.clamp(tex_id, min=0).long()
+    ttype = tex.tex_type[safe_id]
+    v1 = tex.value1[safe_id]
+    v2 = tex.value2[safe_id]
+    s, t = _st(tex, safe_id, p, uv)
+    parity = (torch.floor(s).to(torch.int32) + torch.floor(t).to(torch.int32)) % 2
+    checker = torch.where((parity == 0)[..., None], v1, v2)
+    if fw is not None:
+        # world-space cone width -> (s, t) widths by the mapping's scale
+        vs = tex.vs[safe_id]
+        vt = tex.vt[safe_id]
+        scale_s = torch.sqrt(torch.sum(vs * vs, dim=-1))
+        scale_t = torch.sqrt(torch.sum(vt * vt, dim=-1))
+        checker = _checker_filtered(v1, v2, s, t, fw * scale_s, fw * scale_t)
+    uv_dbg = torch.stack([uv[..., 0] % 1.0, uv[..., 1] % 1.0, torch.zeros_like(s)],
+                         dim=-1)
+    out = torch.where(
+        (ttype == TEX_CONSTANT)[..., None], v1,
+        torch.where((ttype == TEX_CHECKERBOARD)[..., None], checker,
+                    torch.where((ttype == TEX_UV)[..., None], uv_dbg, 0.0)),
+    )
+    return torch.where((tex_id < 0)[..., None], 0.0, out)

@@ -36,6 +36,17 @@ def carry(scene):
     return scene_from_arrays(jax_scene_arrays(scene), jax_scene_infos(scene), "cpu")
 
 
+def carry_prims(prims):
+    """A JAX Primitives table as the port's, on the CPU (identical tables)."""
+    from gopbrt_tpu_torch.ops.intersect import Primitives
+    from gopbrt_tpu_torch.ops.static_info import PrimInfo
+
+    fields = {f: torch.tensor(np.asarray(getattr(prims, f)))
+              for f in ARRAY_FIELDS["prims"]}
+    pinfo = None if prims.pinfo is None else PrimInfo(**asdict(prims.pinfo))
+    return Primitives(**fields, pinfo=pinfo)
+
+
 def assert_tables_equal(got: dict, want: dict, rtol: float = 0.0):
     """Ints and bools exact; floats within ``rtol`` relative (0 = exact)."""
     assert sorted(got) == sorted(want)

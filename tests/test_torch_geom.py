@@ -63,6 +63,62 @@ def test_vector_ops_match():
         _close(got, want)
 
 
+def _lanes(seed, n=300):
+    """Random inputs of the shading helpers: vectors, unit vectors, angles."""
+    r = np.random.default_rng(seed)
+    v = r.normal(size=(4, n, 3)).astype(np.float32)
+    u = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    s = r.random((n,)).astype(np.float32)
+    phi = (r.random((n,)) * 2.0 * np.pi).astype(np.float32)
+    return v, u, np.sqrt(1.0 - s * s), s, phi
+
+
+@pytest.mark.parametrize("name", ["absdot", "face_forward", "spherical_direction",
+                                  "spherical_direction_xyz", "offset_ray_origin"])
+def test_shading_helpers_match(name):
+    """The geometry helpers of the general chain; offset_ray_origin rounds
+    one ulp away from p, so it is compared exactly."""
+    v, u, sin_t, cos_t, phi = _lanes(5)
+    args = {
+        "absdot": (v[0], v[1]),
+        "face_forward": (u[0], v[1]),
+        "spherical_direction": (sin_t, cos_t, phi),
+        "spherical_direction_xyz": (sin_t, cos_t, phi, u[0], u[1], u[2]),
+        "offset_ray_origin": (v[0] * 10.0, np.abs(v[1]) * 1e-4, u[2], v[3]),
+    }[name]
+    got = getattr(tgeom, name)(*map(torch.tensor, args))
+    want = getattr(jgeom, name)(*map(jnp.asarray, args))
+    if name == "offset_ray_origin":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        _close(got, want)
+    assert tgeom.gamma(3) == pytest.approx(float(jgeom.gamma(3)), rel=1e-6)
+
+
+@pytest.mark.parametrize("name", ["uniform_sample_sphere", "uniform_sample_cone",
+                                  "cosine_sample_hemisphere", "uniform_cone_pdf",
+                                  "power_heuristic"])
+def test_sampling_warps_match(name):
+    r = np.random.default_rng(6)
+    u = r.random((400, 2)).astype(np.float32)
+    u[:2] = [[0.5, 0.5], [0.0, 0.0]]
+    a, b = (r.random((2, 400)) * 5.0).astype(np.float32)
+    a[:3], b[:3] = 0.0, [0.0, 1.0, 0.0]  # zero pdfs on both sides
+    cos_max = r.uniform(0.0, 0.999, 400).astype(np.float32)
+    args = {
+        "uniform_sample_sphere": (u,),
+        "uniform_sample_cone": (u, cos_max),
+        "cosine_sample_hemisphere": (u,),
+        "uniform_cone_pdf": (cos_max,),
+        "power_heuristic": (1, a, 1, b),
+    }[name]
+    got = getattr(tsampling, name)(*(torch.tensor(x) if isinstance(x, np.ndarray) else x
+                                     for x in args))
+    want = getattr(jsampling, name)(*(jnp.asarray(x) if isinstance(x, np.ndarray) else x
+                                      for x in args))
+    _close(got, want)
+
+
 def test_concentric_sample_disk_matches():
     r = np.random.default_rng(2)
     u = r.random((500, 2)).astype(np.float32)

@@ -20,7 +20,7 @@ def _agreement(scene_j, o, d):
     hit_j, t_j, idx_j = (np.asarray(x) for x in jisect.intersect_brute(
         scene_j.prims, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max)))
     hit_t, t_t, idx_t = (x.numpy() for x in brute_intersect.intersect_brute(
-        carry(scene_j).prims, torch.tensor(o), torch.tensor(d), torch.tensor(t_max)))
+        carry(scene_j).brute, torch.tensor(o), torch.tensor(d), torch.tensor(t_max)))
     same = (hit_t == hit_j) & (np.abs(t_t - t_j) < 1e-3 * np.abs(t_j) + 1e-4)
     same &= ~hit_j | (idx_t == idx_j)
     return float(np.mean(same)), float(np.mean(hit_j))
@@ -70,8 +70,8 @@ def test_clipped_shapes_and_triangles_closest_hit(seed):
 def test_first_hit_occludes_where_the_closest_hit_does(seed):
     """The any-hit loop of the shadow ray finds a row exactly where the
     closest hit under t_limit exists, never past it, and tests fewer rows."""
-    prims = carry(_clipped_scene()).prims
-    rows = brute_intersect.prim_rows(prims)
+    table = carry(_clipped_scene()).brute
+    rows = table.rows
     r = np.random.default_rng(seed)
     n = 4000
     o = torch.tensor((r.normal(size=(n, 3)) * 4.0).astype(np.float32))
@@ -79,7 +79,7 @@ def test_first_hit_occludes_where_the_closest_hit_does(seed):
                                                         dtype=torch.float32), dim=1)
     t_lim = torch.tensor(r.random(n).astype(np.float32) * 8.0)
     active = torch.tensor(r.random(n) < 0.7)
-    args = (rows, prims.pinfo, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_lim)
+    args = (table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_lim)
     closest_tally, first_tally = {}, {}
     _, closest = brute_intersect.closest_hit(*args, tally=closest_tally, active=active)
     first = brute_intersect.first_hit(*args, tally=first_tally, active=active)

@@ -20,6 +20,7 @@ from gopbrt_tpu.models import integrators as jint
 from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
 from gopbrt_tpu.ops import geom as jgeom
 from gopbrt_tpu.ops import pallas_megakernel as jmk
+from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.models import integrators as tint
 from gopbrt_tpu_torch.models.scene import SceneBuilder
 from gopbrt_tpu_torch.ops import megakernel as tmk
@@ -109,21 +110,24 @@ def test_builder_packs_the_kernel_tables_once(sigma):
 
 def test_fused_on_cpu_runs_the_plain_version_without_a_launch(demo):
     _, ts, rays, spread = demo
-    before = tmk.LAUNCHES["megakernel"]
+    before = _build.LAUNCHES["megakernel"]
     cfg = tint.PathConfig(max_depth=3)
     args = (ts, *as_torch(*rays), SEED, cfg)
     got = tmk.path_li_fused(*args, cone=(0.0, spread))
     assert torch.equal(got, tmk.path_li_plain(*args, cone=(0.0, spread)))
-    assert tmk.LAUNCHES["megakernel"] == before
+    assert _build.LAUNCHES["megakernel"] == before
 
 
 def test_li_raises_outside_the_fast_path():
+    """Outside the fast path li runs the general wavefront chain."""
     b = SceneBuilder()
-    b.sphere(np.eye(4), 1.0, b.matte(sigma=20.0))  # Oren-Nayar: not ported
-    b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
+    b.sphere(np.eye(4), 1.0, b.matte(sigma=20.0))  # Oren-Nayar: no megakernel
+    b.point_light(p=(0.0, 5.0, 5.0), intensity=(1.0, 1.0, 1.0))
     scene = b.build(device="cpu")
-    o = torch.tensor([[0.0, 0.0, 5.0]])
-    d = torch.tensor([[0.0, 0.0, -1.0]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tint.li(scene, o, d, torch.zeros(1, dtype=torch.int64),
-                torch.zeros(1, dtype=torch.int64), 0)
+    assert not scene.fastinfo.ok
+    o = torch.tensor([[0.0, 0.0, 5.0], [3.0, 0.0, 5.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, -1.0]])
+    args = (scene, o, d, torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.int64), 0)
+    got = tint.li(*args)
+    assert torch.equal(got, tint._li_wavefront(*args))
+    assert float(got[0].amax()) > 0.0 and float(got[1].amax()) == 0.0

@@ -18,6 +18,7 @@ from gopbrt_tpu.models import render as jrender
 from gopbrt_tpu_torch.models import demo as tdemo
 from gopbrt_tpu_torch.models import film as tfilm
 from gopbrt_tpu_torch.models import render as trender
+from gopbrt_tpu_torch.ops.filters import FILTER_GAUSSIAN, Filter
 
 W, H = 64, 36
 KW = dict(width=W, height=H, max_depth=5, chunk_pixels=16 * W)
@@ -53,7 +54,7 @@ def test_render_image_matches_jax(scenes):
 
 
 @pytest.mark.parametrize("change", [
-    dict(integrator="direct"), dict(sampler="halton"), dict(crop=((0, 0), (0.5, 0.5))),
+    dict(filter=Filter(FILTER_GAUSSIAN, 2.0)), dict(sampler="halton"), dict(crop=((0, 0), (0.5, 0.5))),
 ])
 def test_unported_settings_raise(scenes, change):
     _, _, ts, tc = scenes

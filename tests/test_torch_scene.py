@@ -63,12 +63,12 @@ def test_non_uniform_scale_leaves_the_fast_path():
 
 
 @pytest.mark.parametrize("call", [
-    lambda b: b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), 0),
-    lambda b: b.plastic(),
+    lambda b: b.image_texture(np.zeros((4, 4, 3), np.float32)),
+    lambda b: b.subsurface(),
     lambda b: b.matte(bump_tex=0),
     lambda b: b.set_medium((0.1, 0.1, 0.1)),
-    lambda b: b.checkerboard_texture((1, 1, 1), (0, 0, 0), mapping="uv"),
-    lambda b: b.area_light(b.disk(np.eye(4), 1.0, b.matte()), (1.0, 1.0, 1.0)),
+    lambda b: b.null_material(),
+    lambda b: b.animate(b.sphere(np.eye(4), 1.0, b.matte()), np.eye(4)),
 ])
 def test_builder_raises_outside_the_slice(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -86,8 +86,17 @@ def test_scenes_that_need_a_bvh_raise():
 
 
 def test_power_light_strategy_raises():
-    b = SceneBuilder(light_strategy="power")
-    b.sphere(np.eye(4), 1.0, b.matte())
-    b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
+    """The power distribution builds the JAX builder's tables; the spatial
+    light grid still raises."""
+    def build(cls, strategy, **kw):
+        b = cls(light_strategy=strategy)
+        b.sphere(np.eye(4), 1.0, b.matte())
+        b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
+        b.distant_light(direction=(0.0, 1.0, 0.0), radiance=(0.2, 0.2, 0.2))
+        return b.build(**kw)
+
+    want = build(JaxBuilder, "power", accelerator="none")
+    got = build(SceneBuilder, "power", device="cpu")
+    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.build(device="cpu")
+        build(SceneBuilder, "spatial", device="cpu")
