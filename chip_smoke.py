@@ -8,7 +8,7 @@ non-zero and never prints the last line:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: compiles the CUDA sources of gopbrt_tpu_torch (first use), one
-   nvcc per source, all at once;
+   nvcc per source, all at once, and the host BVH builder (g++);
 3. kernel vs plain, each kernel against its plain PyTorch version on the
    same inputs:
    - the bounce megakernel on one 1920x273 band of the 1080p demo at depth
@@ -22,6 +22,14 @@ non-zero and never prints the last line:
      kernels) against the megakernel on the demo band, depth 10, and
      ``li_direct`` on the kernels against ``li_direct`` on the plain
      intersection;
+   - on the 10,224-triangle mesh scene (BASELINE config 3, 10,226 prims,
+     its BVH built by the native builder): the BVH walk kernels
+     (csrc/bvh_intersect.cu) against the brute-force kernels on a band of
+     camera rays and of shadow rays, and against the plain walk on every
+     launch of ``_li_wavefront`` over a band of the same mesh in metal (the
+     general chain on the BVH); the mesh megakernel
+     (csrc/mesh_megakernel.cu) against ``path_li_plain(accel="bvh")`` and
+     against ``_li_wavefront`` on the kernels, on one band at depth 5;
 4. main paths, each through ``render_pass`` with the launch counts set to 0
    just before it and read just after; one warm-up pass, then 5 timed passes
    and one more under ``torch.profiler`` (host ms of each ``render.*`` range,
@@ -33,6 +41,10 @@ non-zero and never prints the last line:
    - a scene outside the fast path (plastic, metal, Oren-Nayar, a triangle,
      a disk lamp, a uv checker, the power light distribution) at
      1920x1080, path depth 5: a finite, non-black image;
+   - the mesh scene at 1920x1080, 1 spp, path depth 5 (benchmarks/
+     bench_mesh.py's workload): 4 mesh megakernel launches per pass;
+   - the metal mesh, the general chain on the BVH, at 1920x1080, depth 5:
+     BVH walk launches only;
 5. the kernels line: time per launch, launches, bound, plain time.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -64,9 +76,14 @@ BYTES_PER_PATH = 44
 BYTES_PER_RAY_CLOSEST, BYTES_PER_RAY_ANY, BYTES_PER_PRIM = 37, 29, 88
 
 W, H, DEPTH = 1920, 1080, 10
+MESH_DEPTH = 5
 N_PASSES = 5
 # __global__ functions of csrc/*.cu, as the profiler names their launches
-OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel")
+OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel",
+               "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel")
+# the kernels' wrappers by intersector: closest hit, any hit
+FUSED = {"brute": ("intersect_brute_fused", "intersect_p_brute_fused"),
+         "bvh": ("bvh_intersect_fused", "bvh_intersect_p_fused")}
 
 
 def phase(name: str, msg: str) -> None:
@@ -106,29 +123,40 @@ def bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _intersector(accel):
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+    from gopbrt_tpu_torch.ops import bvh
+
+    return bi if accel == "brute" else bvh
+
+
 @contextlib.contextmanager
-def swapped_intersection(closest, any_hit):
+def swapped_intersection(closest, any_hit, accel="brute"):
     """Route the integrators' intersections through other callables for the
     duration (each gets the wrapped function as its first argument)."""
-    from gopbrt_tpu_torch.ops import brute_intersect as bi
-
-    saved = bi.intersect_brute_fused, bi.intersect_p_brute_fused
-    bi.intersect_brute_fused = lambda *a: closest(saved[0], *a)
-    bi.intersect_p_brute_fused = lambda *a: any_hit(saved[1], *a)
+    mod = _intersector(accel)
+    names = FUSED[accel]
+    saved = tuple(getattr(mod, k) for k in names)
+    setattr(mod, names[0], lambda *a: closest(saved[0], *a))
+    setattr(mod, names[1], lambda *a: any_hit(saved[1], *a))
     try:
         yield
     finally:
-        bi.intersect_brute_fused, bi.intersect_p_brute_fused = saved
+        for k, fn in zip(names, saved):
+            setattr(mod, k, fn)
 
 
-def recording(calls: list):
+def recording(calls: list, accel="brute"):
     """Launch the kernels as usual and record each launch's inputs."""
+    prefix = "" if accel == "brute" else "bvh_"
+
     def record(kind):
         def call(fn, table, o, d, t_max):
             calls.append((kind, table, o, d, t_max))
             return fn(table, o, d, t_max)
         return call
-    return swapped_intersection(record("intersect"), record("intersect_any"))
+    return swapped_intersection(record(prefix + "intersect"),
+                                record(prefix + "intersect_any"), accel)
 
 
 def plain_intersection():
@@ -163,12 +191,77 @@ def prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both) -> dict:
     return {"clear": int(clear.sum()), "other_prim": int(lanes.numel()), "untied": untied}
 
 
+def edge_tie(rec, o, d, t_ref) -> torch.Tensor:
+    """Lanes whose triangle record is hit at t_ref once its edges widen by
+    1e-5 in barycentrics: a ray through an edge two triangles share, which
+    float rounding gives to either."""
+    from gopbrt_tpu_torch.ops import bvh
+
+    pr = rec[:, bvh.REC_PARAMS:bvh.REC_PARAMS + 9]
+    v0, e1, e2 = pr[:, 0:3], pr[:, 3:6] - pr[:, 0:3], pr[:, 6:9] - pr[:, 0:3]
+    pv = torch.linalg.cross(d, e2, dim=-1)
+    det = (e1 * pv).sum(-1)
+    inv = 1.0 / torch.where(det.abs() < 1e-12, 1.0, det)
+    tv = o - v0
+    u = (tv * pv).sum(-1) * inv
+    qv = torch.linalg.cross(tv, e1, dim=-1)
+    v = (d * qv).sum(-1) * inv
+    t = (e2 * qv).sum(-1) * inv
+    tri = rec[:, bvh.REC_TYPE] == 2
+    return tri & (u >= -1e-5) & (v >= -1e-5) & (u + v <= 1.0 + 1e-5) & close_t(t, t_ref)
+
+
+def bvh_prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both) -> dict:
+    """prim_mismatches for the BVH walk: the kernel's prim tested on its
+    record row; a prim hit through a shared edge (``edge_tie``) is a tie."""
+    from gopbrt_tpu_torch.ops import bvh
+
+    clear = both & ((t_k - t_p).abs() <= 1e-6 * t_p.clamp(min=1.0))
+    lanes = torch.nonzero(clear & (idx_k != idx_p)).flatten()
+    edge, untied = 0, 0
+    if lanes.numel():
+        slot_of = torch.empty_like(table.bvh.prim_order)
+        slot_of[table.bvh.prim_order.long()] = torch.arange(
+            slot_of.numel(), dtype=slot_of.dtype, device=slot_of.device)
+        rec = table.records[slot_of[idx_k[lanes].long()].long()]
+        tp = bvh.prim_test_records(rec, o[lanes], d[lanes], t_max[lanes], table.full_sph,
+                                   table.full_disk)
+        tied = close_t(tp, t_p[lanes])
+        on_edge = ~tied & edge_tie(rec, o[lanes], d[lanes], t_p[lanes])
+        edge = int(on_edge.sum())
+        bad = ~tied & ~on_edge
+        untied = int(bad.sum())
+        if untied:
+            i = int(torch.nonzero(bad).flatten()[0])
+            lane = int(lanes[i])
+            phase("kernel-vs-plain", f"untied lane {lane}: kernel prim {int(idx_k[lane])} t "
+                  f"{float(t_k[lane])!r}, plain prim {int(idx_p[lane])} t {float(t_p[lane])!r}, "
+                  f"plain test of the kernel's prim {float(tp[i])!r}")
+    return {"clear": int(clear.sum()), "other_prim": int(lanes.numel()), "edge_ties": edge,
+            "untied": untied}
+
+
 def check_intersect_call(kind, table, o, d, t_max):
     """Kernel vs plain on one launch's inputs -> (agreeing fraction, max abs
     t error over lanes both hit or the any-hit's max abs error, prim-id
-    mismatches of the closest hit or None)."""
+    mismatches of the closest hit or None).  kind: "intersect" /
+    "intersect_any" (the brute kernels) or "bvh_intersect" /
+    "bvh_intersect_any" (the BVH walk)."""
     from gopbrt_tpu_torch.ops import brute_intersect as bi
+    from gopbrt_tpu_torch.ops import bvh
 
+    if kind == "bvh_intersect":
+        hit_k, t_k, idx_k = bvh.bvh_intersect_fused(table, o, d, t_max)
+        hit_p, t_p, idx_p = bvh.bvh_intersect(table, o, d, t_max)
+        same = (hit_k == hit_p) & close_t(t_k, t_p)
+        both = hit_k & hit_p
+        err = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
+        ids = bvh_prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both)
+        return float(same.float().mean()), err, ids
+    if kind == "bvh_intersect_any":
+        occ_k = bvh.bvh_intersect_p_fused(table, o, d, t_max)
+        occ_p = bvh.bvh_intersect_p(table, o, d, t_max)
+        return float((occ_k == occ_p).float().mean()), float((occ_k != occ_p).any()), None
     if kind == "intersect":
         hit_k, t_k, idx_k = bi.intersect_brute_fused(table, o, d, t_max)
         hit_p, t_p, idx_p = bi.intersect_brute(table, o, d, t_max)
@@ -194,11 +287,15 @@ def check_agreement(what: str, agree: float, ids) -> None:
 def intersect_flops(kind, table, o, d, t_max) -> int:
     """fp32 operations the kernel's threads need on these rays: every
     primitive test of the closest-hit sweep, or the any-hit's tests up to
-    each ray's first occluder, at ``megakernel.OPS_PER_EVENT`` each."""
+    each ray's first occluder; for the BVH walk, each node's box test and
+    each leaf test of the plain walk; at ``megakernel.OPS_PER_EVENT`` each."""
     from gopbrt_tpu_torch.ops import brute_intersect as bi
-    from gopbrt_tpu_torch.ops import megakernel
+    from gopbrt_tpu_torch.ops import bvh, megakernel
 
     tally = {}
+    if kind.startswith("bvh_"):
+        bvh.walk(table, o, d, t_max, any_hit=kind == "bvh_intersect_any", tally=tally)
+        return megakernel.fp32_ops(tally)
     args = (table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max)
     every = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     sweep = bi.closest_hit if kind == "intersect" else bi.first_hit
@@ -343,6 +440,187 @@ def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float) ->
             + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f"; {busy}")
 
 
+def shadow_rays(scene, o, d, t, hit):
+    """Shadow rays from the hits of (o, d) toward the scene's first light (a
+    point light), stopping short of it; lanes that missed get t_max 1e-4."""
+    light = scene.lights.p[0]
+    p = o + d * (t - 1e-3)[:, None]
+    to = light[None, :] - p
+    dist = to.norm(dim=-1)
+    t_max = torch.where(hit, dist * (1.0 - 1e-4), 1e-4)
+    return p.contiguous(), (to / dist[:, None]).contiguous(), t_max.contiguous()
+
+
+def mesh_checks(dev, band_rows: int) -> dict:
+    """Phase 3 on the mesh scene: the BVH walk kernels against the brute
+    kernels and against the plain walk, the mesh megakernel against its plain
+    version and the general chain; then their times and bounds.  Returns
+    what the later phases print."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import integrators, meshes, render
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+    from gopbrt_tpu_torch.ops import bvh, megakernel, mesh_megakernel
+
+    scene = meshes.build_mesh_scene(device=dev)
+    bt = scene.bvh_tables
+    phase("mesh", f"the mesh scene: {scene.prims.count} prims, BVH of {bt.nodes.shape[0]} nodes "
+          f"built by the {bt.backend} builder in {bt.build_ms:.1f} ms")
+    if bt.backend != "native" or scene.mesh is None:
+        raise AssertionError(f"the mesh scene's tree was built by {bt.backend}, "
+                             f"mesh tables {scene.mesh is not None}")
+    metal = meshes.build_mesh_scene(device=dev, mesh_material="metal")
+    if metal.fastinfo.mesh_ok or metal.mesh is not None:
+        raise AssertionError("the metal mesh should lie outside the mesh fast path")
+    cam = meshes.mesh_camera(W, H, device=dev)
+    settings = render.RenderSettings(width=W, height=H, spp=1, max_depth=MESH_DEPTH,
+                                     integrator="path", samples_per_pass=1)
+    cfg = render.path_config(settings)
+    cone = render._cone(cam, settings)
+    _, o, d, pix, smp = render.band_rays(cam, settings, band_rows, band_rows, 0)
+    n = o.shape[0]
+
+    # kernel #4 against the brute-force kernels on the whole mesh (an
+    # independent oracle): the band's camera rays, then shadow rays
+    big = torch.full((n,), 1e30, device=dev)
+    hb, tb, pb = bi.intersect_brute_fused(scene.brute, o, d, big)
+    hk, tk, pk = bvh.bvh_intersect_fused(scene.bvh_tables, o, d, big)
+    c_agree = float(((hk == hb) & close_t(tk, tb)).float().mean())
+    both = hk & hb
+    prim_eq = float((pk == pb)[both].float().mean()) if bool(both.any()) else 1.0
+    so, sd, st = shadow_rays(scene, o, d, tb, hb)
+    ob = bi.intersect_p_brute_fused(scene.brute, so, sd, st)
+    ok_ = bvh.bvh_intersect_p_fused(scene.bvh_tables, so, sd, st)
+    a_agree = float((ob == ok_).float().mean())
+    phase("kernel-vs-oracle", f"BVH walk vs the brute kernels over all {scene.prims.count} "
+          f"prims, mesh band {W}x{band_rows}: closest {c_agree:.6f} agree (hit and t), "
+          f"prim ids equal on {prim_eq:.6f} of the lanes both hit; any hit on "
+          f"{int((st > 1e-3).sum())} shadow rays toward the point light: {a_agree:.6f} "
+          f"agree, {float(ob.float().mean()):.4f} occluded")
+    if not (c_agree > 0.999 and a_agree > 0.999):
+        raise AssertionError("the BVH walk disagrees with the brute-force kernels")
+
+    # kernel #4 against its plain walk on every launch of the general chain
+    # over a band of the metal mesh
+    calls = []
+    _build.LAUNCHES.clear()
+    with recording(calls, "bvh"):
+        integrators._li_wavefront(metal, o, d, pix, smp, settings.seed, cfg, cone=cone)
+    if any(k in _build.LAUNCHES for k in ("intersect", "intersect_any", "megakernel")):
+        raise AssertionError(f"the BVH chain launched {dict(_build.LAUNCHES)}")
+    worst = {"bvh_intersect": (1.0, 0.0), "bvh_intersect_any": (1.0, 0.0)}
+    for i, call in enumerate(calls):
+        agree, err, ids = check_intersect_call(*call)
+        live = float((call[4] > 2e-4).float().mean())
+        phase("kernel-vs-plain", f"{call[0]} launch {i} of a metal-mesh band ({n} rays, "
+              f"{live:.4f} live): {agree:.6f} agree, max abs err {err:.3e}"
+              + ("" if ids is None else f", prim ids {ids}"))
+        check_agreement(f"{call[0]} launch {i}", agree, ids)
+        worst[call[0]] = (min(worst[call[0]][0], agree), max(worst[call[0]][1], err))
+    kinds = [c[0] for c in calls]
+    if kinds.count("bvh_intersect") != MESH_DEPTH or kinds.count("bvh_intersect_any") != MESH_DEPTH:
+        raise AssertionError(f"_li_wavefront made the launches {kinds}")
+
+    # kernel #5 against its plain version and against the general chain
+    out = torch.empty_like(o)
+    launch = mesh_megakernel.make_launch(scene, o, d, pix, smp, settings.seed, cfg, cone, out)
+    mesh_out = launch().clone()
+    torch.cuda.synchronize()
+    counts = {}
+    t0 = time.perf_counter()
+    ref = megakernel.path_li_plain(scene, o, d, pix, smp, settings.seed, cfg, cone=cone,
+                                   counts=counts, accel="bvh")
+    torch.cuda.synchronize()
+    mesh_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(mesh_out).all()):
+        raise AssertionError("mesh band: non-finite kernel output")
+    frac, mean_rel, mesh_err = agreement(mesh_out, ref)
+    phase("kernel-vs-plain", f"mesh megakernel, mesh band {W}x{band_rows} ({n} lanes), depth "
+          f"{MESH_DEPTH}, cone on: {frac:.5f} of lanes within 1e-3, mean diff {mean_rel:.2e}, "
+          f"max abs err {mesh_err:.3e}, mean L {float(ref.mean()):.6f}")
+    if not (frac > 0.99 and mean_rel < 2e-3):
+        raise AssertionError("mesh band: the mesh megakernel disagrees with its plain version")
+    wave = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+    wfrac, wmean, wmax = agreement(wave, mesh_out)
+    phase("chain-vs-chain", f"_li_wavefront on the BVH kernels vs the mesh megakernel, mesh "
+          f"band, depth {MESH_DEPTH}: {wfrac:.5f} of lanes within 1e-3, mean diff {wmean:.2e}, "
+          f"max abs err {wmax:.3e}")
+    if not (wfrac > 0.98 and wmean < 1e-2):
+        raise AssertionError("the general chain disagrees with the mesh megakernel")
+
+    # times per launch at the main paths' shapes and the bounds of this
+    # band's work
+    bt = scene.bvh_tables
+    table_bytes = bt.nodes.numel() * 4 + bt.records.numel() * 4
+    mesh_ms = cuda_ms(launch, reps=9)
+    phase("kernel-time", "mesh megakernel events of the mesh band as [count, fp32 ops]: "
+          + json.dumps({k: [v, v * megakernel.OPS_PER_EVENT[k]] for k, v in counts.items()}))
+    flops = megakernel.fp32_ops(counts)
+    mesh_bound = bound(flops, n * BYTES_PER_PATH + mesh_megakernel.MESH_TABLE_WORDS * 4
+                       + table_bytes)
+    phase("kernel-time", f"mesh megakernel {mesh_ms:.4f} ms, plain {mesh_plain_ms:.2f} ms per "
+          f"band; bound {mesh_bound[0]:.5f} ms by {mesh_bound[1]} ({flops / 1e9:.3f} GFLOP); "
+          f"{mesh_bound[0] / mesh_ms:.4f} of the bound")
+    timing = {"mesh_megakernel": (mesh_ms, mesh_plain_ms) + mesh_bound}
+    for kind, fused, plain, per_ray in (
+            ("bvh_intersect", bvh.bvh_intersect_fused, bvh.bvh_intersect,
+             BYTES_PER_RAY_CLOSEST),
+            ("bvh_intersect_any", bvh.bvh_intersect_p_fused, bvh.bvh_intersect_p,
+             BYTES_PER_RAY_ANY)):
+        # the first launch of each: the camera rays, the first shadow rays
+        args = next(c[1:] for c in calls if c[0] == kind)
+        k_ms = cuda_ms(lambda: fused(*args), reps=21)
+        p_ms = cuda_ms(lambda: plain(*args), reps=1)
+        tally = {}
+        bvh.walk(*args, any_hit=kind == "bvh_intersect_any", tally=tally)
+        k_flops = megakernel.fp32_ops(tally)
+        b_ms, b_by = bound(k_flops, n * per_ray + table_bytes)
+        timing[kind] = (k_ms, p_ms, b_ms, b_by)
+        phase("kernel-time", f"{kind} {k_ms:.4f} ms, plain {p_ms:.2f} ms per launch of {n} "
+              f"rays; events {json.dumps(tally)}; bound {b_ms:.5f} ms by {b_by} "
+              f"({k_flops / 1e9:.4f} GFLOP); {b_ms / k_ms:.4f} of the bound")
+    return dict(scene=scene, metal=metal, cam=cam, settings=settings, timing=timing,
+                worst=worst, mesh_err=mesh_err)
+
+
+def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limit: str):
+    """Phase 4 on the mesh: the mesh scene's pass (the mesh megakernel) and
+    the metal mesh's (the general chain on the BVH walk) -> the launch
+    counts of each."""
+    scene, metal, cam, settings = m["scene"], m["metal"], m["cam"], m["settings"]
+    dt, launches, film = timed_passes(render, film_mod, scene, cam, settings, dev)
+    if launches != {"mesh_megakernel": 4 * N_PASSES}:
+        raise AssertionError(f"mesh main path launched {launches} in {N_PASSES} passes, "
+                             f"expected {4 * N_PASSES} mesh megakernel launches")
+    img = film_mod.develop(film)
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01):
+        raise AssertionError(f"mesh scene: bad image (mean {float(img.mean())})")
+    phase("main-path", f"mesh: {N_PASSES} passes of {W}x{H} 1 spp path depth {MESH_DEPTH}: "
+          f"{dt:.2f} ms per pass, launches {launches}, image mean {float(img.mean()):.4f}")
+    print(json.dumps({
+        "metric": f"bvh_mesh10k_rays_per_s_{W}x{H}_depth{MESH_DEPTH}",
+        "value": W * H / (dt / 1e3), "unit": "rays/s", "n_prims": scene.prims.count,
+        "ms_per_pass": dt, "device": device_name, "power_limit": power_limit,
+    }), flush=True)
+    k_ms = m["timing"]["mesh_megakernel"][0]
+    phase("main-path", "mesh: " + profiled_pass(render, scene, cam, film, settings, dev, dt)
+          + f"; the kernel is ~{4 * k_ms:.2f} ms (4 launches at the second band's time)")
+
+    dtc, launches_c, film_c = timed_passes(render, film_mod, metal, cam, settings, dev)
+    if not (launches_c.get("bvh_intersect", 0) > 0 and launches_c.get("bvh_intersect_any", 0) > 0
+            and set(launches_c) == {"bvh_intersect", "bvh_intersect_any"}):
+        raise AssertionError(f"the BVH chain main path launched {launches_c}")
+    img_c = film_mod.develop(film_c)
+    if not (bool(torch.isfinite(img_c).all()) and float(img_c.mean()) > 0.01):
+        raise AssertionError(f"metal mesh: bad image (mean {float(img_c.mean())})")
+    per_pass = {k: v // N_PASSES for k, v in launches_c.items()}
+    phase("main-path", f"metal mesh, the general chain on the BVH: {N_PASSES} passes of "
+          f"{W}x{H} 1 spp path depth {MESH_DEPTH}: {dtc:.2f} ms per pass, launches per pass "
+          f"{per_pass}, image mean {float(img_c.mean()):.4f}")
+    phase("main-path", "metal mesh: " + profiled_pass(render, metal, cam, film_c, settings, dev,
+                                                      dtc))
+    return launches, launches_c
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device ----------------------------------------------------
@@ -350,7 +628,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch import _build, native
     from gopbrt_tpu_torch.models import film as film_mod
     from gopbrt_tpu_torch.models import gallery, integrators, render
     from gopbrt_tpu_torch.models.demo import (build_demo_camera, build_demo_scene,
@@ -381,7 +659,11 @@ def main() -> int:
         ptxas = [ln.strip() for ln in rec["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         phase("build", f"{name}: nvcc {rec['seconds']:.1f} s; " + " | ".join(ptxas))
-    phase("build", f"total {build_s:.1f} s")
+    t0 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError("the host BVH builder did not build (g++)")
+    phase("build", f"total {build_s:.1f} s; the host BVH builder (g++) "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     scene = build_demo_scene(device=dev)
@@ -476,6 +758,9 @@ def main() -> int:
           f"max abs err {wmax:.3e}")
     if not (wfrac > 0.98 and wmean < 1e-2):
         raise AssertionError("the general chain disagrees with the megakernel")
+
+    # the mesh scene: kernels #4 and #5, their checks, times and bounds
+    mesh = mesh_checks(dev, band_rows)
 
     # kernel and plain times at the main paths' launch shapes (CUDA events,
     # medians); the bounds count what these inputs need
@@ -591,6 +876,10 @@ def main() -> int:
           f"kernels vs plain on one band's {len(fcalls)} launches: min agreement "
           f"{min(fagree):.6f}")
 
+    # the mesh: the mesh megakernel, then the general chain on the BVH
+    launches_m, launches_c = mesh_main_paths(render, film_mod, mesh, dev, device_name,
+                                             power_limit)
+
     # ---- 5. kernels line ------------------------------------------------
     line = [{
         "name": "megakernel", "route": "cuda",
@@ -607,6 +896,21 @@ def main() -> int:
             "replaces": f"gopbrt_tpu/ops/pallas_intersect.py:{line_no}",
             "launches": launches1[kind], "launches_per_pass": launches1[kind] // N_PASSES,
             "max_abs_err": worst[kind][1], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    for name, source, replaces, launches, err in (
+            ("bvh_intersect", "bvh_intersect.cu", "pallas_cluster.py:127", launches_c,
+             mesh["worst"]["bvh_intersect"][1]),
+            ("bvh_intersect_any", "bvh_intersect.cu", "pallas_cluster.py:127", launches_c,
+             mesh["worst"]["bvh_intersect_any"][1]),
+            ("mesh_megakernel", "mesh_megakernel.cu", "pallas_mesh_megakernel.py:357",
+             launches_m, mesh["mesh_err"])):
+        k_ms, p_ms, b_ms, b_by = mesh["timing"][name]
+        line.append({
+            "name": name, "route": "cuda", "source": f"gopbrt_tpu_torch/csrc/{source}",
+            "replaces": f"gopbrt_tpu/ops/{replaces}",
+            "launches": launches[name], "launches_per_pass": launches[name] // N_PASSES,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")

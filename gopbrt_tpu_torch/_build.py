@@ -28,7 +28,7 @@ NVCC_FLAGS = [
 ]
 
 # Launches of the CUDA kernels, by kernel name ("megakernel", "intersect",
-# "intersect_any").  Each wrapper adds one where it launches its kernel and
+# "intersect_any", "bvh_intersect", "bvh_intersect_any", "mesh_megakernel").  Each wrapper adds one where it launches its kernel and
 # nowhere else; callers reset it with LAUNCHES.clear().
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -44,6 +44,19 @@ _SIGNATURES = {
         # o, d, t_max, n, ptype, w2o, params, n_prims, flags, outputs, stream
         "gopbrt_intersect": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
         "gopbrt_intersect_any": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+    },
+    "bvh_intersect": {
+        # o, d, t_max, n, nodes, records, (prim_order,) flags, outputs, stream
+        "gopbrt_bvh_intersect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+        "gopbrt_bvh_intersect_any": [_P, _P, _P, _I, _P, _P, _I, _P, _P],
+    },
+    "mesh_megakernel": {
+        # o, d, pixel, sample, L, n, tables, table_words, nodes, records,
+        # bvh_flags, n_mats, n_lights, seed, func_int, world_radius, cone_w0,
+        # cone_sp, max_depth, rr_start, rr_threshold, flags, stream
+        "gopbrt_mesh_li":
+            [_P] * 5 + [_I, _P, _I, _P, _P, _I, _I, _I, ctypes.c_uint]
+            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P],
     },
 }
 

@@ -13,6 +13,7 @@
 // atan2 by the sign of a 2D cross product, as the TPU kernel does.
 #pragma once
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -21,9 +22,38 @@
 #define GOPBRT_HD __device__ __forceinline__
 #else
 #define GOPBRT_HD inline  // the same math as plain C++ on the host
+struct float4 {
+  float x, y, z, w;
+};
 #endif
 
 namespace gopbrt {
+
+#ifndef __CUDACC__
+using std::isfinite;
+using std::max;
+using std::min;
+#endif
+
+// 16 bytes through the read-only path
+GOPBRT_HD float4 ld4(const float4* p) {
+#ifdef __CUDACC__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// the int32 whose bits a float holds
+GOPBRT_HD int as_int(float f) {
+#ifdef __CUDACC__
+  return __float_as_int(f);
+#else
+  int i;
+  memcpy(&i, &f, sizeof i);
+  return i;
+#endif
+}
 
 constexpr float BIG = 1e30f;
 constexpr int SPHERE = 0;

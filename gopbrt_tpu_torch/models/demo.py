@@ -14,8 +14,10 @@ from gopbrt_tpu_torch.models.scene import Scene, SceneBuilder
 from gopbrt_tpu_torch.ops import geom
 
 
-def build_demo_scene(device=None) -> Scene:
-    """server.go:30-132, table-ized; tables on ``device`` (None = the card)."""
+def build_demo_scene(device=None, accelerator: str = "none") -> Scene:
+    """server.go:30-132, table-ized; tables on ``device`` (None = the card).
+    Its 24 prims intersect by brute force, so it builds no BVH unless
+    ``accelerator="bvh"`` asks for one."""
     b = SceneBuilder()
     n = 8
     radius = 2.0
@@ -53,7 +55,7 @@ def build_demo_scene(device=None) -> Scene:
     light_mat = b.matte(kd=(0.0, 0.0, 0.0))
     lp = b.sphere(geom.translate([-10.0, 5.0, 20.0]), 5.0, light_mat)
     b.area_light(lp, radiance=(0.2, 0.2, 0.2), two_sided=False)
-    return b.build(device=device)
+    return b.build(accelerator=accelerator, device=device)
 
 
 def build_demo_camera(width: int, height: int, device=None) -> cam_mod.Camera:

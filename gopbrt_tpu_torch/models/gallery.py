@@ -1,21 +1,23 @@
-"""The BASELINE benchmark scenes (configs 1, 2 and 4) on the port's builder.
+"""The BASELINE benchmark scenes (configs 1-4) on the port's builder.
 
 Counterpart of ``gopbrt_tpu/models/gallery.py``:
 
   1. the demo scene with the direct-lighting integrator, depth 3;
   2. a Cornell-style box: matte walls and a mirror sphere, path depth 5;
+  3. a triangle mesh (1,104 triangles) under the SAH BVH, textured matte
+     and plastic, path depth 3;
   4. area lights, MIS and smooth glass, path depth 8.
 
-Config 3 (a 1,104-triangle mesh under the BVH) needs TPU kernels #4 and #5
-and raises until they are ported.  Each builder returns (scene, camera,
-settings) with the tables on ``device`` (None = the card).
+Each builder returns (scene, camera, settings) with the tables on
+``device`` (None = the card).  Configs 1, 2 and 4 build no BVH, as the JAX
+ones do (accelerator="none").
 """
 
 from __future__ import annotations
 
 from gopbrt_tpu_torch.models import camera as cam_mod
 from gopbrt_tpu_torch.models.render import RenderSettings
-from gopbrt_tpu_torch.models.scene import SceneBuilder, _not_ported
+from gopbrt_tpu_torch.models.scene import SceneBuilder
 from gopbrt_tpu_torch.ops import geom
 
 
@@ -51,13 +53,18 @@ def config2(width=64, height=64, device=None):
     )
     settings = RenderSettings(width=width, height=height, spp=16, max_depth=5,
                               integrator="path", samples_per_pass=4, seed=7)
-    return b.build(device=device), cam, settings
+    return b.build(accelerator="none", device=device), cam, settings
 
 
 def config3(width=64, height=36, device=None):
-    """Triangle mesh under the SAH BVH: not ported yet."""
-    _not_ported("the mesh scene (BVH traversal and the mesh megakernel)",
-                "TPU kernels 2.3 and 2.4")
+    """Triangle mesh under the SAH BVH, textured matte + plastic
+    (gallery.py:69-79): 1,104 triangles, above the brute-force cutoff."""
+    from gopbrt_tpu_torch.models.meshes import build_mesh_scene, mesh_camera
+
+    settings = RenderSettings(width=width, height=height, spp=8, max_depth=3,
+                              integrator="path", samples_per_pass=4, seed=5)
+    return (build_mesh_scene(n_lat=24, n_lon=24, device=device),
+            mesh_camera(width, height, device=device), settings)
 
 
 def config4(width=64, height=64, device=None):
@@ -81,7 +88,7 @@ def config4(width=64, height=64, device=None):
     )
     settings = RenderSettings(width=width, height=height, spp=16, max_depth=8,
                               integrator="path", samples_per_pass=4, seed=3)
-    return b.build(device=device), cam, settings
+    return b.build(accelerator="none", device=device), cam, settings
 
 
 CONFIGS = {

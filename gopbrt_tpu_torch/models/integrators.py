@@ -1,8 +1,8 @@
 """Wavefront integrators: path tracing and direct lighting.
 
 Counterpart of ``gopbrt_tpu/models/integrators.py`` for static surface
-scenes of at most 64 prims (no media, subsurface, null materials, bump or
-animation): ``PathConfig``, the intersection dispatch
+scenes (no media, subsurface, null materials, bump or animation):
+``PathConfig``, the intersection dispatch
 (``_scene_intersect`` / ``_scene_intersect_p``), the global light pick,
 ``_material_at``, the shading frame, ``_estimate_direct`` (NEE with MIS),
 ``PathState``, ``_bounce_once``, the wavefront loop ``_li_wavefront`` (the
@@ -11,11 +11,14 @@ JAX package's ``_li_jnp``), ``li_direct`` and the dispatch ``li``.
 The whole batch of rays advances bounce by bounce as SoA tensors with an
 alive mask, as in the JAX chain, and draws the same counter-based random
 numbers, so both packages trace the same paths.  On CUDA tensors the
-intersections launch the kernels of ``csrc/intersect.cu``
+intersections launch the kernels of ``csrc/bvh_intersect.cu``
+(``ops/bvh.bvh_intersect_fused`` / ``bvh_intersect_p_fused``) on scenes
+above BRUTE_FORCE_CUTOFF prims with a BVH, those of ``csrc/intersect.cu``
 (``ops/brute_intersect.intersect_brute_fused`` /
-``intersect_p_brute_fused``); on CPU tensors they run the plain versions.
-Fast-path scenes under ``li`` run the bounce megakernel instead
-(``ops/megakernel.path_li_fused``).
+``intersect_p_brute_fused``) on the others; on CPU tensors they run the
+plain versions.  Under ``li``, fast-path scenes run the bounce megakernel
+(``ops/megakernel.path_li_fused``) and mesh fast-path scenes above the
+cutoff the mesh megakernel (``ops/mesh_megakernel.mesh_li_fused``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from gopbrt_tpu_torch.ops import brute_intersect, megakernel, rng, sampling
+from gopbrt_tpu_torch.ops import brute_intersect, megakernel, mesh_megakernel, rng, sampling
+from gopbrt_tpu_torch.ops import bvh as bvh_ops
 from gopbrt_tpu_torch.ops import bsdf as bsdf_ops
 from gopbrt_tpu_torch.ops import geom
 from gopbrt_tpu_torch.ops import intersect as isect
@@ -62,12 +66,6 @@ class PathConfig(NamedTuple):
     early_exit: bool = False
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to gopbrt_tpu_torch yet (ROADMAP {item})"
-    )
-
-
 class _Sampler:
     """The counter streams of one batch: rng.sample_1d(seed, pixel, sample,
     dim) with the (seed, pixel, sample) part of the hash chain computed
@@ -90,24 +88,28 @@ class _Sampler:
 # ---------------------------------------------------------------------------
 
 
-def _check_brute(scene):
-    if scene.prims.count > BRUTE_FORCE_CUTOFF:
-        _not_ported("scenes above 64 prims (BVH and clusters)", "TPU kernels 2.3 and 2.4")
+def _use_bvh(scene) -> bool:
+    """The BVH walk where the scene has a tree and more prims than the
+    brute-force cutoff (integrators.py:155, 182)."""
+    return scene.bvh_tables is not None and scene.prims.count > BRUTE_FORCE_CUTOFF
 
 
 def _scene_intersect(scene, o, d, t_max):
-    """Closest hit -> (hit, t, prim_idx): the brute-force kernel on CUDA
-    tensors, its plain version on CPU tensors (integrators.py:144-177)."""
-    _check_brute(scene)
-    return brute_intersect.intersect_brute_fused(
-        scene.brute, o.contiguous(), d.contiguous(), t_max.contiguous())
+    """Closest hit -> (hit, t, prim_idx): the BVH walk or the brute sweep,
+    as kernels on CUDA tensors and as plain versions on CPU tensors
+    (integrators.py:144-177)."""
+    args = (o.contiguous(), d.contiguous(), t_max.contiguous())
+    if _use_bvh(scene):
+        return bvh_ops.bvh_intersect_fused(scene.bvh_tables, *args)
+    return brute_intersect.intersect_brute_fused(scene.brute, *args)
 
 
 def _scene_intersect_p(scene, o, d, t_max):
     """Any hit closer than t_max -> bool[N] (integrators.py:180-204)."""
-    _check_brute(scene)
-    return brute_intersect.intersect_p_brute_fused(
-        scene.brute, o.contiguous(), d.contiguous(), t_max.contiguous())
+    args = (o.contiguous(), d.contiguous(), t_max.contiguous())
+    if _use_bvh(scene):
+        return bvh_ops.bvh_intersect_p_fused(scene.bvh_tables, *args)
+    return brute_intersect.intersect_p_brute_fused(scene.brute, *args)
 
 
 def _light_pick(scene, u):
@@ -427,12 +429,18 @@ def li(scene, o: torch.Tensor, d: torch.Tensor, pixel, sample, seed,
 
     pixel/sample: uint32 counters (int64 tensors) feeding the stateless
     sampler; cone: optional (width0, spread) ray-cone floats.  Scenes inside
-    the fast-path set run the bounce megakernel (integrators.py:103-120);
-    every other scene runs the general wavefront loop.
+    the fast-path set, up to the brute-force cutoff, run the bounce
+    megakernel (integrators.py:103-120); mesh fast-path scenes above it
+    with a BVH run the mesh megakernel (:123-141); every other scene, and
+    any ``early_exit`` run, runs the general wavefront loop
+    (integrators.py:1059-1069).
     """
     fi = scene.fastinfo
-    if (fi is not None and fi.ok and scene.prims.count <= BRUTE_FORCE_CUTOFF
-            and not cfg.early_exit):
-        return megakernel.path_li_fused(scene, o, d, pixel, sample, seed, cfg,
-                                        cone=cone)
+    if fi is not None and not cfg.early_exit:
+        if fi.ok and scene.prims.count <= BRUTE_FORCE_CUTOFF:
+            return megakernel.path_li_fused(scene, o, d, pixel, sample, seed, cfg,
+                                            cone=cone)
+        if mesh_megakernel.fits(scene):
+            return mesh_megakernel.mesh_li_fused(scene, o, d, pixel, sample, seed, cfg,
+                                                 cone=cone)
     return _li_wavefront(scene, o, d, pixel, sample, seed, cfg, cone=cone)

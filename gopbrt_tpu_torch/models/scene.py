@@ -5,15 +5,19 @@ the subset of ``SceneBuilder`` that the port runs — spheres, disks and
 world-space triangles; matte (Lambert and Oren-Nayar), mirror, glass
 (smooth and rough), plastic and metal; constant, checkerboard (planar and
 uv mapping) and uv textures; point, distant, and sphere- and disk-area
-lights under the uniform or the power light distribution.  The builder runs
-in NumPy on the host and ``build`` ends in ``torch.as_tensor(...,
-device=device)``.  It builds no BVH: scenes of at most 64 prims never read
-one.  Image textures, bump mapping, subsurface and null materials, media,
-animation, the spatial light grid and scenes above 64 prims raise
-``NotImplementedError`` naming their ROADMAP item.
+lights under the uniform or the power light distribution; triangle meshes
+and the SAH BVH (``accelerator="bvh"``, built on the host by
+``ops/bvh.build_from_bounds``).  The builder runs in NumPy on the host and
+``build`` ends in ``torch.as_tensor(..., device=device)``.  Image textures,
+bump mapping, subsurface and null materials, media, animation and the
+spatial light grid raise ``NotImplementedError`` naming their ROADMAP item.
 
 ``scene_from_arrays`` carries a scene across from tables given as NumPy
-arrays, so the tests render identical tables in both packages.
+arrays, the tree included, so the tests render identical tables in both
+packages.  It also packs, once per scene, the tables the kernels read:
+``Scene.brute`` (the brute intersection), ``Scene.kernel`` (the bounce
+megakernel), ``Scene.bvh_tables`` (the BVH walk) and ``Scene.mesh`` (the
+mesh megakernel).
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ import numpy as np
 import torch
 
 from gopbrt_tpu_torch import resolve_device
+from gopbrt_tpu_torch.ops import bvh as bvh_ops
 from gopbrt_tpu_torch.ops import lights as lights_ops
-from gopbrt_tpu_torch.ops import brute_intersect, megakernel, sampling
+from gopbrt_tpu_torch.ops import brute_intersect, megakernel, mesh_megakernel, sampling
 from gopbrt_tpu_torch.ops.bsdf import GLASS, MATTE, METAL, MIRROR, NULLMAT, PLASTIC
 from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
 from gopbrt_tpu_torch.ops.lights import (
@@ -81,10 +86,19 @@ class Scene(NamedTuple):
     brute: Optional[brute_intersect.BruteTable] = None
     # the megakernel's packed tables, made once where the scene fits it
     kernel: Optional[megakernel.KernelTables] = None
+    # the SAH BVH (accelerator="bvh" above 4 prims) packed for the walk
+    bvh_tables: Optional[bvh_ops.BVHTable] = None
+    # the mesh megakernel's packed tables, made once where the scene fits it
+    mesh: Optional[mesh_megakernel.MeshTables] = None
 
     @property
     def n_lights(self) -> int:
         return self.lights.count
+
+    @property
+    def bvh(self) -> Optional[bvh_ops.LinearBVH]:
+        """The SAH BVH, or None where the scene has none."""
+        return None if self.bvh_tables is None else self.bvh_tables.bvh
 
     @property
     def device(self) -> torch.device:
@@ -104,7 +118,10 @@ ARRAY_FIELDS = {
                "shape_kind", "o2w", "w2o", "params"),
     "": ("light_func", "light_cdf", "light_func_int", "world_center",
          "world_radius"),
+    # only where the scene has a BVH
+    "bvh": bvh_ops.LinearBVH._fields,
 }
+OPTIONAL_GROUPS = ("bvh",)
 
 
 def _not_ported(what: str, item: str):
@@ -251,9 +268,8 @@ class SceneBuilder:
 
     def triangle_mesh(self, o2w, vertices, indices, material: int,
                       reverse_orientation=False) -> list:
-        """Triangle mesh, its vertices moved to world space at build.  Only
-        meshes that keep the scene at most 64 prims build: the BVH is TPU
-        kernel 2.3's slice."""
+        """Triangle mesh: the vertices moved to world space at build, one
+        triangle prim per face (scene.py:323-338)."""
         verts = np.asarray(vertices, np.float32)
         m = np.asarray(o2w, np.float32)
         verts = verts @ m[:3, :3].T + m[:3, 3]
@@ -311,6 +327,10 @@ class SceneBuilder:
     # --- world bounds (host) ---------------------------------------------
 
     def _prim_world_bounds(self, i) -> tuple[np.ndarray, np.ndarray]:
+        """World bounds of prim i (static prims: ``animate`` raises)."""
+        return self._prim_world_bounds_static(i, self._o2w[i])
+
+    def _prim_world_bounds_static(self, i, m) -> tuple[np.ndarray, np.ndarray]:
         pt = self._prim_type[i]
         pr = self._params[i]
         if pt == SPHERE:
@@ -327,7 +347,6 @@ class SceneBuilder:
              [hi[0], hi[1], lo[2]], [lo[0], lo[1], hi[2]], [hi[0], lo[1], hi[2]],
              [lo[0], hi[1], hi[2]], [hi[0], hi[1], hi[2]]]
         )
-        m = self._o2w[i]
         tc = corners @ m[:3, :3].T + m[:3, 3]
         return tc.min(axis=0), tc.max(axis=0)
 
@@ -338,15 +357,18 @@ class SceneBuilder:
 
     # --- build ------------------------------------------------------------
 
-    def build(self, device=None) -> Scene:
-        """Upload the tables to ``device`` (None = the card)."""
+    def build(self, accelerator: str = "bvh", device=None) -> Scene:
+        """Upload the tables to ``device`` (None = the card).  accelerator:
+        "bvh" builds the SAH BVH where the scene has more than 4 prims
+        (scene.py:664-668); "none" builds none.  Scenes above 64 prims
+        intersect through the BVH when they have one, by brute force
+        otherwise."""
         device = resolve_device(device)
+        if accelerator not in ("bvh", "none"):
+            raise ValueError(f"accelerator must be 'bvh' or 'none', got {accelerator!r}")
         n = len(self._prim_type)
         if n == 0:
             raise ValueError("empty scene")
-        if n > 64:
-            _not_ported("scenes above 64 prims (BVH and clusters)",
-                        "TPU kernels 2.3 and 2.4")
         if self.light_strategy not in ("uniform", "power"):
             _not_ported(f"the {self.light_strategy!r} light distribution",
                         "open item 1.6")
@@ -443,6 +465,10 @@ class SceneBuilder:
                       light_func_int=lint.numpy())
         infos = dict(pinfo=asdict(pinfo), minfo=asdict(minfo),
                      fastinfo=asdict(self._fast_path_info(o2w)))
+        if accelerator == "bvh" and n > 4:
+            tree, backend, ms = bvh_ops.build_timed(*bvh_ops._prim_bounds_np(self))
+            arrays.update({f"bvh.{f}": getattr(tree, f).numpy() for f in tree._fields})
+            infos["bvh_build"] = {"backend": backend, "build_ms": ms}
         return scene_from_arrays(arrays, infos, device)
 
     def _fast_path_info(self, o2w: np.ndarray) -> FastPathInfo:
@@ -511,7 +537,8 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
     """Build a Scene from NumPy tables keyed as in ``ARRAY_FIELDS``.
 
     infos: {"pinfo": {...}, "minfo": {...}, "fastinfo": {...}} — the field
-    values of PrimInfo, MatInfo and FastPathInfo as plain dicts.
+    values of PrimInfo, MatInfo and FastPathInfo as plain dicts — and,
+    where the builder built the tree, "bvh_build": {"backend", "build_ms"}.
     """
     device = resolve_device(device)
 
@@ -536,14 +563,23 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
     scene = scene._replace(brute=brute_intersect.brute_table(scene.prims))
     if megakernel.fits(scene):
         scene = scene._replace(kernel=megakernel.kernel_tables(scene))
+    if "bvh.node_lo" in arrays:
+        tree = bvh_ops.LinearBVH(**group("bvh"))
+        scene = scene._replace(bvh_tables=bvh_ops.bvh_table(tree, scene.prims,
+                                                            **infos.get("bvh_build", {})))
+        if mesh_megakernel.fits(scene):
+            scene = scene._replace(mesh=mesh_megakernel.mesh_tables(scene))
     return scene
 
 
 def scene_to_arrays(scene: Scene) -> dict:
-    """The Scene's tables as NumPy arrays, keyed as in ``ARRAY_FIELDS``."""
+    """The Scene's tables as NumPy arrays, keyed as in ``ARRAY_FIELDS``; an
+    optional group only where the scene has it."""
     out = {}
     for name, fields in ARRAY_FIELDS.items():
         table = getattr(scene, name) if name else scene
+        if table is None and name in OPTIONAL_GROUPS:
+            continue
         for f in fields:
             out[f"{name}.{f}" if name else f] = getattr(table, f).cpu().numpy()
     return out

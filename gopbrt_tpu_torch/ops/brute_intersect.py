@@ -39,29 +39,41 @@ _TWO_PI_CLIP = _F(2.0 * math.pi - 1e-6)
 
 def _in_wedge(x, y, phi_max):
     """phi(x, y) <= phi_max without atan2: the sign of the 2D cross product
-    against the phi_max ray (pallas_intersect.py:59-70)."""
-    sin_pm = float(np.sin(_F(phi_max)))
-    cos_pm = float(np.cos(_F(phi_max)))
-    cross = x * sin_pm - y * cos_pm
+    against the phi_max ray (pallas_intersect.py:59-70).  phi_max: a row's
+    float or one f32 per lane."""
+    if torch.is_tensor(phi_max):
+        cross = x * torch.sin(phi_max) - y * torch.cos(phi_max)
+        return torch.where(phi_max <= _F(math.pi), (y >= 0.0) & (cross >= 0.0),
+                           ~((y < 0.0) & (cross < 0.0)))
+    cross = x * float(np.sin(_F(phi_max))) - y * float(np.cos(_F(phi_max)))
     if _F(phi_max) <= _F(math.pi):
         return (y >= 0.0) & (cross >= 0.0)
     return ~((y < 0.0) & (cross < 0.0))
 
 
+def _flag(x):
+    """A row's comparison as a Python bool; a per-lane one stays a tensor."""
+    return x if torch.is_tensor(x) else bool(x)
+
+
 def prim_test(ptype: int, m, pr, ox, oy, oz, dx, dy, dz, t_limit,
               full_sph: bool = False, full_disk: bool = False,
               tally=None, active=None) -> torch.Tensor:
-    """One primitive vs a batch of rays -> candidate t (BIG on a miss).
+    """One primitive kind vs a batch of rays -> candidate t (BIG on a miss).
 
     m: 12 world->object entries (row-major 3x4); pr: 9 params (see
-    ops/intersect.Primitives); t_limit: f32[N].  tally: optional dict that
-    counts, over the lanes of the bool mask ``active``, the tests one thread
-    per ray makes: "sphere_tests", "sphere_roots" (spheres whose
-    discriminant passes), "disk_tests" and "triangle_tests".
+    ops/intersect.Primitives); each entry is either one row's float, for a
+    primitive tested against every lane (the brute sweep), or an f32[N]
+    tensor, one primitive per lane (the BVH walk's leaf tests,
+    ``ops/bvh.prim_test_records``).  t_limit: f32[N].  tally: optional dict
+    that counts, over the lanes of the bool mask ``active`` (every lane
+    where it is None), the tests one thread per ray makes: "sphere_tests",
+    "sphere_roots" (spheres whose discriminant passes), "disk_tests" and
+    "triangle_tests".
     """
     if tally is not None:
         key = {SPHERE: "sphere_tests", DISK: "disk_tests"}.get(ptype, "triangle_tests")
-        tally[key] = tally.get(key, 0) + int(active.sum())
+        tally[key] = tally.get(key, 0) + (ox.numel() if active is None else int(active.sum()))
     if ptype == TRIANGLE:
         return _triangle(pr, ox, oy, oz, dx, dy, dz, t_limit)
     oox = m[0] * ox + m[1] * oy + m[2] * oz + m[3]
@@ -92,7 +104,8 @@ def _sphere(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_sph, tally=None,
     disc_core = radius * radius - (fx * fx + fy * fy + fz * fz)
     ok = (disc_core >= 0.0) & (a > 0.0)
     if tally is not None:
-        tally["sphere_roots"] = tally.get("sphere_roots", 0) + int((ok & active).sum())
+        roots = ok if active is None else ok & active
+        tally["sphere_roots"] = tally.get("sphere_roots", 0) + int(roots.sum())
     delta = torch.sqrt(torch.clamp(disc_core, min=0.0) / safe_a)
     lo = t_foot - delta
     hi = t_foot + delta
@@ -100,10 +113,11 @@ def _sphere(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_sph, tally=None,
     dlen = torch.sqrt(torch.clamp(a, min=1e-20))
     t_eps = 1e-4 * olen / dlen
 
-    full = pr[1] <= -radius and pr[2] >= radius and _F(pr[3]) >= _TWO_PI_CLIP
+    full = full_sph or _flag((pr[1] <= -radius) & (pr[2] >= radius)
+                             & (pr[3] >= _TWO_PI_CLIP))
 
     def clip_ok(t):
-        if full_sph or full:
+        if full is True:
             return True
         px = oox + odx * t
         py = ooy + ody * t
@@ -111,7 +125,7 @@ def _sphere(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_sph, tally=None,
         norm = torch.sqrt(torch.clamp(px * px + py * py + pz * pz, min=1e-20))
         s = radius / norm
         pz = pz * s
-        return (pz >= pr[1]) & (pz <= pr[2]) & _in_wedge(px * s, py * s, pr[3])
+        return full | ((pz >= pr[1]) & (pz <= pr[2]) & _in_wedge(px * s, py * s, pr[3]))
 
     v0 = ok & (lo > t_eps) & (lo < t_limit) & clip_ok(lo)
     v1 = ok & (hi > t_eps) & (hi < t_limit) & clip_ok(hi)
@@ -129,8 +143,9 @@ def _disk(pr, oox, ooy, ooz, odx, ody, odz, t_limit, full_disk):
     vd = (~parallel) & (t_pl > 1e-4) & (t_pl < t_limit) & (d2 <= pr[1] * pr[1])
     if not full_disk:
         vd = vd & (d2 >= pr[2] * pr[2])
-        if not _F(pr[3]) >= _TWO_PI_CLIP:
-            vd = vd & _in_wedge(pxd, pyd, pr[3])
+        whole = _flag(pr[3] >= _TWO_PI_CLIP)
+        if whole is not True:
+            vd = vd & (whole | _in_wedge(pxd, pyd, pr[3]))
     return torch.where(vd, t_pl, BIG)
 
 

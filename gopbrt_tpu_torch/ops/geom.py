@@ -208,6 +208,22 @@ def apply_point_error(m: torch.Tensor, p: torch.Tensor):
     return lane_point(m, p), err
 
 
+def bounds_intersect_p(lo, hi, o, d, t_max, inv_d=None) -> torch.Tensor:
+    """Robust slab test (bounds.go:149-185; geom.py:427-441) -> hit mask.
+
+    The far plane is widened by 1 + 2*gamma(3) to stay conservative under
+    f32.  Batched over rays and boxes by broadcasting."""
+    if inv_d is None:
+        inv_d = 1.0 / d
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    t_near = torch.minimum(t0, t1)
+    t_far = torch.maximum(t0, t1) * (1 + 2 * gamma(3))
+    tn = torch.amax(t_near, dim=-1)
+    tf = torch.amin(t_far, dim=-1)
+    return (tn <= tf) & (tf > 0.0) & (tn < t_max)
+
+
 def _nextafter_away(po: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
     """Each component of po one ulp away from zero where offset != 0.  The
     forward pass only: the identity JVP of geom.py:335 comes with the

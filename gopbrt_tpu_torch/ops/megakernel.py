@@ -1,16 +1,20 @@
-"""The bounce megakernel: the whole path-tracing loop in one CUDA kernel.
+"""The bounce megakernels: the whole path-tracing loop in one CUDA kernel.
 
-Counterpart of ``gopbrt_tpu/ops/pallas_megakernel.py``.  ``path_li_fused``
-is the wrapper: on CUDA tensors it launches ``csrc/megakernel.cu`` (one
-thread per path, path state in registers, scene tables in shared memory);
-on CPU tensors it runs ``path_li_plain``, a lane-vectorised PyTorch
-transcription of ``_mega_kernel``'s bounce (pallas_megakernel.py:364-986)
-that follows it op for op.
+Counterpart of ``gopbrt_tpu/ops/pallas_megakernel.py`` and of the loop of
+``gopbrt_tpu/ops/pallas_mesh_megakernel.py``.  The CUDA bounce skeleton
+(``csrc/bounce.cuh``, one thread per path, path state in registers) has two
+instances: the brute sweep over scene tables in shared memory
+(``csrc/megakernel.cu``, launched by ``path_li_fused`` here) and the BVH
+walk (``csrc/mesh_megakernel.cu``, launched by
+``ops/mesh_megakernel.mesh_li_fused``).  ``path_li_plain`` is the plain
+version of both, a lane-vectorised PyTorch transcription of the skeleton
+that follows it op for op; ``accel`` picks its intersector.
 
-Scope is the fast-path feature set (ops/static_info.FastPathInfo): spheres
-and disks; matte, mirror, smooth and rough glass; constant or planar-checker
-kd with the ray-cone box filter; point, distant and sphere-area lights.
-The forward pass only: gradients (path replay) are a later slice.
+Scope is the fast-path feature sets (ops/static_info.FastPathInfo): spheres
+and disks (``ok``), plus world-space triangles and plastic (``mesh_ok``);
+matte, mirror, smooth and rough glass; constant or planar-checker kd with
+the ray-cone box filter; point, distant and sphere-area lights.  The
+forward pass only: gradients (path replay) are a later slice.
 """
 
 from __future__ import annotations
@@ -20,9 +24,12 @@ from typing import NamedTuple
 import torch
 
 from gopbrt_tpu_torch import _build
+from gopbrt_tpu_torch.ops import bvh as bvh_ops
 from gopbrt_tpu_torch.ops import rng
 from gopbrt_tpu_torch.ops.brute_intersect import BIG, closest_hit, first_hit
+from gopbrt_tpu_torch.ops.bsdf import GLASS, MIRROR, PLASTIC
 from gopbrt_tpu_torch.ops.geom import INV_PI, PI, SHADOW_EPSILON
+from gopbrt_tpu_torch.ops.intersect import TRIANGLE
 from gopbrt_tpu_torch.ops.rng import (
     D_BSDF_LOBE,
     D_BSDF_UV,
@@ -54,6 +61,11 @@ SH_ETA = 27      # glass interior IOR
 SH_RGL = 28      # is rough glass flag
 SH_ALPHA = 29    # GGX alpha
 SH_K = 30
+# a material row of the mesh instance (material_table): the shade columns
+# (SH_ALID and SH_SCALE2 unused), the plastic flag, padding
+SH_PLA = 30
+MAT_K = 32
+MAX_MATS = 16
 
 # light aux columns (per light, f32[L, LA_K])
 LA_TWO = 0       # two_sided flag
@@ -87,56 +99,63 @@ FLAG_ANY_GLASS = 8
 FLAG_ANY_ROUGH = 16
 
 
-# fp32 operations the CUDA kernel spends on each event that path_li_plain
-# counts, read off csrc/megakernel.cu (line ranges below) and
-# csrc/prim_test.cuh.  An add, multiply, divide, square root, min / max, abs,
-# floor, sine, cosine or compare counts one; selects and the integer RNG hash
-# count none; an expression computed twice counts once.  Rare fallbacks (the
-# degenerate shading frame, the farther quadratic root, the clips of partial
-# spheres and disks) count none, so a bound built on these is a least count.
+# fp32 operations the CUDA kernels spend on each event that path_li_plain
+# and the plain BVH walk count, read off csrc/bounce.cuh (line ranges below),
+# csrc/prim_test.cuh and csrc/bvh.cuh.  An add, multiply, divide, square
+# root, min / max, abs, floor, sine, cosine or compare counts one; selects,
+# integer work and the RNG hash count none; an expression computed twice
+# counts once.  Rare fallbacks (the degenerate shading frame, the farther
+# quadratic root, the clips of partial spheres and disks) count none, so a
+# bound built on these is a least count.
 OPS_PER_EVENT = {
-    # one primitive test (prim_test.cuh:87-102, to the discriminant) and
-    # the sweep's compare (:266 / :281); on a root, prim_test.cuh:103-113
+    # one primitive test (prim_test.cuh:116-132, to the discriminant) and
+    # the sweep's compare; on a root, prim_test.cuh:133-146
     "sphere_tests": 62,
     "sphere_roots": 18,
-    "disk_tests": 49,  # prim_test.cuh:87-92, 120-125, + the sweep's compare
-    # prim_test.cuh:67-84 + the sweep's compare (csrc/intersect.cu only: the
-    # megakernel's scenes have no triangles)
-    "triangle_tests": 61,
-    # a lane that hit: winner geometry :374-409, :439, shading frame
-    # :470-488, BSDF sample inputs :621-623
+    "disk_tests": 49,  # prim_test.cuh:116-122, 150-155, + the sweep's compare
+    "triangle_tests": 61,  # prim_test.cuh:96-114 + the sweep's compare
+    # one node of the BVH walk: the slab test (bvh.cuh box_hit) and the
+    # interior's direction compare
+    "bvh_nodes": 29,
+    # a lane that hit a sphere or disk: winner geometry bounce.cuh:391-425,
+    # :456, wo :426-427, shading frame :488-509, BSDF sample inputs :648-650
     "hits": 204,
-    "cone_hits": 3,  # :438
-    "emitter_hits": 7,  # :412-416
-    "emissions": 9,  # :428-430
-    "emission_mis": 46,  # :419-426 with sphere_area_pdf_li (outside) :235-244
-    "checker_hits": 12,  # :440-441
-    "checker_filtered": 66,  # :443-457
-    "checker_unfiltered": 8,  # :459-461
-    "rough_hits": 31,  # :489, fresnel_diel :170-183
-    # NEE on a lane that is neither mirror nor smooth glass: :493, :500-502,
-    # :578-580, :584, :602; one compare per CDF entry :495
+    # a lane that hit a triangle: :377-390 (34) and the same rest (81)
+    "triangle_hits": 115,
+    "cone_hits": 3,  # :456
+    "emitter_hits": 7,  # :431-434
+    "emissions": 9,  # :446-448
+    "emission_mis": 46,  # :436-445 with sphere_area_pdf_li (outside) :231-251
+    "checker_hits": 12,  # :458-459
+    "checker_filtered": 66,  # :460-475
+    "checker_unfiltered": 8,  # :476-484
+    "rough_hits": 31,  # :508, fresnel_diel :168-181
+    # NEE on a lane that is neither mirror nor smooth glass: :511, :518-520,
+    # :597-599, :604, :630; one compare per CDF entry :514
     "nee": 20,
     "cdf_steps": 1,
-    "nee_point": 18,  # :505-513
-    "nee_distant": 1,  # :520
-    "nee_area_outside": 117,  # :522-530, :531-554, :573-576
-    "nee_area_inside": 66,  # :522-530, :556-576
-    "nee_lambert": 8,  # :595-600
-    "nee_rough": 257,  # :588-593 with rough_glass_eval :294-338 (247)
-    "shadow_rays": 11,  # :604-608 (its primitive tests count above)
-    "unoccluded": 16,  # :612-615
-    "unoccluded_area": 5,  # :611, the power heuristic
-    "mirror_samples": 8,  # :627-634
-    "glass_reflect": 44,  # :636-650, :652-659
-    "glass_refract": 74,  # :636-650, :661-675
-    "rough_reflect": 371,  # :636-641, :678-694, :706-714 with the eval
-    "rough_refract": 387,  # :636-641, :678-690, :696-714 with the eval
-    "lambert_samples": 59,  # :717-730
-    "bsdf_ok": 6,  # :733-736
-    "continues": 15,  # :738-741, :750-751
-    "roulette": 9,  # :752-757
-    "paths": 3,  # :762-765
+    "nee_point": 18,  # :523-532
+    "nee_distant": 1,  # :539
+    "nee_area_outside": 117,  # :541-573, :592-595
+    "nee_area_inside": 66,  # :541-547, :574-595
+    "nee_lambert": 8,  # :614-620
+    "nee_rough": 257,  # :606-613 with rough_glass_eval :291-324 (247)
+    "nee_plastic": 147,  # :621-628 with ggx_reflection :269-289 (135)
+    "shadow_rays": 11,  # :631-636 (its primitive tests count above)
+    "unoccluded": 16,  # :637-643
+    "unoccluded_area": 5,  # :638, the power heuristic
+    "mirror_samples": 8,  # :653-661
+    "glass_reflect": 44,  # :662-686
+    "glass_refract": 74,  # :662-668, :669-675, :687-703
+    "rough_reflect": 371,  # :662-668, :704-735 with the eval
+    "rough_refract": 387,  # :662-668, :704-735 with the eval
+    "plastic_ggx": 61,  # :736-748 with ggx_half_vector :326-342
+    "lambert_samples": 59,  # :749-764 (plastic's diffuse half too)
+    "plastic_samples": 164,  # :765-780 with ggx_reflection
+    "bsdf_ok": 6,  # :781-785
+    "continues": 15,  # :787-797
+    "roulette": 9,  # :799-807
+    "paths": 3,  # :810-815
 }
 
 
@@ -150,13 +169,13 @@ def fp32_ops(counts: dict) -> int:
 # ---------------------------------------------------------------------------
 
 
-def shade_table(scene) -> torch.Tensor:
-    """Per-primitive shading record f32[P, SH_K] (pallas_megakernel.py:1058)."""
-    prims, mats, tex = scene.prims, scene.materials, scene.textures
-    mid = prims.material_id.long()
+def _shade_rows(scene, mid, alid, scale2) -> torch.Tensor:
+    """Shade rows f32[K, SH_K] of the materials ``mid`` (long[K]), with the
+    area-light and scale columns given."""
+    mats, tex = scene.materials, scene.textures
     mtype = mats.mat_type[mid]
-    is_mirror = mtype == 1  # bsdf.MIRROR
-    glass = mtype == 2  # bsdf.GLASS
+    is_mirror = mtype == MIRROR
+    glass = mtype == GLASS
     rough = mats.roughness[mid] > 1e-4
     is_glass = glass & ~rough
     is_rough = glass & rough
@@ -168,17 +187,13 @@ def shade_table(scene) -> torch.Tensor:
     c1 = torch.where(is_tex[:, None], tex.value1[safe], kd)
     c2 = torch.where(is_chk[:, None], tex.value2[safe], c1)
     vs, vt, ds = tex.vs[safe], tex.vt[safe], tex.dsdt[safe]
-    lin = prims.world_to_obj[:, :3, :3]
-    inv_s2 = torch.sum(lin[:, 0, :] * lin[:, 0, :], dim=-1)
-    scale2 = 1.0 / torch.clamp(inv_s2, min=1e-30)
 
     def col(x):
         return x.to(torch.float32)[:, None]
 
     return torch.cat(
         [
-            c1, c2, col(is_chk), vs, vt, ds,
-            col(prims.area_light_id), col(scale2),
+            c1, c2, col(is_chk), vs, vt, ds, col(alid), col(scale2),
             col(torch.sqrt(torch.sum(vs * vs, dim=-1))),
             col(torch.sqrt(torch.sum(vt * vt, dim=-1))),
             col(is_mirror), mats.kr[mid], col(is_glass), mats.kt[mid],
@@ -187,6 +202,28 @@ def shade_table(scene) -> torch.Tensor:
         ],
         dim=1,
     )
+
+
+def shade_table(scene) -> torch.Tensor:
+    """Per-primitive shading record f32[P, SH_K] (pallas_megakernel.py:1058)."""
+    prims = scene.prims
+    return _shade_rows(scene, prims.material_id.long(), prims.area_light_id,
+                       bvh_ops.prim_scale2(prims))
+
+
+def material_table(scene) -> torch.Tensor:
+    """Per-material shading record f32[M, MAT_K] of the mesh instance
+    (pallas_mesh_megakernel.py:188-242 in the SH_* layout): the shade
+    columns, then the plastic flag (plastic: Lambert kd + GGX reflection
+    with ks in SH_KR, eta and alpha)."""
+    mats = scene.materials
+    m = mats.mat_type.shape[0]
+    dev = mats.kd.device
+    rows = _shade_rows(scene, torch.arange(m, device=dev),
+                       torch.full((m,), -1.0, device=dev), torch.ones((m,), device=dev))
+    pla = (mats.mat_type == PLASTIC).to(torch.float32)[:, None]
+    pad = torch.zeros((m, MAT_K - SH_K - 1), dtype=torch.float32, device=dev)
+    return torch.cat([rows, pla, pad], dim=1).contiguous()
 
 
 def light_tables(scene):
@@ -207,31 +244,37 @@ def light_tables(scene):
     return lights.light_type, lights.p, lights.intensity, laux
 
 
+def pack_layout(parts: dict, layout) -> torch.Tensor:
+    """The tables ``parts`` as one float32 tensor in ``layout`` order, each
+    padded with zero rows to its words."""
+    out = []
+    for name, words in layout:
+        t = parts[name].to(torch.float32)
+        pad = torch.zeros((words // t.shape[1] - t.shape[0], t.shape[1]),
+                          dtype=torch.float32, device=t.device)
+        out.append(torch.cat([t, pad]).reshape(-1))
+        assert out[-1].numel() == words
+    return torch.cat(out).contiguous()
+
+
+def light_parts(scene) -> dict:
+    """The light tables by TABLE_LAYOUT name."""
+    ltype, lpos, lint, laux = light_tables(scene)
+    return dict(ltype=ltype[:, None], lpos=lpos, lint=lint, laux=laux,
+                lcdf=scene.light_cdf[:, None])
+
+
 def pack_tables(scene) -> torch.Tensor:
     """All tables as one float32[TABLE_WORDS] tensor in TABLE_LAYOUT order."""
     prims = scene.prims
-    ltype, lpos, lint, laux = light_tables(scene)
     parts = dict(
         w2o=scene.brute.w2o,
         params=prims.params,
         shade=shade_table(scene),
         ptype=prims.prim_type[:, None],
-        ltype=ltype[:, None],
-        lpos=lpos,
-        lint=lint,
-        laux=laux,
-        lcdf=scene.light_cdf[:, None],
+        **light_parts(scene),
     )
-    out = []
-    for name, words in TABLE_LAYOUT:
-        t = parts[name].to(torch.float32)
-        rows = MAX_LIGHTS + 1 if name == "lcdf" else (
-            MAX_LIGHTS if name[0] == "l" else MAX_PRIMS)
-        pad = torch.zeros((rows - t.shape[0], t.shape[1]), dtype=torch.float32,
-                          device=t.device)
-        out.append(torch.cat([t, pad]).reshape(-1))
-        assert out[-1].numel() == words
-    return torch.cat(out).contiguous()
+    return pack_layout(parts, TABLE_LAYOUT)
 
 
 class KernelTables(NamedTuple):
@@ -395,25 +438,143 @@ def _max3(a, b, c):
     return torch.maximum(a, torch.maximum(b, c))
 
 
+def _ggx_reflection(nx, ny, nz, wox, woy, woz, cos_o, alpha, eta, wix, wiy, wiz, ci):
+    """(refl, mf_pdf, g) of the GGX reflection lobe toward wi, ci = wi . n
+    (csrc/bounce.cuh ggx_reflection; pallas_mesh_megakernel.py:891-924)."""
+    aco = torch.abs(cos_o)
+    same = cos_o * ci > 0.0
+    aci = torch.abs(ci)
+    hx, hy, hz = wix + wox, wiy + woy, wiz + woz
+    h2 = hx * hx + hy * hy + hz * hz
+    hx, hy, hz = _normalize3(hx, hy, hz, 1e-20)
+    c_wh = _dot3(hx, hy, hz, nx, ny, nz)
+    sgn_h = torch.where(c_wh < 0.0, -1.0, 1.0)
+    fr = _fresnel_diel(_dot3(wix, wiy, wiz, sgn_h * hx, sgn_h * hy, sgn_h * hz), eta)
+    d = _ggx_d(c_wh, alpha)
+    g = 1.0 / (1.0 + _ggx_lambda(cos_o, alpha) + _ggx_lambda(ci, alpha))
+    degen = (aco < 1e-7) | (aci < 1e-7) | (h2 < 1e-14)
+    refl = torch.where(same & ~degen, fr * d * g / torch.clamp(4.0 * aco * aci, min=1e-7),
+                       0.0)
+    doh = _dot3(wox, woy, woz, hx, hy, hz)
+    mf_pdf = torch.where(same, d * torch.abs(c_wh) / torch.clamp(4.0 * torch.abs(doh),
+                                                                 min=1e-7), 0.0)
+    return refl, mf_pdf, g
+
+
+def _ggx_half_vector(alpha, ub0, ub1, cos_o, ss, ts, n):
+    """A GGX half-vector about n, into wo's hemisphere (csrc/bounce.cuh
+    ggx_half_vector)."""
+    tan2w = alpha * alpha * ub0 / torch.clamp(1.0 - ub0, min=1e-7)
+    ctw = 1.0 / torch.sqrt(1.0 + tan2w)
+    stw = torch.sqrt(torch.clamp(1.0 - ctw * ctw, min=0.0))
+    phiw = 2.0 * PI * ub1
+    cpw = stw * torch.cos(phiw)
+    spw = stw * torch.sin(phiw)
+    flip_h = torch.where(cos_o < 0.0, -1.0, 1.0)
+    return tuple((ss[k] * cpw + ts[k] * spw + n[k] * ctw) * flip_h for k in range(3))
+
+
 # ---------------------------------------------------------------------------
 # The plain version
 # ---------------------------------------------------------------------------
 
 
+def _with_zero_row(t: torch.Tensor) -> torch.Tensor:
+    """t with a zero row appended: index -1 (a miss) selects zeros, as the
+    kernel's winner-takes-row select does."""
+    return torch.cat([t, torch.zeros((1, t.shape[1]), dtype=t.dtype, device=t.device)])
+
+
+class _BruteScene:
+    """The intersector of csrc/megakernel.cu: brute sweeps over
+    ``scene.brute``, winners read from per-prim tables."""
+
+    plastic = False
+
+    def __init__(self, scene):
+        prims = scene.prims
+        self.table = scene.brute
+        self.shade = _with_zero_row(shade_table(scene))
+        self.w2o = _with_zero_row(scene.brute.w2o)
+        self.params = _with_zero_row(prims.params)
+        self.ptype = _with_zero_row(prims.prim_type.to(torch.float32)[:, None])[:, 0]
+
+    def closest(self, o, d, alive, counts):
+        """(t, idx) of every lane, idx -1 on a miss; counts the tests of
+        the alive lanes."""
+        big = torch.full(alive.shape, BIG, dtype=torch.float32, device=alive.device)
+        return closest_hit(self.table, *o, *d, big, tally=counts, active=alive)
+
+    def occluded(self, o, d, t_max, active, counts):
+        return first_hit(self.table, *o, *d, t_max, tally=counts, active=active) >= 0
+
+    def winner(self, idx):
+        """(ptype f32, w2o columns, params columns, shade columns, area-light
+        id, scale2) of each lane's winner."""
+        sel = idx.long()
+        shade = self.shade[sel].unbind(-1)
+        return (self.ptype[sel], self.w2o[sel].unbind(-1), self.params[sel].unbind(-1),
+                shade, shade[SH_ALID].to(torch.int32), shade[SH_SCALE2])
+
+
+class _BVHScene:
+    """The intersector of csrc/mesh_megakernel.cu: the BVH walk over
+    ``scene.bvh_tables``, winners read from the records and the material
+    table."""
+
+    plastic = True
+
+    def __init__(self, scene):
+        self.table = scene.bvh_tables
+        self.rec = _with_zero_row(self.table.records)
+        self.mat = _with_zero_row(material_table(scene))
+
+    def closest(self, o, d, alive, counts):
+        """(t, slot) of every lane, slot -1 on a miss; only alive lanes walk."""
+        n = alive.shape[0]
+        dev = alive.device
+        t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+        slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        lanes = torch.nonzero(alive).flatten()
+        t[lanes], slot[lanes] = bvh_ops.walk(
+            self.table, torch.stack(o, -1)[lanes], torch.stack(d, -1)[lanes], t[lanes],
+            tally=counts)
+        return t, slot
+
+    def occluded(self, o, d, t_max, active, counts):
+        occ = torch.zeros_like(active)
+        lanes = torch.nonzero(active).flatten()
+        occ[lanes] = bvh_ops.walk(self.table, torch.stack(o, -1)[lanes],
+                                  torch.stack(d, -1)[lanes], t_max[lanes], any_hit=True,
+                                  tally=counts)[1] >= 0
+        return occ
+
+    def winner(self, idx):
+        rec = self.rec[idx.long()]
+        mat = torch.where(idx >= 0, rec[:, bvh_ops.REC_MAT].long(), -1)
+        return (rec[:, bvh_ops.REC_TYPE], rec[:, bvh_ops.REC_W2O:bvh_ops.REC_W2O + 12].unbind(-1),
+                rec[:, bvh_ops.REC_PARAMS:bvh_ops.REC_PARAMS + 9].unbind(-1),
+                self.mat[mat].unbind(-1), rec[:, bvh_ops.REC_ALID].to(torch.int32),
+                rec[:, bvh_ops.REC_SCALE2])
+
+
 def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
-                  counts=None) -> torch.Tensor:
-    """Radiance f32[N,3] of rays (o, d) — ``_mega_kernel`` over 1-D lane
+                  counts=None, accel: str = "brute") -> torch.Tensor:
+    """Radiance f32[N,3] of rays (o, d) — the bounce skeleton of
+    csrc/bounce.cuh (``_mega_kernel``, ``_mesh_kernel``) over 1-D lane
     tensors, bounce by bounce, with ``torch.where`` for its selects.
 
-    counts: optional dict; gets, for each event of OPS_PER_EVENT, how often
-    the CUDA kernel meets it on these inputs: a thread leaves the loop on a
-    miss, runs only its own light's and lobe's branch, and stops its shadow
-    ray at the first occluder.
+    accel: the intersector, "brute" (the sweep over ``scene.brute``, the
+    twin of csrc/megakernel.cu) or "bvh" (the walk over
+    ``scene.bvh_tables``, the twin of csrc/mesh_megakernel.cu).  counts:
+    optional dict; gets, for each event of OPS_PER_EVENT, how often the CUDA
+    kernel meets it on these inputs: a thread leaves the loop on a miss,
+    runs only its own light's and lobe's branch, and stops its shadow ray
+    at the first occluder (the BVH walk: at the end of that leaf).
     """
     n = o.shape[0]
     dev = o.device
     f32 = torch.float32
-    prims = scene.prims
     n_lights = scene.lights.count
     fi = scene.fastinfo
     any_glass = fi.has_glass or fi.has_rough_glass
@@ -423,15 +584,11 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
     func_int = float(scene.light_func_int)
     world_radius = float(scene.world_radius)
 
-    # winner tables with a zero row at index -1 (a miss selects zeros, as
-    # the kernel's winner-takes-row select does)
-    def with_zero_row(t):
-        return torch.cat([t, torch.zeros((1, t.shape[1]), dtype=f32, device=dev)])
-
-    shade_t = with_zero_row(shade_table(scene))
-    w2o_t = with_zero_row(scene.brute.w2o)
-    rad_t = with_zero_row(prims.params[:, :1])[:, 0]
-    ptf_t = with_zero_row(prims.prim_type.to(f32)[:, None])[:, 0]
+    if accel not in ("brute", "bvh"):
+        raise ValueError(f"accel must be 'brute' or 'bvh', got {accel!r}")
+    hits = _BVHScene(scene) if accel == "bvh" else _BruteScene(scene)
+    any_tri = TRIANGLE in scene.prims.types
+    any_plastic = hits.plastic and bool((scene.materials.mat_type == PLASTIC).any())
     ltype, lpos, lint, laux = light_tables(scene)
     ltype_f = ltype.to(f32)
     lcdf = scene.light_cdf.tolist()
@@ -466,20 +623,14 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
             return rng.u32_to_unit(rng.hash_combine(h_ps, dim0 + off))
 
         # ---- closest hit ------------------------------------------------
-        t, idx = closest_hit(scene.brute, ox, oy, oz, dx, dy, dz,
-                             torch.full((n,), BIG, dtype=f32, device=dev),
-                             tally=counts, active=alive)
+        t, idx = hits.closest((ox, oy, oz), (dx, dy, dz), alive, counts)
         hit = (idx >= 0) & alive
-        count("hits", hit)
         if use_cone:
             count("cone_hits", hit)
 
         # ---- winner geometry --------------------------------------------
-        sel = idx.long()
-        m = w2o_t[sel].unbind(-1)
-        shade = shade_t[sel].unbind(-1)
-        radius = rad_t[sel]
-        ptype_f = ptf_t[sel]
+        ptype_f, m, pr, shade, alid, scale2 = hits.winner(idx)
+        radius = pr[0]
         oox = m[0] * ox + m[1] * oy + m[2] * oz + m[3]
         ooy = m[4] * ox + m[5] * oy + m[6] * oz + m[7]
         ooz = m[8] * ox + m[9] * oy + m[10] * oz + m[11]
@@ -498,7 +649,6 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
         ny_o = torch.where(is_sph, poy * inv_r, 0.0)
         nz_o = torch.where(is_sph, poz * inv_r, 1.0)
         dux_o, duy_o, duz_o = -poy, pox, torch.zeros_like(pox)
-        scale2 = shade[SH_SCALE2]
 
         def w2oT(vx, vy, vz):
             return (
@@ -511,10 +661,23 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
         dux, duy, duz = w2oT(dux_o, duy_o, duz_o)
         plx, ply, plz = w2oT(pox - m[3], poy - m[7], poz - m[11])
         px, py, pz = scale2 * plx, scale2 * ply, scale2 * plz
+        is_tri = ptype_f > 1.5
+        if any_tri:
+            # world-space triangle: p = o + t d, n ~ e1 x e2, dpdu = e1
+            e1 = (pr[3] - pr[0], pr[4] - pr[1], pr[5] - pr[2])
+            e2 = (pr[6] - pr[0], pr[7] - pr[1], pr[8] - pr[2])
+            ntx, nty, ntz = _normalize3(*_cross3(*e1, *e2), 1e-30)
+            px = torch.where(is_tri, ox + dx * t, px)
+            py = torch.where(is_tri, oy + dy * t, py)
+            pz = torch.where(is_tri, oz + dz * t, pz)
+            nx, ny, nz = (torch.where(is_tri, a, b) for a, b in zip((ntx, nty, ntz),
+                                                                     (nx, ny, nz)))
+            dux, duy, duz = (torch.where(is_tri, a, b) for a, b in zip(e1, (dux, duy, duz)))
+        count("hits", hit & ~is_tri)
+        count("triangle_hits", hit & is_tri)
         wox, woy, woz = _normalize3(-dx, -dy, -dz, 1e-30)
 
         # ---- emitted radiance at emitter hits (path.go:48-63 + MIS) -----
-        alid = shade[SH_ALID].to(torch.int32)
         is_emit = hit & (alid >= 0)
         if n_lights > 0:
             el = torch.clamp(alid, min=0).long()
@@ -594,11 +757,12 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
         is_mir = shade[SH_MIR] > 0.5
         is_gls = (shade[SH_GLS] > 0.5) if any_glass else torch.zeros_like(is_mir)
         is_rgl = (shade[SH_RGL] > 0.5) if any_rough else torch.zeros_like(is_mir)
+        is_pla = (shade[SH_PLA] > 0.5) if any_plastic else torch.zeros_like(is_mir)
         count("rough_hits", alive & is_rgl)
+        alpha_g = torch.clamp(shade[SH_ALPHA], min=1e-3)
+        eta_rg = torch.clamp(shade[SH_ETA], min=1e-3)
 
         if any_rough:
-            alpha_g = torch.clamp(shade[SH_ALPHA], min=1e-3)
-            eta_rg = torch.clamp(shade[SH_ETA], min=1e-3)
             aco_r = torch.abs(cos_o)
             F_o_rgl = _fresnel_diel(cos_o, eta_rg)
 
@@ -608,30 +772,9 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
                 ci_e = _dot3(wix_e, wiy_e, wiz_e, nx, ny, nz)
                 same_e = cos_o * ci_e > 0.0
                 aci_e = torch.abs(ci_e)
-                hx, hy, hz = wix_e + wox, wiy_e + woy, wiz_e + woz
-                h2 = hx * hx + hy * hy + hz * hz
-                hx, hy, hz = _normalize3(hx, hy, hz, 1e-20)
-                c_wh = _dot3(hx, hy, hz, nx, ny, nz)
-                sgn_h = torch.where(c_wh < 0.0, -1.0, 1.0)
-                fr_r = _fresnel_diel(
-                    _dot3(wix_e, wiy_e, wiz_e, sgn_h * hx, sgn_h * hy, sgn_h * hz),
-                    eta_rg,
-                )
-                d_r = _ggx_d(c_wh, alpha_g)
-                g_e = 1.0 / (1.0 + _ggx_lambda(cos_o, alpha_g)
-                             + _ggx_lambda(ci_e, alpha_g))
-                degen_r = (aco_r < 1e-7) | (aci_e < 1e-7) | (h2 < 1e-14)
-                refl = torch.where(
-                    same_e & ~degen_r,
-                    fr_r * d_r * g_e / torch.clamp(4.0 * aco_r * aci_e, min=1e-7),
-                    0.0,
-                )
-                doh_r = _dot3(wox, woy, woz, hx, hy, hz)
-                mf_pdf_r = torch.where(
-                    same_e,
-                    d_r * torch.abs(c_wh) / torch.clamp(4.0 * torch.abs(doh_r), min=1e-7),
-                    0.0,
-                )
+                refl, mf_pdf_r, g_e = _ggx_reflection(nx, ny, nz, wox, woy, woz, cos_o,
+                                                      alpha_g, eta_rg, wix_e, wiy_e, wiz_e,
+                                                      ci_e)
                 eta_t = torch.where(cos_o > 0.0, eta_rg, 1.0 / eta_rg)
                 thx = wox + wix_e * eta_t
                 thy = woy + wiy_e * eta_t
@@ -770,6 +913,15 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
                 fG_n = torch.where(is_rgl, (shade[SH_KR + 1] * r_e + shade[SH_KT + 1] * t_e) * aci_n, fG_n)
                 fB_n = torch.where(is_rgl, (shade[SH_KR + 2] * r_e + shade[SH_KT + 2] * t_e) * aci_n, fB_n)
                 b_pdf = torch.where(is_rgl, p_e, b_pdf)
+            if any_plastic:  # + the GGX reflection lobe, the pdfs averaged
+                spec_s, mf_pdf, _ = _ggx_reflection(nx, ny, nz, wox, woy, woz, cos_o, alpha_g,
+                                                    eta_rg, wix, wiy, wiz, cos_i)
+                cos_gain = torch.where(same, torch.abs(cos_i), 0.0)
+                fR_n = torch.where(is_pla, fR_n + shade[SH_KR] * spec_s * cos_gain, fR_n)
+                fG_n = torch.where(is_pla, fG_n + shade[SH_KR + 1] * spec_s * cos_gain, fG_n)
+                fB_n = torch.where(is_pla, fB_n + shade[SH_KR + 2] * spec_s * cos_gain, fB_n)
+                b_pdf = torch.where(is_pla, 0.5 * (b_pdf + mf_pdf), b_pdf)
+                count("nee_plastic", nee & is_pla)
             f_max = _max3(fR_n, fG_n, fB_n)
             li_max = _max3(lir, lig, lib)
             contributes = nee & (ls_pdf > 0.0) & (li_max > 0.0) & (f_max > 0.0)
@@ -782,9 +934,8 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
             t_sh = torch.clamp(dist * (1.0 - SHADOW_EPSILON) - 1e-3, min=1e-4)
             t_sh = torch.where(contributes, t_sh, 1e-6)
             count("shadow_rays", contributes)
-            sh_first = first_hit(scene.brute, shx, shy, shz, wix, wiy, wiz, t_sh,
-                                 tally=counts, active=contributes)
-            vis = contributes & (sh_first < 0)
+            occ = hits.occluded((shx, shy, shz), (wix, wiy, wiz), t_sh, contributes, counts)
+            vis = contributes & ~occ
             count("unoccluded", vis)
             count("unoccluded_area", vis & ~is_delta)
 
@@ -809,9 +960,48 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
         kd_max = _max3(kdr, kdg, kdb)
         ok = (pdf_b > 1e-9) & (kd_max * INV_PI > 0.0) & (cos_o * zl > 0.0)
         thr = torch.where(ok, (INV_PI * cos_n) / torch.clamp(pdf_b, min=1e-20), 0.0)
+        # the throughput of the lanes that are neither mirror nor glass
+        fdR, fdG, fdB = kdr * thr, kdg * thr, kdb * thr
+        choose_diff = torch.ones_like(is_pla)
+        if any_plastic:
+            # plastic: the cosine sample or reflection about a GGX
+            # half-vector, half and half, then both lobes' f and the
+            # averaged pdf toward the sample (pallas_mesh_megakernel.py
+            # :1104-1138)
+            choose_diff = u1(D_BSDF_LOBE) < 0.5
+            whx, why, whz = _ggx_half_vector(alpha_g, ub0, ub1, cos_o, (ssx, ssy, ssz),
+                                             (tsx, tsy, tsz), (nx, ny, nz))
+            doh_p = _dot3(wox, woy, woz, whx, why, whz)
+            wgx, wgy, wgz = _normalize3(2.0 * doh_p * whx - wox, 2.0 * doh_p * why - woy,
+                                        2.0 * doh_p * whz - woz, 1e-20)
+            wpx = torch.where(choose_diff, wix_n, wgx)
+            wpy = torch.where(choose_diff, wiy_n, wgy)
+            wpz = torch.where(choose_diff, wiz_n, wgz)
+            cos_ip = _dot3(wpx, wpy, wpz, nx, ny, nz)
+            same_p = cos_o * cos_ip > 0.0
+            spec_p, mf_pdf_p, _ = _ggx_reflection(nx, ny, nz, wox, woy, woz, cos_o, alpha_g,
+                                                  eta_rg, wpx, wpy, wpz, cos_ip)
+            acip = torch.abs(cos_ip)
+            pdf_p = 0.5 * (torch.where(same_p, acip * INV_PI, 0.0) + mf_pdf_p)
+            diff_p = torch.where(same_p, INV_PI, 0.0)
+            fRp = kdr * diff_p + shade[SH_KR] * spec_p
+            fGp = kdg * diff_p + shade[SH_KR + 1] * spec_p
+            fBp = kdb * diff_p + shade[SH_KR + 2] * spec_p
+            ok_p = (pdf_p > 1e-9) & (_max3(fRp, fGp, fBp) > 0.0)
+            thr_p = torch.where(ok_p, acip / torch.clamp(pdf_p, min=1e-20), 0.0)
+            wix_n = torch.where(is_pla, wpx, wix_n)
+            wiy_n = torch.where(is_pla, wpy, wiy_n)
+            wiz_n = torch.where(is_pla, wpz, wiz_n)
+            pdf_b = torch.where(is_pla, pdf_p, pdf_b)
+            ok = torch.where(is_pla, ok_p, ok)
+            fdR = torch.where(is_pla, fRp * thr_p, fdR)
+            fdG = torch.where(is_pla, fGp * thr_p, fdG)
+            fdB = torch.where(is_pla, fBp * thr_p, fdB)
+            count("plastic_ggx", alive & is_pla & ~choose_diff)
+            count("plastic_samples", alive & is_pla)
         # mirror: delta reflection (mirror.go:21-32)
         count("mirror_samples", alive & is_mir)
-        count("lambert_samples", alive & ~is_mir & ~is_gls & ~is_rgl)
+        count("lambert_samples", alive & ~is_mir & ~is_gls & ~is_rgl & (~is_pla | choose_diff))
         wix_m = 2.0 * cos_o * nx - wox
         wiy_m = 2.0 * cos_o * ny - woy
         wiz_m = 2.0 * cos_o * nz - woz
@@ -863,16 +1053,9 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
 
             if any_rough:
                 # rough glass: GGX NDF half-vector, Fresnel R/T choice
-                tan2w = alpha_g * alpha_g * ub0 / torch.clamp(1.0 - ub0, min=1e-7)
-                ctw = 1.0 / torch.sqrt(1.0 + tan2w)
-                stw = torch.sqrt(torch.clamp(1.0 - ctw * ctw, min=0.0))
-                phiw = 2.0 * PI * ub1
-                cpw = stw * torch.cos(phiw)
-                spw = stw * torch.sin(phiw)
-                flip_h = torch.where(cos_o < 0.0, -1.0, 1.0)
-                whx_s = (ssx * cpw + tsx * spw + nx * ctw) * flip_h
-                why_s = (ssy * cpw + tsy * spw + ny * ctw) * flip_h
-                whz_s = (ssz * cpw + tsz * spw + nz * ctw) * flip_h
+                whx_s, why_s, whz_s = _ggx_half_vector(alpha_g, ub0, ub1, cos_o,
+                                                       (ssx, ssy, ssz), (tsx, tsy, tsz),
+                                                       (nx, ny, nz))
                 doh_s = _dot3(wox, woy, woz, whx_s, why_s, whz_s)
                 fr_wh = _fresnel_diel(doh_s, eta_rg)
                 choose_rg = u_lobe < fr_wh
@@ -921,9 +1104,9 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
                 wiy_n = sel3(wiy_m, wiy_g, wiy_rg, wiy_n)
                 wiz_n = sel3(wiz_m, wiz_g, wiz_rg, wiz_n)
                 pdf_b = sel3(torch.ones_like(pdf_b), pdf_g, pdf_rg, pdf_b)
-                fR = sel3(shade[SH_KR], fR_g, fR_rg, kdr * thr)
-                fG = sel3(shade[SH_KR + 1], fG_g, fG_rg, kdg * thr)
-                fB = sel3(shade[SH_KR + 2], fB_g, fB_rg, kdb * thr)
+                fR = sel3(shade[SH_KR], fR_g, fR_rg, fdR)
+                fG = sel3(shade[SH_KR + 1], fG_g, fG_rg, fdG)
+                fB = sel3(shade[SH_KR + 2], fB_g, fB_rg, fdB)
                 es_new = torch.where(
                     (is_gls & ~choose_r & ok_t) | (is_rgl & ~choose_rg & ok_mt),
                     es / torch.clamp(er2, min=1e-20), es,
@@ -934,21 +1117,21 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
                 wiy_n = torch.where(is_mir, wiy_m, torch.where(is_gls, wiy_g, wiy_n))
                 wiz_n = torch.where(is_mir, wiz_m, torch.where(is_gls, wiz_g, wiz_n))
                 pdf_b = torch.where(is_mir, 1.0, torch.where(is_gls, pdf_g, pdf_b))
-                fR = torch.where(is_mir, shade[SH_KR], torch.where(is_gls, fR_g, kdr * thr))
-                fG = torch.where(is_mir, shade[SH_KR + 1], torch.where(is_gls, fG_g, kdg * thr))
-                fB = torch.where(is_mir, shade[SH_KR + 2], torch.where(is_gls, fB_g, kdb * thr))
+                fR = torch.where(is_mir, shade[SH_KR], torch.where(is_gls, fR_g, fdR))
+                fG = torch.where(is_mir, shade[SH_KR + 1], torch.where(is_gls, fG_g, fdG))
+                fB = torch.where(is_mir, shade[SH_KR + 2], torch.where(is_gls, fB_g, fdB))
                 es_new = torch.where(is_gls & ~choose_r & ok_t,
                                      es / torch.clamp(er2, min=1e-20), es)
-            spec_next = is_mir | is_gls  # rough glass is not a delta lobe
+            spec_next = is_mir | is_gls  # rough glass and plastic are not delta lobes
         else:
             ok = (is_mir & (kr_max > 0.0)) | (~is_mir & ok)
             wix_n = torch.where(is_mir, wix_m, wix_n)
             wiy_n = torch.where(is_mir, wiy_m, wiy_n)
             wiz_n = torch.where(is_mir, wiz_m, wiz_n)
             pdf_b = torch.where(is_mir, 1.0, pdf_b)
-            fR = torch.where(is_mir, shade[SH_KR], kdr * thr)
-            fG = torch.where(is_mir, shade[SH_KR + 1], kdg * thr)
-            fB = torch.where(is_mir, shade[SH_KR + 2], kdb * thr)
+            fR = torch.where(is_mir, shade[SH_KR], fdR)
+            fG = torch.where(is_mir, shade[SH_KR + 1], fdG)
+            fB = torch.where(is_mir, shade[SH_KR + 2], fdB)
             es_new = es
             spec_next = is_mir
         ok_f = torch.where(ok, 1.0, 0.0)
@@ -991,33 +1174,32 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
 # ---------------------------------------------------------------------------
 
 
-def _as_i32_bits(x: torch.Tensor) -> torch.Tensor:
+def as_i32_bits(x: torch.Tensor) -> torch.Tensor:
     """uint32 counters (held in int64) as int32 with the same bits."""
     x = rng.as_u32(x)
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous()
 
 
-def _check_inputs(scene, o, d, pixel, sample):
+def check_inputs(scene, o, d, pixel, sample, scene_fits=fits,
+                 why="the megakernel takes fast-path scenes of <= 64 prims and 1..16 lights"):
+    """Checks the rays and that ``scene_fits(scene)``; returns pixel and
+    sample as uint32 counters broadcast to [N]."""
     if o.dtype != torch.float32 or d.dtype != torch.float32:
         raise TypeError("o and d must be float32")
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"o and d must be [N, 3], got {tuple(o.shape)}, {tuple(d.shape)}")
     if d.device != o.device or scene.device != o.device:
         raise ValueError("rays and scene must lie on one device")
-    if not fits(scene):
-        raise ValueError("the megakernel takes fast-path scenes of <= 64 prims "
-                         "and 1..16 lights")
+    if not scene_fits(scene):
+        raise ValueError(why)
     n = o.shape[0]
     pixel = torch.broadcast_to(rng.as_u32(pixel, o.device), (n,))
     sample = torch.broadcast_to(rng.as_u32(sample, o.device), (n,))
     return pixel, sample
 
 
-def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
-    """Everything a CUDA launch needs, prepared once: returns a callable
-    that launches the kernel on the current stream, writing radiance into
-    ``out`` (f32[N,3], on the card), and counts the launch."""
-    pixel, sample = _check_inputs(scene, o, d, pixel, sample)
+def check_launch(o, d, out):
+    """What a launch needs of the rays and the output buffer."""
     if o.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
     if not (o.is_contiguous() and d.is_contiguous() and out.is_contiguous()):
@@ -1025,13 +1207,21 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     if out.shape != o.shape or out.dtype != torch.float32 or out.device != o.device:
         raise ValueError("out must be float32 [N, 3] on the rays' device")
 
+
+def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
+    """Everything a CUDA launch needs, prepared once: returns a callable
+    that launches the kernel on the current stream, writing radiance into
+    ``out`` (f32[N,3], on the card), and counts the launch."""
+    pixel, sample = check_inputs(scene, o, d, pixel, sample)
+    check_launch(o, d, out)
+
     fn = _build.load().gopbrt_path_li
     kt = scene.kernel
     if kt is None:
         raise ValueError("the scene carries no packed tables (SceneBuilder.build "
                          "and scene_from_arrays pack them)")
     tables = kt.tables
-    pix32, smp32 = _as_i32_bits(pixel), _as_i32_bits(sample)
+    pix32, smp32 = as_i32_bits(pixel), as_i32_bits(sample)
     w0, sp = (0.0, 0.0) if cone is None else (float(cone[0]), float(cone[1]))
     args = (
         o.data_ptr(), d.data_ptr(), pix32.data_ptr(), smp32.data_ptr(),
@@ -1061,7 +1251,7 @@ def path_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Ten
     (width0, spread) ray-cone floats enabling the checker box filter.
     """
     if o.device.type == "cpu":
-        pixel, sample = _check_inputs(scene, o, d, pixel, sample)
+        pixel, sample = check_inputs(scene, o, d, pixel, sample)
         return path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=cone)
     out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
     if o.shape[0] == 0:

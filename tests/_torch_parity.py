@@ -13,14 +13,17 @@ import torch
 
 from gopbrt_tpu.models import camera as jcam
 from gopbrt_tpu.models import render as jrender
-from gopbrt_tpu_torch.models.scene import ARRAY_FIELDS, scene_from_arrays
+from gopbrt_tpu_torch.models.scene import ARRAY_FIELDS, OPTIONAL_GROUPS, scene_from_arrays
 
 
 def jax_scene_arrays(scene) -> dict:
-    """A JAX Scene's tables as NumPy arrays, keyed as ARRAY_FIELDS."""
+    """A JAX Scene's tables as NumPy arrays, keyed as ARRAY_FIELDS (the BVH
+    where the scene has one)."""
     out = {}
     for name, fields in ARRAY_FIELDS.items():
         table = getattr(scene, name) if name else scene
+        if table is None and name in OPTIONAL_GROUPS:
+            continue
         for f in fields:
             out[f"{name}.{f}" if name else f] = np.asarray(getattr(table, f))
     return out

@@ -72,5 +72,15 @@ def test_config1_render_matches_its_golden():
 
 
 def test_gallery_config3_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgallery.config3(device="cpu")
+    """Config 3 builds: 1,104 triangles, a disk and a sphere under the BVH,
+    in the mesh fast path, and ``li`` traces a band of it on the CPU
+    without a launch (its golden: tests/test_torch_mesh.py)."""
+    scene, cam, settings = tgallery.config3(16, 9, device="cpu")
+    assert scene.prims.count == 1106 and scene.bvh_tables is not None
+    assert scene.fastinfo.mesh_ok and scene.mesh is not None
+    _, o, d, pix, smp = trender.band_rays(cam, settings, 0, 9, 0)
+    before = dict(_build.LAUNCHES)
+    L = tint.li(scene, o, d, pix, smp, settings.seed, trender.path_config(settings),
+                cone=trender._cone(cam, settings))
+    assert dict(_build.LAUNCHES) == before
+    assert L.shape == (16 * 9, 3) and bool(torch.isfinite(L).all()) and float(L.mean()) > 0.0

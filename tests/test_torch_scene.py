@@ -4,6 +4,7 @@ from dataclasses import asdict
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import (assert_tables_equal, carry, jax_scene_arrays,
                            jax_scene_infos, rough_glass_scene)
@@ -12,6 +13,7 @@ from gopbrt_tpu.models import gallery
 from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
 from gopbrt_tpu.ops import geom as jgeom
 from gopbrt_tpu_torch.models import demo as tdemo
+from gopbrt_tpu_torch.models import integrators as tint
 from gopbrt_tpu_torch.models.scene import SceneBuilder, scene_to_arrays
 from gopbrt_tpu_torch.ops import geom as tgeom
 
@@ -76,13 +78,32 @@ def test_builder_raises_outside_the_slice(call):
 
 
 def test_scenes_that_need_a_bvh_raise():
-    b = SceneBuilder()
-    m = b.matte()
-    for i in range(65):
-        b.sphere(tgeom.translate([3.0 * i, 0.0, 0.0]), 1.0, m)
-    b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="BVH"):
-        b.build(device="cpu")
+    """A scene above 64 prims builds its SAH BVH: its tables, the tree
+    included, equal the JAX builder's, and the general chain on the BVH
+    walk gives the brute-force chain's radiance."""
+    def build(cls, geom, **kw):
+        b = cls()
+        m = b.matte()
+        for i in range(65):
+            b.sphere(np.asarray(geom.translate([3.0 * i, 0.0, 0.0])), 1.0, m)
+        b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
+        return b.build(**kw)
+
+    want = build(JaxBuilder, jgeom)
+    got = build(SceneBuilder, tgeom, device="cpu")
+    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
+    assert got.bvh_tables is not None and got.kernel is None and got.mesh is None
+    flat = build(SceneBuilder, tgeom, accelerator="none", device="cpu")
+    assert flat.bvh is None and "bvh.node_lo" not in scene_to_arrays(flat)
+    n = 64
+    o = torch.stack([torch.linspace(-3.0, 195.0, n), torch.full((n,), 4.0),
+                     torch.full((n,), 6.0)], dim=-1)
+    d = torch.nn.functional.normalize(torch.tensor([0.0, -1.0, -1.5]).expand(n, 3), dim=-1)
+    args = (o, d.contiguous(), torch.arange(n), torch.zeros(n, dtype=torch.int64), 3,
+            tint.PathConfig(max_depth=3))
+    bvh_l = tint._li_wavefront(got, *args)
+    torch.testing.assert_close(bvh_l, tint._li_wavefront(flat, *args))
+    assert float(bvh_l.amax()) > 0.0
 
 
 def test_power_light_strategy_raises():
