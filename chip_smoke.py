@@ -45,7 +45,15 @@ non-zero and never prints the last line:
      bench_mesh.py's workload): 4 mesh megakernel launches per pass;
    - the metal mesh, the general chain on the BVH, at 1920x1080, depth 5:
      BVH walk launches only;
-5. the kernels line: time per launch, launches, bound, plain time.
+5. the kernels line: time per launch (the BVH walk's also on a band's
+   last launch), launches, bound, plain time, device ms per pass from the
+   profiled passes.
+
+Beside the kernel times, ``[lane-slots]`` lines give the lane-slot
+efficiency of a launch of one thread per item on the redesigned kernels'
+bands (the demo band, the mesh band, the metal mesh's camera and first
+shadow rays): the per-item steps the plain versions count (a path's
+bounces, a walk's nodes) over the slots of warps of 32 lanes.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, the script fails.
@@ -121,6 +129,20 @@ def bound(flops: float, nbytes: float):
     """(least ms on the card, "operations" or "bytes")."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def lane_slots(what: str, steps: torch.Tensor) -> None:
+    """Prints the lane-slot efficiency of a launch of one thread per item on
+    one band: the items' steps (a path's bounces, a walk's nodes) over the
+    slots their warps hold, 32 lanes in launch order for as long as the
+    warp's longest item."""
+    s = steps.long().cpu()
+    pad = (-s.numel()) % 32
+    warps = torch.cat([s, s.new_zeros(pad)]).reshape(-1, 32)
+    eff = float(s.sum()) / max(32.0 * float(warps.amax(dim=1).sum()), 1.0)
+    phase("lane-slots", f"{what}: {s.numel()} items, {int(s.sum())} steps (mean "
+          f"{float(s.float().mean()):.2f}, max {int(s.max())}); lane-slot efficiency "
+          f"{eff:.4f} one thread per item")
 
 
 def _intersector(accel):
@@ -284,23 +306,26 @@ def check_agreement(what: str, agree: float, ids) -> None:
         raise AssertionError(f"{what}: the kernel names other prims {ids}")
 
 
-def intersect_flops(kind, table, o, d, t_max) -> int:
-    """fp32 operations the kernel's threads need on these rays: every
-    primitive test of the closest-hit sweep, or the any-hit's tests up to
-    each ray's first occluder; for the BVH walk, each node's box test and
-    each leaf test of the plain walk; at ``megakernel.OPS_PER_EVENT`` each."""
+def intersect_flops(kind, table, o, d, t_max, steps=None):
+    """(fp32 operations the kernel's threads need on these rays, the events
+    counted): every primitive test of the closest-hit sweep, or the
+    any-hit's tests up to each ray's first occluder; for the BVH walk, the
+    events of csrc/bvh.cuh as the plain walk counts them (root tests,
+    interior nodes, pops, leaf tests), each lane's steps added to
+    ``steps``; at ``megakernel.OPS_PER_EVENT`` each."""
     from gopbrt_tpu_torch.ops import brute_intersect as bi
     from gopbrt_tpu_torch.ops import bvh, megakernel
 
     tally = {}
     if kind.startswith("bvh_"):
-        bvh.walk(table, o, d, t_max, any_hit=kind == "bvh_intersect_any", tally=tally)
-        return megakernel.fp32_ops(tally)
+        bvh.walk(table, o, d, t_max, any_hit=kind == "bvh_intersect_any", tally=tally,
+                 steps=steps)
+        return megakernel.fp32_ops(tally), tally
     args = (table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max)
     every = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     sweep = bi.closest_hit if kind == "intersect" else bi.first_hit
     sweep(*args, tally=tally, active=every)
-    return megakernel.fp32_ops(tally)
+    return megakernel.fp32_ops(tally), tally
 
 
 def lobe_scene(device):
@@ -414,9 +439,10 @@ def timed_passes(render, film_mod, scene, camera, settings, dev):
     return dt_ms, dict(_build.LAUNCHES), film
 
 
-def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float) -> str:
+def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
     """One more pass under the profiler, read by render_pass's stage ranges
-    (host time) and the device's busy time."""
+    (host time) and the device's busy time -> (the line to print, device
+    ms of the pass in each of the port's kernels, by OWN_KERNELS name)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev)
@@ -430,14 +456,16 @@ def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float) ->
     work = [e for e in prof.events()
             if e.device_type == cuda and not e.name.startswith("render.")]
     device_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
-    own_ms = sum(e.time_range.elapsed_us() for e in work
-                 if any(k in e.name for k in OWN_KERNELS)) / 1e3
+    own = {k: sum(e.time_range.elapsed_us() for e in work if k in e.name) / 1e3
+           for k in OWN_KERNELS}
+    own = {k: v for k, v in own.items() if v > 0}
     busy = (f"device busy {device_ms:.3f} ms in {len(work)} kernels and copies, "
-            f"{own_ms:.3f} ms of it in the port's CUDA kernels; idle "
+            f"{sum(own.values()):.3f} ms of it in the port's CUDA kernels "
+            f"({', '.join(f'{k} {v:.4f}' for k, v in own.items())} ms per pass); idle "
             f"{1.0 - device_ms / pass_ms:.4f} of a timed pass"
             if device_ms > 0 else "device time not measured")
     return ("one profiled pass, host ms by range: "
-            + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f"; {busy}")
+            + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f"; {busy}"), own
 
 
 def shadow_rays(scene, o, d, t, hit):
@@ -463,7 +491,8 @@ def mesh_checks(dev, band_rows: int) -> dict:
 
     scene = meshes.build_mesh_scene(device=dev)
     bt = scene.bvh_tables
-    phase("mesh", f"the mesh scene: {scene.prims.count} prims, BVH of {bt.nodes.shape[0]} nodes "
+    phase("mesh", f"the mesh scene: {scene.prims.count} prims, BVH of "
+          f"{bt.bvh.node_lo.shape[0]} nodes ({bt.nodes.shape[0] - 1} packed interior nodes) "
           f"built by the {bt.backend} builder in {bt.build_ms:.1f} ms")
     if bt.backend != "native" or scene.mesh is None:
         raise AssertionError(f"the mesh scene's tree was built by {bt.backend}, "
@@ -525,10 +554,10 @@ def mesh_checks(dev, band_rows: int) -> dict:
     launch = mesh_megakernel.make_launch(scene, o, d, pix, smp, settings.seed, cfg, cone, out)
     mesh_out = launch().clone()
     torch.cuda.synchronize()
-    counts = {}
+    counts, bounces = {}, torch.zeros((n,), dtype=torch.int64, device=dev)
     t0 = time.perf_counter()
     ref = megakernel.path_li_plain(scene, o, d, pix, smp, settings.seed, cfg, cone=cone,
-                                   counts=counts, accel="bvh")
+                                   counts=counts, accel="bvh", bounces=bounces)
     torch.cuda.synchronize()
     mesh_plain_ms = (time.perf_counter() - t0) * 1e3
     if not bool(torch.isfinite(mesh_out).all()):
@@ -553,31 +582,38 @@ def mesh_checks(dev, band_rows: int) -> dict:
     table_bytes = bt.nodes.numel() * 4 + bt.records.numel() * 4
     mesh_ms = cuda_ms(launch, reps=9)
     phase("kernel-time", "mesh megakernel events of the mesh band as [count, fp32 ops]: "
-          + json.dumps({k: [v, v * megakernel.OPS_PER_EVENT[k]] for k, v in counts.items()}))
+          + json.dumps({k: [v, v * megakernel.OPS_PER_EVENT[k]]
+                        for k, v in counts.items()}))
     flops = megakernel.fp32_ops(counts)
     mesh_bound = bound(flops, n * BYTES_PER_PATH + mesh_megakernel.MESH_TABLE_WORDS * 4
                        + table_bytes)
     phase("kernel-time", f"mesh megakernel {mesh_ms:.4f} ms, plain {mesh_plain_ms:.2f} ms per "
           f"band; bound {mesh_bound[0]:.5f} ms by {mesh_bound[1]} ({flops / 1e9:.3f} GFLOP); "
           f"{mesh_bound[0] / mesh_ms:.4f} of the bound")
+    lane_slots("mesh band, bounces per path", bounces)
     timing = {"mesh_megakernel": (mesh_ms, mesh_plain_ms) + mesh_bound}
     for kind, fused, plain, per_ray in (
             ("bvh_intersect", bvh.bvh_intersect_fused, bvh.bvh_intersect,
              BYTES_PER_RAY_CLOSEST),
             ("bvh_intersect_any", bvh.bvh_intersect_p_fused, bvh.bvh_intersect_p,
              BYTES_PER_RAY_ANY)):
-        # the first launch of each: the camera rays, the first shadow rays
-        args = next(c[1:] for c in calls if c[0] == kind)
-        k_ms = cuda_ms(lambda: fused(*args), reps=21)
-        p_ms = cuda_ms(lambda: plain(*args), reps=1)
-        tally = {}
-        bvh.walk(*args, any_hit=kind == "bvh_intersect_any", tally=tally)
-        k_flops = megakernel.fp32_ops(tally)
-        b_ms, b_by = bound(k_flops, n * per_ray + table_bytes)
-        timing[kind] = (k_ms, p_ms, b_ms, b_by)
-        phase("kernel-time", f"{kind} {k_ms:.4f} ms, plain {p_ms:.2f} ms per launch of {n} "
-              f"rays; events {json.dumps(tally)}; bound {b_ms:.5f} ms by {b_by} "
-              f"({k_flops / 1e9:.4f} GFLOP); {b_ms / k_ms:.4f} of the bound")
+        # the first launch of each (the camera rays, the first shadow rays)
+        # and the last (the last bounce's rays, most of them dead)
+        mine = [c[1:] for c in calls if c[0] == kind]
+        for which, args in (("first", mine[0]), ("last", mine[-1])):
+            k_ms = cuda_ms(lambda: fused(*args), reps=21)
+            p_ms = cuda_ms(lambda: plain(*args), reps=1)
+            steps = torch.zeros((n,), dtype=torch.int64, device=dev)
+            k_flops, tally = intersect_flops(kind, *args, steps=steps)
+            b_ms, b_by = bound(k_flops, n * per_ray + table_bytes)
+            timing[kind if which == "first" else kind + "_last"] = (k_ms, p_ms, b_ms, b_by)
+            phase("kernel-time", f"{kind}, {which} launch: {k_ms:.4f} ms, plain {p_ms:.2f} ms "
+                  f"per launch of {n} rays; events {json.dumps(tally)}; "
+                  f"bound {b_ms:.5f} ms by {b_by} ({k_flops / 1e9:.4f} GFLOP); "
+                  f"{b_ms / k_ms:.4f} of the bound")
+            if which == "first":
+                lane_slots("metal-mesh camera band, nodes per ray" if kind == "bvh_intersect"
+                           else "metal-mesh first shadow band, nodes per ray", steps)
     return dict(scene=scene, metal=metal, cam=cam, settings=settings, timing=timing,
                 worst=worst, mesh_err=mesh_err)
 
@@ -602,7 +638,8 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
         "ms_per_pass": dt, "device": device_name, "power_limit": power_limit,
     }), flush=True)
     k_ms = m["timing"]["mesh_megakernel"][0]
-    phase("main-path", "mesh: " + profiled_pass(render, scene, cam, film, settings, dev, dt)
+    line, own_m = profiled_pass(render, scene, cam, film, settings, dev, dt)
+    phase("main-path", "mesh: " + line
           + f"; the kernel is ~{4 * k_ms:.2f} ms (4 launches at the second band's time)")
 
     dtc, launches_c, film_c = timed_passes(render, film_mod, metal, cam, settings, dev)
@@ -616,9 +653,9 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
     phase("main-path", f"metal mesh, the general chain on the BVH: {N_PASSES} passes of "
           f"{W}x{H} 1 spp path depth {MESH_DEPTH}: {dtc:.2f} ms per pass, launches per pass "
           f"{per_pass}, image mean {float(img_c.mean()):.4f}")
-    phase("main-path", "metal mesh: " + profiled_pass(render, metal, cam, film_c, settings, dev,
-                                                      dtc))
-    return launches, launches_c
+    line, own_c = profiled_pass(render, metal, cam, film_c, settings, dev, dtc)
+    phase("main-path", "metal mesh: " + line)
+    return launches, launches_c, {**own_m, **own_c}
 
 
 def main() -> int:
@@ -679,9 +716,9 @@ def main() -> int:
                                     cone, out)
     mega = launch().clone()
     torch.cuda.synchronize()
-    counts = {}
+    counts, bounces = {}, torch.zeros((n_band,), dtype=torch.int64, device=dev)
     ref = megakernel.path_li_plain(scene, o, d, pixel, sample, settings.seed, cfg,
-                                   cone=cone, counts=counts)
+                                   cone=cone, counts=counts, bounces=bounces)
     if not bool(torch.isfinite(mega).all()):
         raise AssertionError("demo band: non-finite kernel output")
     frac, mean_rel, max_abs = agreement(mega, ref)
@@ -769,11 +806,13 @@ def main() -> int:
         scene, o, d, pixel, sample, settings.seed, cfg, cone=cone), reps=3)
     flops = megakernel.fp32_ops(counts)
     phase("kernel-time", "megakernel events of the demo band as [count, fp32 ops]: "
-          + json.dumps({k: [v, v * megakernel.OPS_PER_EVENT[k]] for k, v in counts.items()}))
+          + json.dumps({k: [v, v * megakernel.OPS_PER_EVENT[k]]
+                        for k, v in counts.items()}))
     mega_bound = bound(flops, n_band * BYTES_PER_PATH + megakernel.TABLE_WORDS * 4)
     phase("kernel-time", f"megakernel {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms per band; "
           f"bound {mega_bound[0]:.5f} ms by {mega_bound[1]} ({flops / 1e9:.3f} GFLOP); "
           f"{mega_bound[0] / kernel_ms:.4f} of the bound")
+    lane_slots("demo band, bounces per path", bounces)
     timing = {}
     for kind, fused, plain, per_ray in (
             ("intersect", bi.intersect_brute_fused, bi.intersect_brute,
@@ -784,7 +823,7 @@ def main() -> int:
         args = next(c[1:] for c in calls if c[0] == kind)
         k_ms = cuda_ms(lambda: fused(*args), reps=21)
         p_ms = cuda_ms(lambda: plain(*args), reps=5)
-        k_flops = intersect_flops(kind, *args)
+        k_flops, _ = intersect_flops(kind, *args)
         b_ms, b_by = bound(k_flops, n_band * per_ray + args[0].count * BYTES_PER_PRIM)
         timing[kind] = (k_ms, p_ms, b_ms, b_by)
         phase("kernel-time", f"{kind} {k_ms:.4f} ms, plain {p_ms:.3f} ms per launch of "
@@ -804,7 +843,8 @@ def main() -> int:
         "metric": "camera_rays_per_s_1080p_path_depth10", "value": W * H / (dt / 1e3),
         "unit": "rays/s", "device": device_name, "power_limit": power_limit,
     }), flush=True)
-    phase("main-path", "demo: " + profiled_pass(render, scene, camera, film, settings, dev, dt)
+    prof_line, own_d = profiled_pass(render, scene, camera, film, settings, dev, dt)
+    phase("main-path", "demo: " + prof_line
           + f"; the kernel is {4 * kernel_ms:.2f} ms (4 launches x {kernel_ms:.3f} ms)")
 
     settings4 = demo_settings(W, H, spp=4, samples_per_pass=1)
@@ -844,8 +884,8 @@ def main() -> int:
     if not (bool(torch.isfinite(img1).all()) and float(img1.mean()) > 0.01):
         raise AssertionError("config 1: bad image")
     k1 = timing["intersect"][0] * 16 + timing["intersect_any"][0] * 12
-    phase("main-path", "config 1: " + profiled_pass(render, scene1, camera1, film1, set1,
-                                                     dev, dt1)
+    prof_line, own_1 = profiled_pass(render, scene1, camera1, film1, set1, dev, dt1)
+    phase("main-path", "config 1: " + prof_line
           + f"; the kernels are ~{k1:.2f} ms (16 + 12 launches at the first launches' times)")
 
     # outside the fast path: the general chain, path depth 5
@@ -877,8 +917,10 @@ def main() -> int:
           f"{min(fagree):.6f}")
 
     # the mesh: the mesh megakernel, then the general chain on the BVH
-    launches_m, launches_c = mesh_main_paths(render, film_mod, mesh, dev, device_name,
-                                             power_limit)
+    launches_m, launches_c, own_m = mesh_main_paths(render, film_mod, mesh, dev, device_name,
+                                                    power_limit)
+    # device ms per pass of each kernel, from the profiled passes
+    per_pass = {**own_d, **own_1, **own_m}
 
     # ---- 5. kernels line ------------------------------------------------
     line = [{
@@ -888,8 +930,10 @@ def main() -> int:
         "launches": mega_launches, "launches_per_pass": mega_launches // N_PASSES,
         "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": mega_bound[0], "bound_by": mega_bound[1], "library_ms": None,
+        "ms_per_pass": per_pass.get("mega_kernel"),
     }]
-    for kind, line_no in (("intersect", 172), ("intersect_any", 276)):
+    for kind, line_no, fn in (("intersect", 172, "closest_hit_kernel"),
+                              ("intersect_any", 276, "any_hit_kernel")):
         k_ms, p_ms, b_ms, b_by = timing[kind]
         line.append({
             "name": kind, "route": "cuda", "source": "gopbrt_tpu_torch/csrc/intersect.cu",
@@ -897,22 +941,28 @@ def main() -> int:
             "launches": launches1[kind], "launches_per_pass": launches1[kind] // N_PASSES,
             "max_abs_err": worst[kind][1], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_per_pass": per_pass.get(fn),
         })
-    for name, source, replaces, launches, err in (
+    for name, source, replaces, launches, err, fn in (
             ("bvh_intersect", "bvh_intersect.cu", "pallas_cluster.py:127", launches_c,
-             mesh["worst"]["bvh_intersect"][1]),
+             mesh["worst"]["bvh_intersect"][1], "bvh_closest_kernel"),
             ("bvh_intersect_any", "bvh_intersect.cu", "pallas_cluster.py:127", launches_c,
-             mesh["worst"]["bvh_intersect_any"][1]),
+             mesh["worst"]["bvh_intersect_any"][1], "bvh_any_kernel"),
             ("mesh_megakernel", "mesh_megakernel.cu", "pallas_mesh_megakernel.py:357",
-             launches_m, mesh["mesh_err"])):
+             launches_m, mesh["mesh_err"], "mesh_kernel")):
         k_ms, p_ms, b_ms, b_by = mesh["timing"][name]
-        line.append({
+        row = {
             "name": name, "route": "cuda", "source": f"gopbrt_tpu_torch/csrc/{source}",
             "replaces": f"gopbrt_tpu/ops/{replaces}",
             "launches": launches[name], "launches_per_pass": launches[name] // N_PASSES,
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+            "ms_per_pass": per_pass.get(fn),
+        }
+        if name + "_last" in mesh["timing"]:  # the last bounce's launch
+            last = mesh["timing"][name + "_last"]
+            row.update(ms_last_launch=last[0], bound_ms_last_launch=last[2])
+        line.append(row)
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

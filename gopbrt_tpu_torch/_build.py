@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "gopbrt_tpu_torch"
 NVCC_FLAGS = [
@@ -28,17 +30,20 @@ NVCC_FLAGS = [
 ]
 
 # Launches of the CUDA kernels, by kernel name ("megakernel", "intersect",
-# "intersect_any", "bvh_intersect", "bvh_intersect_any", "mesh_megakernel").  Each wrapper adds one where it launches its kernel and
-# nowhere else; callers reset it with LAUNCHES.clear().
+# "intersect_any", "bvh_intersect", "bvh_intersect_any", "mesh_megakernel").
+# Each wrapper adds one where it launches its kernel and nowhere else;
+# callers reset it with LAUNCHES.clear().
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# ctypes signature of each library's entry points, by library (source stem)
+# ctypes signature of each library's entry points, by library (source stem).
+# The bounce kernels, on persistent lanes (csrc/lanes.cuh), take one int of
+# device memory for their path counter after the stream.
 _SIGNATURES = {
     "megakernel": {
         "gopbrt_path_li":
             [_P] * 5 + [_I, _P, _I, _I, _I, ctypes.c_uint]
-            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P],
+            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P],
     },
     "intersect": {
         # o, d, t_max, n, ptype, w2o, params, n_prims, flags, outputs, stream
@@ -53,10 +58,10 @@ _SIGNATURES = {
     "mesh_megakernel": {
         # o, d, pixel, sample, L, n, tables, table_words, nodes, records,
         # bvh_flags, n_mats, n_lights, seed, func_int, world_radius, cone_w0,
-        # cone_sp, max_depth, rr_start, rr_threshold, flags, stream
+        # cone_sp, max_depth, rr_start, rr_threshold, flags, stream, counter
         "gopbrt_mesh_li":
             [_P] * 5 + [_I, _P, _I, _P, _P, _I, _I, _I, ctypes.c_uint]
-            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P],
+            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P],
     },
 }
 
@@ -103,6 +108,12 @@ def build() -> dict:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         os.replace(tmp, lib)
     return info
+
+
+def counter(device) -> torch.Tensor:
+    """The work counter of a launch on persistent lanes: one int32 on the
+    card, which the C entry zeroes on the stream before the launch."""
+    return torch.empty((1,), dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,6 @@
-// The bounce skeleton: one path per thread, the whole depth in one loop,
-// templated over the scene's intersector.
+// The bounce skeleton: a path's state, one bounce of it, and the persistent
+// loop that runs paths on a card's lanes, templated over the scene's
+// intersector.
 //
 // The loop of gopbrt_tpu/ops/pallas_megakernel.py::_mega_kernel (lines
 // 364-986) and of gopbrt_tpu/ops/pallas_mesh_megakernel.py::_mesh_kernel
@@ -12,7 +13,8 @@
 // rough glass with etaScale), Russian roulette.  The math follows the TPU
 // kernels op for op and consumes the same counter-hash RNG dimensions, so
 // all trace the same paths.  The plain PyTorch twin is
-// gopbrt_tpu_torch/ops/megakernel.py::path_li_plain.
+// gopbrt_tpu_torch/ops/megakernel.py::path_li_plain; tests/host_kernels.cpp
+// runs path_init / path_bounce / path_finish on the host.
 //
 // The scene policy S provides
 //   float closest(ox, oy, oz, dx, dy, dz, int& idx): nearest hit, idx -1
@@ -28,13 +30,19 @@
 // Design.  The TPU kernels work on blocks of lanes: every lane runs every
 // branch and a select keeps one, the winner's attributes come from masked
 // sweeps, and a block-level alive count skips bounces once the block is
-// dead.  Here the path state (o, d, beta, L, specular flag, previous pdf,
-// cone width, etaScale) lives in registers; the winner's attributes are one
-// indexed read; a dead path leaves the loop; the shadow ray stops at its
+// dead.  Here the path state (PathState: o, d, beta, L, specular flag,
+// previous pdf, cone width, etaScale, bounce index) lives in registers;
+// the winner's attributes are one indexed read; the shadow ray stops at its
 // first occluder; only the selected light type's and material's branch
-// runs.
+// runs.  Paths end after 1 to max_depth bounces, and in an open scene
+// their lengths vary widely, so a thread that traced one path for the
+// whole depth left its warp's lanes idle until the longest path ended.
+// Instead the kernels run run_paths: a resident grid whose lanes take the
+// next path the moment theirs ends (csrc/lanes.cuh), after each block has
+// copied its tables to shared memory once.
 #pragma once
 
+#include "lanes.cuh"
 #include "prim_test.cuh"
 
 namespace gopbrt {
@@ -342,34 +350,62 @@ GOPBRT_HD void ggx_half_vector(float alpha, float ub0, float ub1, float cos_o, f
 
 // ---- one path ------------------------------------------------------------
 
+// A path between bounces: the ray, the throughput, the radiance so far, the
+// specular flag, the previous BSDF pdf, the ray-cone width, etaScale, the
+// RNG hash of its pixel and sample, its bounce index and its lane.
+struct PathState {
+  float ox, oy, oz, dx, dy, dz;
+  float bR, bG, bB, LR, LG, LB;
+  float prev_pdf, cw, es;
+  uint32_t h_ps;
+  int b, lane;
+  bool spec;
+};
+
+GOPBRT_HD void path_init(PathState& s, const Params& P, const float* o, const float* d,
+                         const int* pixel, const int* sample, int lane) {
+  s.ox = o[3 * lane];
+  s.oy = o[3 * lane + 1];
+  s.oz = o[3 * lane + 2];
+  s.dx = d[3 * lane];
+  s.dy = d[3 * lane + 1];
+  s.dz = d[3 * lane + 2];
+  s.h_ps = hash_combine(hash_combine(P.seed, (uint32_t)pixel[lane]), (uint32_t)sample[lane]);
+  s.bR = s.bG = s.bB = 1.0f;
+  s.LR = s.LG = s.LB = 0.0f;
+  s.spec = true;
+  s.prev_pdf = 0.0f;
+  s.cw = (P.flags & FLAG_USE_CONE) ? P.cone_w0 : 0.0f;
+  s.es = 1.0f;
+  s.b = 0;
+  s.lane = lane;
+}
+
+// The path's bounce s.b: false when the path ends here (an escape, a
+// failed sample, a black throughput, roulette, or the last bounce).  The
+// RNG dimensions follow s.b, so a path's answer does not depend on when or
+// where its bounces run.
 template <class S>
-GOPBRT_HD void trace_path(const S& scene, const LightTables& LT, const Params& P,
-                          const float* o, const float* d, const int* pixel,
-                          const int* sample, float* L_out, int lane) {
+GOPBRT_HD bool path_bounce(const S& scene, const LightTables& LT, const Params& P,
+                           PathState& s) {
   const bool use_cone = P.flags & FLAG_USE_CONE;
   const bool any_glass = P.flags & FLAG_ANY_GLASS;
   const bool any_rough = P.flags & FLAG_ANY_ROUGH;
   const int n_lights = P.n_lights;
-
-  float ox = o[3 * lane], oy = o[3 * lane + 1], oz = o[3 * lane + 2];
-  float dx = d[3 * lane], dy = d[3 * lane + 1], dz = d[3 * lane + 2];
-  const uint32_t h_ps = hash_combine(hash_combine(P.seed, (uint32_t)pixel[lane]),
-                                     (uint32_t)sample[lane]);
-  float bR = 1.0f, bG = 1.0f, bB = 1.0f;
-  float LR = 0.0f, LG = 0.0f, LB = 0.0f;
-  bool spec = true;
-  float prev_pdf = 0.0f;
-  float cw = use_cone ? P.cone_w0 : 0.0f;
-  float es = 1.0f;
-
-  for (int b = 0; b < P.max_depth; ++b) {
+  float &ox = s.ox, &oy = s.oy, &oz = s.oz, &dx = s.dx, &dy = s.dy, &dz = s.dz;
+  float &bR = s.bR, &bG = s.bG, &bB = s.bB, &LR = s.LR, &LG = s.LG, &LB = s.LB;
+  float &prev_pdf = s.prev_pdf, &cw = s.cw, &es = s.es;
+  bool& spec = s.spec;
+  const uint32_t h_ps = s.h_ps;
+  const int b = s.b;
+  {
     const uint32_t dim0 = DIM_BOUNCE_BASE + (uint32_t)b * DIMS_PER_BOUNCE;
 #define U1(off) to_unit(hash_combine(h_ps, dim0 + (uint32_t)(off)))
 
     // ---- closest hit ----------------------------------------------------
     int idx;
     const float t = scene.closest(ox, oy, oz, dx, dy, dz, idx);
-    if (idx < 0) break;  // escaped: the fast-path sets have no infinite light
+    if (idx < 0) return false;  // escaped: the fast-path sets have no infinite light
 
     // ---- winner geometry ------------------------------------------------
     const Winner w = scene.winner(idx);
@@ -780,11 +816,11 @@ GOPBRT_HD void trace_path(const S& scene, const LightTables& LT, const Params& P
       fG = fG * thr_p;
       fB = fB * thr_p;
     }
-    if (!ok) break;
+    if (!ok) return false;
     bR = bR * fR;
     bG = bG * fG;
     bB = bB * fB;
-    if (!(max3(bR, bG, bB) > 0.0f)) break;
+    if (!(max3(bR, bG, bB) > 0.0f)) return false;
 
     const float sgn_n = dot3(wix_n, wiy_n, wiz_n, nx, ny, nz) < 0.0f ? -1.0f : 1.0f;
     ox = px + sgn_n * d_off * nx;
@@ -801,7 +837,7 @@ GOPBRT_HD void trace_path(const S& scene, const LightTables& LT, const Params& P
     const float rr_max = max3(bR, bG, bB) * es;
     if (b >= P.rr_start && rr_max < P.rr_threshold) {
       const float q = fmaxf(0.05f, 1.0f - rr_max);
-      if (U1(D_RR) < q) break;
+      if (U1(D_RR) < q) return false;
       const float surv = 1.0f / (1.0f - q);
       bR = bR * surv;
       bG = bG * surv;
@@ -809,11 +845,47 @@ GOPBRT_HD void trace_path(const S& scene, const LightTables& LT, const Params& P
     }
 #undef U1
   }
-  // NaN/Inf sanitization (renderWorker, integrator.go:256-262)
-  const bool finite = isfinite(LR) && isfinite(LG) && isfinite(LB);
-  L_out[3 * lane] = finite ? fmaxf(LR, 0.0f) : 0.0f;
-  L_out[3 * lane + 1] = finite ? fmaxf(LG, 0.0f) : 0.0f;
-  L_out[3 * lane + 2] = finite ? fmaxf(LB, 0.0f) : 0.0f;
+  return ++s.b < P.max_depth;
 }
+
+// Writes the path's radiance, NaN/Inf sanitized (renderWorker,
+// integrator.go:256-262).
+GOPBRT_HD void path_finish(const PathState& s, float* L_out) {
+  const bool finite = isfinite(s.LR) && isfinite(s.LG) && isfinite(s.LB);
+  L_out[3 * s.lane] = finite ? fmaxf(s.LR, 0.0f) : 0.0f;
+  L_out[3 * s.lane + 1] = finite ? fmaxf(s.LG, 0.0f) : 0.0f;
+  L_out[3 * s.lane + 2] = finite ? fmaxf(s.LB, 0.0f) : 0.0f;
+}
+
+#ifdef __CUDACC__
+
+// The persistent loop of both instances (csrc/lanes.cuh): each lane runs
+// one bounce of its path per iteration; a lane whose path has ended writes
+// its radiance and takes the next path.  All threads of the block enter.
+template <class S>
+__device__ void run_paths(const S& scene, const LightTables& LT, const Params& P,
+                          const float* o, const float* d, const int* pixel,
+                          const int* sample, float* L, int* next) {
+  PathState s;
+  bool active = false, drained = false;
+  for (;;) {
+    const int i = take_next(!active, P.n, next, drained);
+    if (i >= 0) {
+      path_init(s, P, o, d, pixel, sample, i);
+      active = P.max_depth > 0;
+      if (!active) path_finish(s, L);
+    }
+    if (!__any_sync(FULL_MASK, active)) {
+      if (drained) break;
+      continue;
+    }
+    if (active && !path_bounce(scene, LT, P, s)) {
+      path_finish(s, L);
+      active = false;
+    }
+  }
+}
+
+#endif  // __CUDACC__
 
 }  // namespace gopbrt

@@ -3,12 +3,18 @@
 // Replaces gopbrt_tpu/ops/pallas_cluster.py::_cluster_kernel (:127,
 // pallas_call :278) behind its entry points cluster_intersect (:313) and
 // cluster_intersect_p (:329).  The walk itself is csrc/bvh.cuh (see its
-// note: what the design is and why divergence bounds it); these kernels
-// read one ray, walk, and write the result.  The plain PyTorch twins are
+// note: the node that holds both child boxes, the while-while step, and
+// the same leaves in the same order as the plain walk); these kernels read
+// one ray, walk, and write the result.  The plain PyTorch twins are
 // gopbrt_tpu_torch/ops/bvh.py::bvh_intersect and ::bvh_intersect_p; the
 // wrappers that launch these kernels are bvh_intersect_fused and
 // bvh_intersect_p_fused there.  A miss returns t_max and prim 0, as the
 // cluster kernel does (pallas_cluster.py:325).
+//
+// One thread per ray, not persistent lanes (csrc/lanes.cuh): neighbouring
+// rays of a band walk alike, so a warp of them already fills most of its
+// lane slots (chip_smoke.py's [lane-slots] lines), and on the H100 the
+// persistent walk ran slower than this launch in the same call.
 #include <cuda_runtime.h>
 
 #include "bvh.cuh"
@@ -49,9 +55,10 @@ int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
 
-// o, d: f32[n, 3]; t_max: f32[n]; nodes: f32[Nn, 8]; recs: f32[P, REC_K]
-// (ops/bvh.py bvh_table); prim_order: i32[P].  Outputs: hit bool[n], t
-// f32[n], prim i32[n].  Returns the cudaError_t of the launch.
+// o, d: f32[n, 3]; t_max: f32[n]; nodes: f32[1 + interior nodes, 16]
+// (64-byte aligned); recs: f32[P, REC_K] (ops/bvh.py bvh_table);
+// prim_order: i32[P].  Outputs: hit bool[n], t f32[n], prim i32[n].
+// Returns the cudaError_t of the launch.
 extern "C" int gopbrt_bvh_intersect(const float* o, const float* d, const float* t_max,
                                     int n, const float* nodes, const float* recs,
                                     const int* prim_order, int flags, bool* hit_out,

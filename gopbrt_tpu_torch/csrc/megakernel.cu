@@ -6,20 +6,22 @@
 // The plain PyTorch twin is gopbrt_tpu_torch/ops/megakernel.py
 // ::path_li_plain (accel="brute").
 //
-// Design.  The prim, shade and light tables (14 KB at the 64-prim, 16-light
-// maximum) are copied to shared memory once per block, and every read is a
-// broadcast (all threads of a warp test the same primitive).  The static
-// flags of the TPU kernel (full_sph, full_disk, use_cone, any_glass,
-// any_rough) are a bit set argument; `types` is subsumed by the
-// per-primitive switch on the tag.
+// Design.  A resident grid (csrc/lanes.cuh): each block copies the prim,
+// shade and light tables (14 KB at the 64-prim, 16-light maximum) to
+// shared memory once, and every read is a broadcast (all threads of a warp
+// test the same primitive); its lanes then run the skeleton's persistent
+// loop, a new path the moment one ends.  The static flags of the TPU
+// kernel (full_sph, full_disk, use_cone, any_glass, any_rough) are a bit
+// set argument; `types` is subsumed by the per-primitive switch on the tag.
 //
 // Bound on the H100.  Each path reads 32 bytes (o, d, pixel, sample) and
 // writes 12 (L): 23 MB per 1080p band of 524,160 paths, about 7 us at
 // 3.35 TB/s.  The work is fp32 arithmetic: per live bounce, one closest-hit
 // sweep over all P primitives, a shadow sweep, and the shading math, so the
 // kernel is bound by operations (67 TFLOP/s fp32 outside the tensor cores)
-// and, beyond that, by divergence between the paths of a warp.  This first
-// version is simple and right; it does not yet regroup paths by liveness.
+// and, beyond that, by divergence between the paths of a warp: the
+// persistent loop keeps the lanes busy across paths of different lengths,
+// but the lanes of a warp still take different branches within a bounce.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -90,17 +92,14 @@ constexpr int THREADS = 128;
 __global__ void __launch_bounds__(THREADS)
     mega_kernel(const float* __restrict__ tables, Params P, const float* __restrict__ o,
                 const float* __restrict__ d, const int* __restrict__ pixel,
-                const int* __restrict__ sample, float* __restrict__ L) {
+                const int* __restrict__ sample, float* __restrict__ L, int* next) {
   __shared__ Tables T;
   float* dst = reinterpret_cast<float*>(&T);
   for (int i = threadIdx.x; i < TABLE_WORDS; i += blockDim.x) dst[i] = tables[i];
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < P.n) {
-    const BruteScene scene{T, P.n_prims, (P.flags & FLAG_FULL_SPH) != 0,
-                           (P.flags & FLAG_FULL_DISK) != 0};
-    trace_path(scene, T.lights, P, o, d, pixel, sample, L, lane);
-  }
+  const BruteScene scene{T, P.n_prims, (P.flags & FLAG_FULL_SPH) != 0,
+                         (P.flags & FLAG_FULL_DISK) != 0};
+  run_paths(scene, T.lights, P, o, d, pixel, sample, L, next);
 }
 
 #endif  // __CUDACC__
@@ -109,14 +108,15 @@ __global__ void __launch_bounds__(THREADS)
 
 #ifdef __CUDACC__
 
-// Plain C entry point (loaded with ctypes).  Launches on `stream` and
-// returns the cudaError_t of the launch; it does not synchronise.
+// Plain C entry point (loaded with ctypes).  next: one int of device
+// memory, the path counter, zeroed here on `stream`.  Launches on `stream`
+// and returns the cudaError_t of the launch; it does not synchronise.
 extern "C" int gopbrt_path_li(const float* o, const float* d, const int* pixel,
                               const int* sample, float* L, int n, const float* tables,
                               int table_words, int n_prims, int n_lights,
                               unsigned int seed, float func_int, float world_radius,
                               float cone_w0, float cone_sp, int max_depth, int rr_start,
-                              float rr_threshold, int flags, void* stream) {
+                              float rr_threshold, int flags, void* stream, int* next) {
   using namespace gopbrt;
   if (table_words != TABLE_WORDS || n_prims < 1 || n_prims > MAX_PRIMS ||
       n_lights < 1 || n_lights > MAX_LIGHTS || n < 0)
@@ -124,9 +124,12 @@ extern "C" int gopbrt_path_li(const float* o, const float* d, const int* pixel,
   if (n == 0) return 0;
   Params p{n, n_prims, n_lights, seed, func_int, world_radius, cone_w0, cone_sp,
            max_depth, rr_start, rr_threshold, flags};
-  const int blocks = (n + THREADS - 1) / THREADS;
+  int blocks;
+  cudaError_t err = persistent_blocks(mega_kernel, THREADS, n, blocks);
+  if (err == cudaSuccess) err = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   mega_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tables, p, o, d, pixel,
-                                                             sample, L);
+                                                             sample, L, next);
   return (int)cudaGetLastError();
 }
 

@@ -10,19 +10,20 @@
 // per vector op behind block-wide box culls, the non-triangle prims
 // ("extras", :582-602) in a separate brute loop, and recovers the winner's
 // attributes with a masked sweep (:604-649); it runs the depth in phases
-// with host re-sorts of the wavefront (:1455-1516).  Here one thread is one
-// path for the whole depth in one launch: every prim, triangles and the
-// rest, sits in the one BVH, the walk returns the winner's record row, and
-// the winner's attributes are one read of it (material, area light) and of
-// the per-material shade table (<= MAX_MATS rows of MAT_K floats, with the
-// light tables in shared memory).  The tree and the records stay in global
-// memory (L2-resident at the mesh scene's 10k prims).
+// with host re-sorts of the wavefront (:1455-1516).  Here the whole depth
+// runs in one launch, on the skeleton's persistent loop (a resident grid,
+// a lane takes the next path when its own ends): every prim, triangles and
+// the rest, sits in the one BVH, the walk returns the winner's record row,
+// and the winner's attributes are one read of it (material, area light)
+// and of the per-material shade table (<= MAX_MATS rows of MAT_K floats,
+// with the light tables in shared memory, copied once per block).  The
+// tree and the records stay in global memory (L2-resident at the mesh
+// scene's 10k prims).
 //
 // What bounds it: per bounce, a closest-hit walk and a shadow walk per
 // path, whose cost is divergence between the paths of a warp (see
 // csrc/bvh.cuh), then the shading math; the bytes (32 in, 12 out a path)
-// bound far less.  This first version neither sorts paths nor walks
-// packets.
+// bound far less.  It neither sorts paths nor walks packets.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -76,13 +77,12 @@ __global__ void __launch_bounds__(THREADS)
     mesh_kernel(const float* __restrict__ tables, BvhView B, Params P,
                 const float* __restrict__ o, const float* __restrict__ d,
                 const int* __restrict__ pixel, const int* __restrict__ sample,
-                float* __restrict__ L) {
+                float* __restrict__ L, int* next) {
   __shared__ MeshTables T;
   float* dst = reinterpret_cast<float*>(&T);
   for (int i = threadIdx.x; i < MESH_TABLE_WORDS; i += blockDim.x) dst[i] = tables[i];
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < P.n) trace_path(MeshScene{B, T.mat}, T.lights, P, o, d, pixel, sample, L, lane);
+  run_paths(MeshScene{B, T.mat}, T.lights, P, o, d, pixel, sample, L, next);
 }
 
 #endif  // __CUDACC__
@@ -93,7 +93,8 @@ __global__ void __launch_bounds__(THREADS)
 
 // Plain C entry point (loaded with ctypes).  tables: f32[MESH_TABLE_WORDS]
 // (ops/mesh_megakernel.py pack_tables); nodes, recs: the BVH tables
-// (ops/bvh.py bvh_table).  Launches on `stream` and returns the
+// (ops/bvh.py bvh_table); next: one int of device memory, the path
+// counter, zeroed here on `stream`.  Launches on `stream` and returns the
 // cudaError_t of the launch; it does not synchronise.
 extern "C" int gopbrt_mesh_li(const float* o, const float* d, const int* pixel,
                               const int* sample, float* L, int n, const float* tables,
@@ -101,7 +102,7 @@ extern "C" int gopbrt_mesh_li(const float* o, const float* d, const int* pixel,
                               int bvh_flags, int n_mats, int n_lights, unsigned int seed,
                               float func_int, float world_radius, float cone_w0,
                               float cone_sp, int max_depth, int rr_start,
-                              float rr_threshold, int flags, void* stream) {
+                              float rr_threshold, int flags, void* stream, int* next) {
   using namespace gopbrt;
   if (table_words != MESH_TABLE_WORDS || n_mats < 1 || n_mats > MAX_MATS ||
       n_lights < 1 || n_lights > MAX_LIGHTS || n < 0)
@@ -111,9 +112,12 @@ extern "C" int gopbrt_mesh_li(const float* o, const float* d, const int* pixel,
                   reinterpret_cast<const float4*>(recs), bvh_flags};
   Params p{n, 0, n_lights, seed, func_int, world_radius, cone_w0, cone_sp,
            max_depth, rr_start, rr_threshold, flags};
-  const int blocks = (n + THREADS - 1) / THREADS;
+  int blocks;
+  cudaError_t err = persistent_blocks(mesh_kernel, THREADS, n, blocks);
+  if (err == cudaSuccess) err = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   mesh_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tables, B, p, o, d, pixel,
-                                                             sample, L);
+                                                             sample, L, next);
   return (int)cudaGetLastError();
 }
 

@@ -9,16 +9,18 @@ depth-first ``LinearBVH`` (bvh.go:80-87, 632-651).
 
 The cluster kernel stands in for a stack walk because the TPU has no
 per-lane branching.  On the card the walk itself is the kernel
-(``csrc/bvh_intersect.cu`` over ``csrc/bvh.cuh``): one thread walks one ray
-over the ``LinearBVH`` with its own stack of STACK_DEPTH node ids, near
-child first.  ``bvh_intersect`` / ``bvh_intersect_p`` are its plain
-version, the lockstep walk of the JAX package's ``_traverse``: every lane
-advances one node per step, with a per-lane stack.  Both read the tables
-``bvh_table`` packs once per scene (``Scene.bvh_tables``): the nodes, 32
-bytes each, and the primitive records in BVH leaf order, so a leaf reads
-contiguous rows.  ``bvh_intersect_fused`` / ``bvh_intersect_p_fused``
-launch the kernels on CUDA tensors (counted in ``_build.LAUNCHES``) and run
-the plain walk on CPU tensors.
+(``csrc/bvh_intersect.cu`` over ``csrc/bvh.cuh``): one thread walks one
+ray, near child first, each interior node one 64-byte fetch that holds
+both children's boxes, far children on a stack of STACK_DEPTH entries.
+``bvh_intersect`` / ``bvh_intersect_p`` are its plain version, the
+lockstep walk of the JAX package's ``_traverse`` over the ``LinearBVH``
+columns: every lane advances one node per step, with a per-lane stack;
+both test the same leaves in the same order.  The kernels read the tables
+``bvh_table`` packs once per scene (``Scene.bvh_tables``): the nodes
+(``pack_nodes``) and the primitive records in BVH leaf order, so a leaf
+reads contiguous rows.  ``bvh_intersect_fused`` /
+``bvh_intersect_p_fused`` launch the kernels on CUDA tensors (counted in
+``_build.LAUNCHES``) and run the plain walk on CPU tensors.
 """
 
 from __future__ import annotations
@@ -53,7 +55,13 @@ REC_ALID = 11
 REC_W2O = 12     # 12-23
 REC_SCALE2 = 24
 REC_K = 32
-NODE_K = 8       # lo.xyz, right|first, hi.xyz, count*4 + axis
+# an interior node of the packed tree, both children's boxes (csrc/bvh.cuh):
+# left lo.xyz, left code, left hi.xyz, split axis, right lo.xyz, right
+# code, right hi.xyz, 0; a child's code is its node index if it is
+# interior, else ~(first record << LEAF_SHIFT | count).  Node 0 is the
+# header: the root's box and code, then zeros.
+NODE_K = 16
+LEAF_SHIFT = 4
 
 
 class LinearBVH(NamedTuple):
@@ -205,7 +213,7 @@ class BVHTable(NamedTuple):
     ``records``, the plain walk the tree's SoA columns and ``records``."""
 
     bvh: LinearBVH  # on the scene's device
-    nodes: torch.Tensor  # f32[Nn, NODE_K]; the int fields as their bits
+    nodes: torch.Tensor  # f32[1 + interior nodes, NODE_K]; the ints as their bits
     records: torch.Tensor  # f32[P, REC_K], rows in leaf order
     full_sph: bool
     full_disk: bool
@@ -227,19 +235,39 @@ def prim_scale2(prims: Primitives) -> torch.Tensor:
     return 1.0 / torch.clamp(inv_s2, min=1e-30)
 
 
+def pack_nodes(bvh: LinearBVH) -> torch.Tensor:
+    """The tree as csrc/bvh.cuh walks it: f32[1 + interior nodes, NODE_K],
+    the header then each interior node (in the tree's depth-first order)
+    with both children's boxes and codes."""
+    dev = bvh.node_lo.device
+    leaf = bvh.node_count > 0
+    if int(bvh.node_count.max()) >= 1 << LEAF_SHIFT:
+        raise ValueError(f"leaves hold at most {(1 << LEAF_SHIFT) - 1} prims")
+    inner = torch.nonzero(~leaf).flatten()
+    index = torch.zeros_like(bvh.node_count)
+    index[inner] = torch.arange(1, inner.numel() + 1, dtype=index.dtype, device=dev)
+    code = torch.where(leaf, -1 - ((bvh.node_first << LEAF_SHIFT) | bvh.node_count), index)
+
+    def bits(x):
+        return x.to(torch.int32).contiguous().view(torch.float32)[:, None]
+
+    def child(c):
+        return bvh.node_lo[c], bits(code[c]), bvh.node_hi[c]
+
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    header = torch.cat([*child(zero.long()), bits(zero), torch.zeros((1, 8), device=dev)], 1)
+    left, right = inner + 1, bvh.node_right[inner].long()
+    body = torch.cat([*child(left), bits(bvh.node_axis[inner]), *child(right),
+                      bits(torch.zeros_like(inner))], dim=1)
+    return torch.cat([header, body]).contiguous()
+
+
 def bvh_table(bvh: LinearBVH, prims: Primitives, backend: Optional[str] = None,
               build_ms: Optional[float] = None) -> BVHTable:
     """Pack the tree and ``prims`` (in the tree's leaf order) for the walk;
     backend / build_ms: how the tree was built, where it was built here."""
     f32 = torch.float32
-
-    def bits(x):
-        return x.to(torch.int32).contiguous().view(f32)[:, None]
-
-    leaf = bvh.node_count > 0
-    link = torch.where(leaf, bvh.node_first, bvh.node_right)
-    nodes = torch.cat([bvh.node_lo, bits(link), bvh.node_hi,
-                       bits(bvh.node_count * 4 + bvh.node_axis)], dim=1).contiguous()
+    nodes = pack_nodes(bvh)
     order = bvh.prim_order.long()
     p = prims.count
     records = torch.zeros((p, REC_K), dtype=f32, device=prims.params.device)
@@ -284,7 +312,7 @@ def _inv_dir(d):
 
 
 def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
-         any_hit: bool = False, tally=None):
+         any_hit: bool = False, tally=None, steps: Optional[torch.Tensor] = None):
     """The lockstep walk (bvh.py:212-312) -> (t f32[N], slot int64[N]):
     the nearest hit closer than t_max and its record row (-1 and t_max
     where none is).  any_hit: a lane stops at its first accepted leaf hit,
@@ -295,9 +323,16 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
     when strictly closer) or an interior's near child (the second child
     when the ray's direction is negative on the split axis), the far child
     pushed on the lane's stack; a lane whose stack is empty is done.  Done
-    lanes leave the working set.  tally: optional dict counting
-    "bvh_nodes" (box tests) and the leaf tests by kind (see
-    ``prim_test_records``)."""
+    lanes leave the working set.
+
+    tally: optional dict; gets the events of csrc/bvh.cuh's walk on these
+    rays, which visits the same leaves in the same order: "bvh_roots" (the
+    root's box test, one a walked lane), "bvh_nodes" (interior nodes
+    expanded, both children's boxes tested), "bvh_pops" (stack pops: the
+    far children whose box was hit along with the near child's) and the
+    leaf tests by kind (see ``prim_test_records``).  steps: optional
+    int64[N]; each lane's steps of csrc/bvh.cuh's walk (the leaves and
+    interior nodes it visits) are added to it."""
     bvh = table.bvh
     n = o.shape[0]
     dev = o.device
@@ -314,12 +349,15 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
     stack = torch.zeros((m, STACK_DEPTH), dtype=torch.int64, device=dev)
     k_slots = torch.arange(MAX_LEAF, device=dev)
     node_count = bvh.node_count.long()
+    if tally is not None:
+        # whether each stack entry is on the stack of csrc/bvh.cuh too
+        pushed = torch.zeros((m, STACK_DEPTH), dtype=torch.bool, device=dev)
+        if m:
+            tally["bvh_roots"] = tally.get("bvh_roots", 0) + m
     while m:
         rows = torch.arange(m, device=dev)
         box = geom.bounds_intersect_p(bvh.node_lo[node], bvh.node_hi[node], o, d, t_best,
                                       inv_d)
-        if tally is not None:
-            tally["bvh_nodes"] = tally.get("bvh_nodes", 0) + m
         cnt = node_count[node]
         leaf = box & (cnt > 0)
         found = torch.zeros_like(leaf)
@@ -348,12 +386,28 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
         near = torch.where(dir_neg, right, left)
         far = torch.where(dir_neg, left, right)
         ii = torch.nonzero(inter).flatten()
-        stack[ii, torch.clamp(sp[ii], max=STACK_DEPTH - 1)] = far[ii]
+        at = torch.clamp(sp[ii], max=STACK_DEPTH - 1)
+        stack[ii, at] = far[ii]
+        if tally is not None:
+            # csrc/bvh.cuh tests both children here and pushes the far one
+            # only when both boxes are hit
+            def child_hit(c):
+                return geom.bounds_intersect_p(bvh.node_lo[c[ii]], bvh.node_hi[c[ii]], o[ii],
+                                               d[ii], t_best[ii], inv_d[ii])
+
+            pushed[ii, at] = child_hit(near) & child_hit(far)
+            tally["bvh_nodes"] = tally.get("bvh_nodes", 0) + ii.numel()
+        if steps is not None:
+            steps[lane] += box.long()
         sp = torch.where(inter, torch.clamp(sp + 1, max=STACK_DEPTH), sp)
         # otherwise pop
         can_pop = sp > 0
-        sp = torch.where(~inter & can_pop, sp - 1, sp)
+        pop = ~inter & can_pop
+        sp = torch.where(pop, sp - 1, sp)
         popped = stack[rows, torch.clamp(sp, 0, STACK_DEPTH - 1)]
+        if tally is not None:  # an any hit that found its hit ends here
+            pops = pop & ~found & pushed[rows, torch.clamp(sp, 0, STACK_DEPTH - 1)]
+            tally["bvh_pops"] = tally.get("bvh_pops", 0) + int(pops.sum())
         node = torch.where(inter, near, popped)
         done = (~inter & ~can_pop) | found
         if bool(done.any()):
@@ -363,6 +417,8 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
             keep = torch.nonzero(~done).flatten()
             lane, o, d, inv_d, t_best, slot, node, sp, stack = (
                 x[keep] for x in (lane, o, d, inv_d, t_best, slot, node, sp, stack))
+            if tally is not None:
+                pushed = pushed[keep]
             m = lane.numel()
     return t_out, slot_out
 
@@ -403,8 +459,9 @@ def _kernel_args(table: BVHTable, o, d, t_max):
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
     if not (o.is_contiguous() and d.is_contiguous() and t_max.is_contiguous()):
         raise ValueError("o, d and t_max must be contiguous")
-    if table.nodes.data_ptr() % 16 or table.records.data_ptr() % 16:
-        raise ValueError("the BVH tables must be 16-byte aligned (bvh_table packs them so)")
+    if table.nodes.data_ptr() % 64 or table.records.data_ptr() % 16:
+        raise ValueError("the BVH nodes must be 64-byte and the records 16-byte aligned "
+                         "(bvh_table packs them so)")
     return (o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, table.nodes.data_ptr(),
             table.records.data_ptr())
 

@@ -2,11 +2,11 @@
 
 Counterpart of ``gopbrt_tpu/ops/pallas_megakernel.py`` and of the loop of
 ``gopbrt_tpu/ops/pallas_mesh_megakernel.py``.  The CUDA bounce skeleton
-(``csrc/bounce.cuh``, one thread per path, path state in registers) has two
-instances: the brute sweep over scene tables in shared memory
-(``csrc/megakernel.cu``, launched by ``path_li_fused`` here) and the BVH
-walk (``csrc/mesh_megakernel.cu``, launched by
-``ops/mesh_megakernel.mesh_li_fused``).  ``path_li_plain`` is the plain
+(``csrc/bounce.cuh``, path state in registers, persistent lanes that take
+the next path when theirs ends) has two instances: the brute sweep over
+scene tables in shared memory (``csrc/megakernel.cu``, launched by
+``path_li_fused`` here) and the BVH walk (``csrc/mesh_megakernel.cu``,
+launched by ``ops/mesh_megakernel.mesh_li_fused``).  ``path_li_plain`` is the plain
 version of both, a lane-vectorised PyTorch transcription of the skeleton
 that follows it op for op; ``accel`` picks its intersector.
 
@@ -114,9 +114,12 @@ OPS_PER_EVENT = {
     "sphere_roots": 18,
     "disk_tests": 49,  # prim_test.cuh:116-122, 150-155, + the sweep's compare
     "triangle_tests": 61,  # prim_test.cuh:96-114 + the sweep's compare
-    # one node of the BVH walk: the slab test (bvh.cuh box_hit) and the
-    # interior's direction compare
-    "bvh_nodes": 29,
+    # the BVH walk (bvh.cuh): the slab test of box_hit is 28; a ray's root
+    # test; an interior node's two slab tests and its direction compare;
+    # a pop's distance compare
+    "bvh_roots": 28,
+    "bvh_nodes": 57,
+    "bvh_pops": 1,
     # a lane that hit a sphere or disk: winner geometry bounce.cuh:391-425,
     # :456, wo :426-427, shading frame :488-509, BSDF sample inputs :648-650
     "hits": 204,
@@ -559,7 +562,7 @@ class _BVHScene:
 
 
 def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
-                  counts=None, accel: str = "brute") -> torch.Tensor:
+                  counts=None, accel: str = "brute", bounces=None) -> torch.Tensor:
     """Radiance f32[N,3] of rays (o, d) — the bounce skeleton of
     csrc/bounce.cuh (``_mega_kernel``, ``_mesh_kernel``) over 1-D lane
     tensors, bounce by bounce, with ``torch.where`` for its selects.
@@ -571,6 +574,7 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
     kernel meets it on these inputs: a thread leaves the loop on a miss,
     runs only its own light's and lobe's branch, and stops its shadow ray
     at the first occluder (the BVH walk: at the end of that leaf).
+    bounces: optional int64[N]; the bounces each lane runs are added to it.
     """
     n = o.shape[0]
     dev = o.device
@@ -617,6 +621,8 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
     for b_abs in range(cfg.max_depth):
         if not bool(alive.any()):
             break
+        if bounces is not None:
+            bounces += alive.long()
         dim0 = DIM_BOUNCE_BASE + b_abs * DIMS_PER_BOUNCE
 
         def u1(off):
@@ -1232,9 +1238,12 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
         kernel_flags(scene, cone is not None),
     )
 
-    def launch(_keep=(o, d, tables, pix32, smp32, out)):
+    next_path = _build.counter(o.device)
+
+    def launch(_keep=(o, d, tables, pix32, smp32, out, next_path)):
         # _keep holds the tensors behind the pointers in ``args``
-        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream)
+        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream,
+                 next_path.data_ptr())
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
         _build.LAUNCHES["megakernel"] += 1

@@ -86,9 +86,13 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
         mk.kernel_flags(scene, cone is not None),
     )
 
-    def launch(_keep=(o, d, mt.tables, bt.nodes, bt.records, pix32, smp32, out)):
+    next_path = _build.counter(o.device)
+
+    def launch(_keep=(o, d, mt.tables, bt.nodes, bt.records, pix32, smp32, out,
+                      next_path)):
         # _keep holds the tensors behind the pointers in ``args``
-        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream)
+        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream,
+                 next_path.data_ptr())
         if err != 0:
             raise RuntimeError(f"mesh megakernel launch failed: cudaError_t {err}")
         _build.LAUNCHES["mesh_megakernel"] += 1

@@ -109,28 +109,76 @@ def test_mesh_scene_builds_and_carries_the_jax_tree(mesh):
     for s in (got, ts):
         assert s.prims.count == 482 and s.fastinfo.mesh_ok and not s.fastinfo.ok
         assert s.bvh_tables.records.shape == (482, tbvh.REC_K)
-        assert s.bvh_tables.nodes.shape == (s.bvh.node_lo.shape[0], tbvh.NODE_K)
+        n_inner = int((s.bvh.node_count == 0).sum())
+        assert s.bvh_tables.nodes.shape == (1 + n_inner, tbvh.NODE_K)
         assert s.mesh is not None and s.bvh is s.bvh_tables.bvh
     # the builder records how it built the tree; a carried tree says nothing
     assert got.bvh_tables.backend in ("native", "numpy") and got.bvh_tables.build_ms > 0.0
     assert ts.bvh_tables.backend is None and ts.bvh_tables.build_ms is None
 
 
+def _decode(code: int):
+    """A child's code in the packed tree -> ("inner", node) or ("leaf",
+    first, count)."""
+    if code >= 0:
+        return ("inner", code)
+    leaf = -1 - code
+    return ("leaf", leaf >> tbvh.LEAF_SHIFT, leaf & ((1 << tbvh.LEAF_SHIFT) - 1))
+
+
+def _child_code(tree, c: int, index: dict):
+    """What the packed tree must hold as node c's code."""
+    if int(tree.node_count[c]) > 0:
+        return ("leaf", int(tree.node_first[c]), int(tree.node_count[c]))
+    return ("inner", index[c])
+
+
 def test_packed_tables_hold_the_tree_and_the_leaf_order(mesh):
+    """The header holds the root; each packed interior node holds its
+    split axis and its two children's codes (interior: the packed index,
+    in depth-first order; leaf: first record and count); the records are in
+    leaf order."""
     _, ts = mesh
     bt, tree, prims = ts.bvh_tables, ts.bvh, ts.prims
-    nodes = bt.nodes
-    assert torch.equal(nodes[:, 0:3], tree.node_lo) and torch.equal(nodes[:, 4:7], tree.node_hi)
-    bits = nodes.view(torch.int32)
-    leaf = tree.node_count > 0
-    assert torch.equal(bits[:, 3], torch.where(leaf, tree.node_first, tree.node_right))
-    assert torch.equal(bits[:, 7], tree.node_count * 4 + tree.node_axis)
+    bits = bt.nodes.view(torch.int32)
+    inner = torch.nonzero(tree.node_count == 0).flatten().tolist()
+    index = {c: k + 1 for k, c in enumerate(inner)}
+    assert _decode(int(bits[0, 3])) == _child_code(tree, 0, index)
+    assert not bool(bt.nodes[0, 7:].any())
+    for c in inner:
+        row = bits[index[c]]
+        assert _decode(int(row[3])) == _child_code(tree, c + 1, index)
+        assert _decode(int(row[11])) == _child_code(tree, int(tree.node_right[c]), index)
+        assert int(row[7]) == int(tree.node_axis[c]) and int(row[15]) == 0
     order = tree.prim_order.long()
     rec = bt.records
     assert torch.equal(rec[:, tbvh.REC_PARAMS:tbvh.REC_PARAMS + 9], prims.params[order])
     assert torch.equal(rec[:, tbvh.REC_TYPE].int(), prims.prim_type[order])
     assert torch.equal(rec[:, tbvh.REC_MAT].int(), prims.material_id[order])
     assert torch.equal(rec[:, tbvh.REC_ALID].int(), prims.area_light_id[order])
+
+
+@pytest.mark.parametrize("name", ["mesh", "spheres_65"])
+def test_packed_nodes_hold_both_child_boxes(name, mesh):
+    """Decoding bvh_table's nodes: the header's box is the root's, and each
+    interior node's two boxes are its children's node_lo / node_hi."""
+    if name == "mesh":
+        tree, nodes = mesh[1].bvh, mesh[1].bvh_tables.nodes
+    else:
+        tree = tbvh.build_from_bounds(*tbvh._prim_bounds_np(_builders(name)[1]),
+                                      backend="numpy")
+        nodes = tbvh.pack_nodes(tree)
+    inner = torch.nonzero(tree.node_count == 0).flatten()
+    assert nodes.shape == (1 + inner.numel(), tbvh.NODE_K)
+    assert torch.equal(nodes[0, 0:3], tree.node_lo[0])
+    assert torch.equal(nodes[0, 4:7], tree.node_hi[0])
+    left, right = inner + 1, tree.node_right[inner].long()
+    body = nodes[1:]
+    assert torch.equal(body[:, 0:3], tree.node_lo[left])
+    assert torch.equal(body[:, 4:7], tree.node_hi[left])
+    assert torch.equal(body[:, 8:11], tree.node_lo[right])
+    assert torch.equal(body[:, 12:15], tree.node_hi[right])
+    assert nodes.data_ptr() % 64 == 0  # a node is one 64-byte fetch
 
 
 def _rays(n, seed):
@@ -221,19 +269,27 @@ def test_walk_respects_t_max(mesh):
 
 
 def test_walk_tally_counts_nodes_and_tests(mesh):
-    """tally counts a box test per node visited and each leaf test by kind;
-    the any hit walks no dead lane."""
+    """tally counts the events of csrc/bvh.cuh's walk (a root test per
+    lane, interior nodes expanded, pops, each leaf test by kind) and steps
+    each lane's steps; the any hit walks no dead lane."""
     _, ts = mesh
     o, d = (torch.tensor(a) for a in _rays(256, seed=4))
-    tally = {}
-    tbvh.bvh_intersect(ts.bvh_tables, o, d, torch.full((256,), 1e30), tally=tally)
-    assert tally["bvh_nodes"] >= 256
+    tally, steps = {}, torch.zeros((256,), dtype=torch.int64)
+    _, slot = tbvh.walk(ts.bvh_tables, o, d, torch.full((256,), 1e30), tally=tally,
+                        steps=steps)
+    assert tally["bvh_roots"] == 256
+    # a step is an interior node or a leaf; a lane that hits visits a leaf
+    leaves = int(steps.sum()) - tally["bvh_nodes"]
+    assert 0 < leaves and bool((steps[slot >= 0] >= 1).all())
     leaf_tests = tally["triangle_tests"] + tally.get("disk_tests", 0) + tally.get(
         "sphere_tests", 0)
-    assert 0 < leaf_tests <= tbvh.MAX_LEAF * tally["bvh_nodes"]
-    dead = {}
-    tbvh.bvh_intersect_p(ts.bvh_tables, o, d, torch.full((256,), 1e-4), tally=dead)
-    assert dead == {}
+    assert leaves <= leaf_tests <= tbvh.MAX_LEAF * leaves
+    # only a node whose two children were both hit pushes
+    assert 0 < tally["bvh_pops"] <= tally["bvh_nodes"]
+    dead, dead_steps = {}, torch.zeros((256,), dtype=torch.int64)
+    tbvh.walk(ts.bvh_tables, o, d, torch.full((256,), 1e-4), any_hit=True, tally=dead,
+              steps=dead_steps)
+    assert dead == {} and not bool(dead_steps.any())
 
 
 def test_fused_on_cpu_runs_the_plain_walk_without_a_launch(mesh):

@@ -76,12 +76,18 @@ def test_event_counts_follow_the_paths(name):
     args = (carry(js), *as_torch(*camera_rays(camera, 48, 48, 1, seed)), seed,
             tint.PathConfig(max_depth=depth))
     c = {}
-    got = tmk.path_li_plain(*args, counts=c)
+    bounces = torch.zeros((48 * 48,), dtype=torch.int64)
+    got = tmk.path_li_plain(*args, counts=c, bounces=bounces)
     assert torch.equal(got, tmk.path_li_plain(*args))
     assert set(c) <= set(tmk.OPS_PER_EVENT)
     assert all(c[k] > 0 for k in LOBE_EVENTS[name])
     g = c.get
     assert c["paths"] == 48 * 48
+    # the bounces each lane ran: every lane its first, a lane goes on only
+    # after a hit whose sample held
+    assert int(bounces.min()) == 1
+    assert int(bounces.max()) <= depth
+    assert c["hits"] <= int(bounces.sum()) <= 48 * 48 + c["continues"]
     samples = ("mirror_samples", "glass_reflect", "glass_refract", "rough_reflect",
                "rough_refract", "lambert_samples")
     assert sum(g(k, 0) for k in samples) == c["hits"]

@@ -60,13 +60,17 @@ def test_mesh_plain_matches_li_jnp(mesh, depth):
     want = np.asarray(_jax_li(js, *rays, jnp.uint32(SEED),
                               jint.PathConfig(max_depth=depth, rr_threshold=1.0)))
     counts = {}
+    bounces = torch.zeros((W * H,), dtype=torch.int64)
     got = tmk.path_li_plain(ts, *as_torch(*rays), SEED, tint.PathConfig(max_depth=depth),
-                            counts=counts, accel="bvh").numpy()
+                            counts=counts, accel="bvh", bounces=bounces).numpy()
     _check(got, want)
     # the walk, the triangle winners and the plastic lobe all ran, and the
     # events the kernel's bound counts add up
     assert set(counts) <= set(tmk.OPS_PER_EVENT)
+    assert int(bounces.min()) >= 1 and int(bounces.max()) <= depth
+    assert counts["bvh_roots"] >= int(bounces.sum())  # a closest-hit walk per bounce
     assert counts["bvh_nodes"] > 0 and counts["triangle_hits"] > 0
+    assert 0 < counts["bvh_pops"] <= counts["bvh_nodes"]
     assert counts["plastic_samples"] > 0 and counts["nee_plastic"] > 0
     assert counts["lambert_samples"] + counts["plastic_ggx"] == counts["hits"] + counts[
         "triangle_hits"]
