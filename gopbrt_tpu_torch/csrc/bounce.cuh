@@ -6,23 +6,26 @@
 // 364-986) and of gopbrt_tpu/ops/pallas_mesh_megakernel.py::_mesh_kernel
 // (:671-1245), written once.  Per bounce: closest hit, winner attributes
 // (sphere reprojection, disk plane, or a world-space triangle's geometric
-// normal with dpdu = e1), constant or planar-checker kd with the ray-cone
-// box filter, emitter hit with MIS, light pick from the CDF, point /
-// distant / sphere-cone NEE with a shadow ray, BSDF sample (Lambert,
-// plastic = Lambert + GGX reflection, mirror, FresnelSpecular, GGX R+T
-// rough glass with etaScale), Russian roulette.  The math follows the TPU
-// kernels op for op and consumes the same counter-hash RNG dimensions, so
-// all trace the same paths.  The plain PyTorch twin is
+// normal N from the policy with dpdu = e1), constant or planar-checker kd
+// with the ray-cone box filter, emitter hit with MIS, light pick from the
+// CDF, point / distant / sphere-cone NEE with a shadow ray, BSDF sample
+// (Lambert, plastic = Lambert + GGX reflection, mirror, FresnelSpecular,
+// GGX R+T rough glass with etaScale), Russian roulette.  The math follows
+// the TPU kernels op for op and consumes the same counter-hash RNG
+// dimensions, so all trace the same paths.  The plain PyTorch twin is
 // gopbrt_tpu_torch/ops/megakernel.py::path_li_plain; tests/host_kernels.cpp
-// runs path_init / path_bounce / path_finish on the host.
+// runs path_init / path_step / path_finish on the host.
 //
 // The scene policy S provides
-//   float closest(ox, oy, oz, dx, dy, dz, int& idx): nearest hit, idx -1
-//     on a miss;
-//   bool occluded(ox, oy, oz, dx, dy, dz, t_max): any hit closer;
-//   Winner winner(idx): shape, transform, params, shade row, area light;
+//   float trace(const Ray& r, int& idx): r.shadow false, the nearest hit
+//     closer than r.t_max; true, an any hit closer than r.t_max; idx -1 on
+//     a miss;
+//   Winner winner(idx): shape, transform (a triangle: its planes, N first),
+//     params, shade row, area light;
 //   static constexpr bool kTriangles: whether winners can be triangles;
-//   static constexpr bool kPlastic: whether the shade rows carry SH_PLA.
+//   static constexpr bool kPlastic: whether the shade rows carry SH_PLA;
+//   static constexpr bool kShadowAtOnce: whether a bounce's shadow ray is
+//     traced right after its closest hit (run_paths).
 // Two instances: the brute sweep over tables in shared memory
 // (csrc/megakernel.cu) and the BVH walk of csrc/bvh.cuh
 // (csrc/mesh_megakernel.cu).
@@ -30,16 +33,25 @@
 // Design.  The TPU kernels work on blocks of lanes: every lane runs every
 // branch and a select keeps one, the winner's attributes come from masked
 // sweeps, and a block-level alive count skips bounces once the block is
-// dead.  Here the path state (PathState: o, d, beta, L, specular flag,
-// previous pdf, cone width, etaScale, bounce index) lives in registers;
-// the winner's attributes are one indexed read; the shadow ray stops at its
-// first occluder; only the selected light type's and material's branch
-// runs.  Paths end after 1 to max_depth bounces, and in an open scene
-// their lengths vary widely, so a thread that traced one path for the
-// whole depth left its warp's lanes idle until the longest path ended.
-// Instead the kernels run run_paths: a resident grid whose lanes take the
-// next path the moment theirs ends (csrc/lanes.cuh), after each block has
-// copied its tables to shared memory once.
+// dead.  Here one thread runs one path at a time: the winner's attributes
+// are one indexed read, the shadow ray stops at its first occluder, only
+// the selected light type's and material's branch runs.  Paths end after 1
+// to max_depth bounces, and in an open scene their lengths vary widely, so
+// the kernels run run_paths: a resident grid whose lanes take the next path
+// the moment theirs ends (csrc/lanes.cuh), after each block has copied its
+// tables to shared memory once.  What limits a lane is the walk: its
+// registers, and a warp's lanes waiting on each other's traces.  So a
+// bounce is two traces: the closest hit, after which the whole shading
+// runs, BSDF sample included (path_hit); then the shadow ray, after which
+// only its contribution is added (path_shadow).  Across a trace only its
+// ray and the path state (PathState) are live, no shading value.  Where
+// the path state lives, and whether the shadow ray waits for the next
+// iteration of the loop, is each kernel's choice, as measured on the H100
+// (PERF.md §6): the BVH instance keeps the state in shared memory and
+// walks both rays from one call site, so a lane at its shadow ray walks
+// beside one at its next closest hit; the brute instance, whose sweeps
+// cost every lane alike, keeps the state in registers and sweeps the
+// shadow ray at once.
 #pragma once
 
 #include "lanes.cuh"
@@ -100,7 +112,7 @@ struct Params {
 // What the policy tells about a winner.
 struct Winner {
   int ptype;
-  const float* m;   // 12 world->object entries
+  const float* m;   // 12 world->object entries; a triangle's planes (N first)
   const float* pr;  // 9 params (a triangle's world-space vertices)
   const float* sh;  // the shade row
   int alid;         // area-light id, -1 none
@@ -350,30 +362,46 @@ GOPBRT_HD void ggx_half_vector(float alpha, float ub0, float ub1, float cos_o, f
 
 // ---- one path ------------------------------------------------------------
 
-// A path between bounces: the ray, the throughput, the radiance so far, the
-// specular flag, the previous BSDF pdf, the ray-cone width, etaScale, the
-// RNG hash of its pixel and sample, its bounce index and its lane.
-struct PathState {
-  float ox, oy, oz, dx, dy, dz;
-  float bR, bG, bB, LR, LG, LB;
-  float prev_pdf, cw, es;
-  uint32_t h_ps;
-  int b, lane;
-  bool spec;
+// The next trace of a lane: its path's ray (the closest hit below t_max =
+// BIG) or the bounce's shadow ray (any hit below t_max).  It lives in
+// registers, the walk's inputs.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, t_max;
+  bool shadow;
 };
 
-GOPBRT_HD void path_init(PathState& s, const Params& P, const float* o, const float* d,
-                         const int* pixel, const int* sample, int lane) {
-  s.ox = o[3 * lane];
-  s.oy = o[3 * lane + 1];
-  s.oz = o[3 * lane + 2];
-  s.dx = d[3 * lane];
-  s.dy = d[3 * lane + 1];
-  s.dz = d[3 * lane + 2];
+// A path between its traces: the throughput, the radiance so far, the
+// previous BSDF pdf, the ray-cone width, etaScale; the NEE contribution
+// that waits on the shadow ray and the ray that follows it; the RNG hash of
+// its pixel and sample, its bounce index, its lane; whether the last lobe
+// was specular and whether the path goes on after its shadow ray.  No walk
+// reads any of it, so a kernel may keep it in shared memory, one per
+// thread: 23 words, an odd stride, so a warp's reads of one field fall in
+// 32 banks.
+struct PathState {
+  float bR, bG, bB, LR, LG, LB;
+  float prev_pdf, cw, es;
+  float pR, pG, pB;
+  float nox, noy, noz, ndx, ndy, ndz;
+  uint32_t h_ps;
+  int b, lane, spec, more;
+};
+static_assert(sizeof(PathState) == 23 * 4, "PathState: an odd number of words");
+
+GOPBRT_HD void path_init(PathState& s, Ray& r, const Params& P, const float* o,
+                         const float* d, const int* pixel, const int* sample, int lane) {
+  r.ox = o[3 * lane];
+  r.oy = o[3 * lane + 1];
+  r.oz = o[3 * lane + 2];
+  r.dx = d[3 * lane];
+  r.dy = d[3 * lane + 1];
+  r.dz = d[3 * lane + 2];
+  r.t_max = BIG;
+  r.shadow = false;
   s.h_ps = hash_combine(hash_combine(P.seed, (uint32_t)pixel[lane]), (uint32_t)sample[lane]);
   s.bR = s.bG = s.bB = 1.0f;
   s.LR = s.LG = s.LB = 0.0f;
-  s.spec = true;
+  s.spec = 1;
   s.prev_pdf = 0.0f;
   s.cw = (P.flags & FLAG_USE_CONE) ? P.cone_w0 : 0.0f;
   s.es = 1.0f;
@@ -381,51 +409,52 @@ GOPBRT_HD void path_init(PathState& s, const Params& P, const float* o, const fl
   s.lane = lane;
 }
 
-// The path's bounce s.b: false when the path ends here (an escape, a
-// failed sample, a black throughput, roulette, or the last bounce).  The
-// RNG dimensions follow s.b, so a path's answer does not depend on when or
-// where its bounces run.
+// The rest of the path's bounce s.b once its ray r met its closest hit (t,
+// the policy's winner idx, -1 on a miss): the emission, NEE up to its
+// shadow ray, the BSDF sample, roulette.  False when nothing is left to
+// trace (an escape; or no shadow ray and the path ends: a failed sample, a
+// black throughput, roulette, or the last bounce).  True with r the next
+// trace: the shadow ray, its contribution waiting in s and the path's next
+// ray in s (path_shadow), or else the path's next ray.  The BSDF sample
+// does not depend on the shadow ray, so it runs first and the shadow walk
+// ends the bounce with only its own ray live.  The RNG dimensions follow
+// s.b, so a path's answer does not depend on when or where its bounces run.
 template <class S>
-GOPBRT_HD bool path_bounce(const S& scene, const LightTables& LT, const Params& P,
-                           PathState& s) {
+GOPBRT_HD bool path_hit(const S& scene, const LightTables& LT, const Params& P,
+                        PathState& s, Ray& r, float t, int idx) {
+  if (idx < 0) return false;  // escaped: the fast-path sets have no infinite light
   const bool use_cone = P.flags & FLAG_USE_CONE;
   const bool any_glass = P.flags & FLAG_ANY_GLASS;
   const bool any_rough = P.flags & FLAG_ANY_ROUGH;
   const int n_lights = P.n_lights;
-  float &ox = s.ox, &oy = s.oy, &oz = s.oz, &dx = s.dx, &dy = s.dy, &dz = s.dz;
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   float &bR = s.bR, &bG = s.bG, &bB = s.bB, &LR = s.LR, &LG = s.LG, &LB = s.LB;
   float &prev_pdf = s.prev_pdf, &cw = s.cw, &es = s.es;
-  bool& spec = s.spec;
+  int& spec = s.spec;
   const uint32_t h_ps = s.h_ps;
   const int b = s.b;
   {
     const uint32_t dim0 = DIM_BOUNCE_BASE + (uint32_t)b * DIMS_PER_BOUNCE;
 #define U1(off) to_unit(hash_combine(h_ps, dim0 + (uint32_t)(off)))
 
-    // ---- closest hit ----------------------------------------------------
-    int idx;
-    const float t = scene.closest(ox, oy, oz, dx, dy, dz, idx);
-    if (idx < 0) return false;  // escaped: the fast-path sets have no infinite light
-
     // ---- winner geometry ------------------------------------------------
     const Winner w = scene.winner(idx);
     const float* sh = w.sh;
     float px, py, pz, nx, ny, nz, dux, duy, duz;
     if (S::kTriangles && w.ptype == TRIANGLE) {
-      // world space: p = o + t d, n ~ e1 x e2, dpdu = e1
+      // world space: p = o + t d, n ~ N (the record's plane, no cross
+      // product, as the TPU kernel resolves _RC_N), dpdu = e1
       const float* v = w.pr;
-      const float e1x = v[3] - v[0], e1y = v[4] - v[1], e1z = v[5] - v[2];
-      const float e2x = v[6] - v[0], e2y = v[7] - v[1], e2z = v[8] - v[2];
-      nx = e1y * e2z - e1z * e2y;
-      ny = e1z * e2x - e1x * e2z;
-      nz = e1x * e2y - e1y * e2x;
+      nx = w.m[0];
+      ny = w.m[1];
+      nz = w.m[2];
       normalize3(nx, ny, nz, 1e-30f);
       px = ox + dx * t;
       py = oy + dy * t;
       pz = oz + dz * t;
-      dux = e1x;
-      duy = e1y;
-      duz = e1z;
+      dux = v[3] - v[0];
+      duy = v[4] - v[1];
+      duz = v[5] - v[2];
     } else {  // sphere / disk: object space, then the uniform-scale transform
       const float* m = w.m;
       const float radius = w.pr[0];
@@ -657,28 +686,31 @@ GOPBRT_HD bool path_bounce(const S& scene, const LightTables& LT, const Params& 
         fG_n = kdg * f_gain;
         fB_n = kdb * f_gain;
         if (is_pla) {  // pallas_mesh_megakernel.py:1032-1039
-          const GgxReflection r = ggx_reflection(fr, alpha_g, eta_g, wix, wiy, wiz, cos_i);
+          const GgxReflection g = ggx_reflection(fr, alpha_g, eta_g, wix, wiy, wiz, cos_i);
           const float cos_gain = same ? fabsf(cos_i) : 0.0f;
-          fR_n = fR_n + sh[SH_KR] * r.refl * cos_gain;
-          fG_n = fG_n + sh[SH_KR + 1] * r.refl * cos_gain;
-          fB_n = fB_n + sh[SH_KR + 2] * r.refl * cos_gain;
-          b_pdf = 0.5f * (b_pdf + r.mf_pdf);
+          fR_n = fR_n + sh[SH_KR] * g.refl * cos_gain;
+          fG_n = fG_n + sh[SH_KR + 1] * g.refl * cos_gain;
+          fB_n = fB_n + sh[SH_KR + 2] * g.refl * cos_gain;
+          b_pdf = 0.5f * (b_pdf + g.mf_pdf);
         }
       }
       if (ls_pdf > 0.0f && max3(lir, lig, lib) > 0.0f && max3(fR_n, fG_n, fB_n) > 0.0f) {
-        // shadow ray (VisibilityTester.Unoccluded, light.go:46-48)
+        // the shadow ray (VisibilityTester.Unoccluded, light.go:46-48),
+        // traced at the end of the bounce; what it adds if unoccluded
         const float sgn = cos_i < 0.0f ? -1.0f : 1.0f;
-        const float shx = px + sgn * d_off * nx;
-        const float shy = py + sgn * d_off * ny;
-        const float shz = pz + sgn * d_off * nz;
-        const float t_sh = fmaxf(dist * SHADOW_SCALE - 1e-3f, 1e-4f);
-        if (!scene.occluded(shx, shy, shz, wix, wiy, wiz, t_sh)) {
-          const float weight = is_delta ? 1.0f : power_heuristic(ls_pdf, b_pdf);
-          const float gain = weight / fmaxf(ls_pdf, 1e-20f) / fmaxf(pick_pmf, 1e-20f);
-          LR = LR + bR * fR_n * lir * gain;
-          LG = LG + bG * fG_n * lig * gain;
-          LB = LB + bB * fB_n * lib * gain;
-        }
+        r.ox = px + sgn * d_off * nx;
+        r.oy = py + sgn * d_off * ny;
+        r.oz = pz + sgn * d_off * nz;
+        r.dx = wix;
+        r.dy = wiy;
+        r.dz = wiz;
+        r.t_max = fmaxf(dist * SHADOW_SCALE - 1e-3f, 1e-4f);
+        r.shadow = true;
+        const float weight = is_delta ? 1.0f : power_heuristic(ls_pdf, b_pdf);
+        const float gain = weight / fmaxf(ls_pdf, 1e-20f) / fmaxf(pick_pmf, 1e-20f);
+        s.pR = bR * fR_n * lir * gain;
+        s.pG = bG * fG_n * lig * gain;
+        s.pB = bB * fB_n * lib * gain;
       }
     }
 
@@ -803,49 +835,77 @@ GOPBRT_HD bool path_bounce(const S& scene, const LightTables& LT, const Params& 
     if (is_pla) {  // plastic: f and pdf of both lobes toward the sample
       const float cos_ip = dot3(wix_n, wiy_n, wiz_n, nx, ny, nz);
       const bool same_p = cos_o * cos_ip > 0.0f;
-      const GgxReflection r = ggx_reflection(fr, alpha_g, eta_g, wix_n, wiy_n, wiz_n, cos_ip);
+      const GgxReflection g = ggx_reflection(fr, alpha_g, eta_g, wix_n, wiy_n, wiz_n, cos_ip);
       const float acip = fabsf(cos_ip);
-      pdf_b = 0.5f * ((same_p ? acip * INV_PI_F : 0.0f) + r.mf_pdf);
+      pdf_b = 0.5f * ((same_p ? acip * INV_PI_F : 0.0f) + g.mf_pdf);
       const float diff_p = same_p ? INV_PI_F : 0.0f;
-      fR = kdr * diff_p + sh[SH_KR] * r.refl;
-      fG = kdg * diff_p + sh[SH_KR + 1] * r.refl;
-      fB = kdb * diff_p + sh[SH_KR + 2] * r.refl;
+      fR = kdr * diff_p + sh[SH_KR] * g.refl;
+      fG = kdg * diff_p + sh[SH_KR + 1] * g.refl;
+      fB = kdb * diff_p + sh[SH_KR + 2] * g.refl;
       ok = pdf_b > 1e-9f && max3(fR, fG, fB) > 0.0f;
       const float thr_p = ok ? acip / fmaxf(pdf_b, 1e-20f) : 0.0f;
       fR = fR * thr_p;
       fG = fG * thr_p;
       fB = fB * thr_p;
     }
-    if (!ok) return false;
-    bR = bR * fR;
-    bG = bG * fG;
-    bB = bB * fB;
-    if (!(max3(bR, bG, bB) > 0.0f)) return false;
+    bool more = ok;
+    if (more) {
+      bR = bR * fR;
+      bG = bG * fG;
+      bB = bB * fB;
+      more = max3(bR, bG, bB) > 0.0f;
+    }
+    float nox = 0.0f, noy = 0.0f, noz = 0.0f;
+    if (more) {
+      const float sgn_n = dot3(wix_n, wiy_n, wiz_n, nx, ny, nz) < 0.0f ? -1.0f : 1.0f;
+      nox = px + sgn_n * d_off * nx;
+      noy = py + sgn_n * d_off * ny;
+      noz = pz + sgn_n * d_off * nz;
+      spec = is_mir || is_gls;  // rough glass and plastic are not delta lobes
+      prev_pdf = pdf_b;
+      cw = fw_hit;
 
-    const float sgn_n = dot3(wix_n, wiy_n, wiz_n, nx, ny, nz) < 0.0f ? -1.0f : 1.0f;
-    ox = px + sgn_n * d_off * nx;
-    oy = py + sgn_n * d_off * ny;
-    oz = pz + sgn_n * d_off * nz;
-    dx = wix_n;
-    dy = wiy_n;
-    dz = wiz_n;
-    spec = is_mir || is_gls;  // rough glass and plastic are not delta lobes
-    prev_pdf = pdf_b;
-    cw = fw_hit;
-
-    // ---- Russian roulette (path.go:143-153), beta weighted by etaScale --
-    const float rr_max = max3(bR, bG, bB) * es;
-    if (b >= P.rr_start && rr_max < P.rr_threshold) {
-      const float q = fmaxf(0.05f, 1.0f - rr_max);
-      if (U1(D_RR) < q) return false;
-      const float surv = 1.0f / (1.0f - q);
-      bR = bR * surv;
-      bG = bG * surv;
-      bB = bB * surv;
+      // ---- Russian roulette (path.go:143-153), beta weighted by etaScale
+      const float rr_max = max3(bR, bG, bB) * es;
+      if (b >= P.rr_start && rr_max < P.rr_threshold) {
+        const float q = fmaxf(0.05f, 1.0f - rr_max);
+        if (U1(D_RR) < q) {
+          more = false;
+        } else {
+          const float surv = 1.0f / (1.0f - q);
+          bR = bR * surv;
+          bG = bG * surv;
+          bB = bB * surv;
+        }
+      }
+      more = more && ++s.b < P.max_depth;
     }
 #undef U1
+    if (r.shadow) {  // the shadow ray first; the path's next ray waits in s
+      s.more = more;
+      s.nox = nox;
+      s.noy = noy;
+      s.noz = noz;
+      s.ndx = wix_n;
+      s.ndy = wiy_n;
+      s.ndz = wiz_n;
+      return true;
+    }
+    r = Ray{nox, noy, noz, wix_n, wiy_n, wiz_n, BIG, false};
+    return more;
   }
-  return ++s.b < P.max_depth;
+}
+
+// After the bounce's shadow ray (r, occluded or not): its contribution, then
+// the path's next ray into r.  False when the path ends.
+GOPBRT_HD bool path_shadow(PathState& s, Ray& r, bool occluded) {
+  if (!occluded) {
+    s.LR = s.LR + s.pR;
+    s.LG = s.LG + s.pG;
+    s.LB = s.LB + s.pB;
+  }
+  r = Ray{s.nox, s.noy, s.noz, s.ndx, s.ndy, s.ndz, BIG, false};
+  return s.more;
 }
 
 // Writes the path's radiance, NaN/Inf sanitized (renderWorker,
@@ -857,21 +917,41 @@ GOPBRT_HD void path_finish(const PathState& s, float* L_out) {
   L_out[3 * s.lane + 2] = finite ? fmaxf(s.LB, 0.0f) : 0.0f;
 }
 
+// One step of a path: one trace of its ray r, a closest hit then the rest
+// of the bounce (path_hit), or a shadow ray then its contribution
+// (path_shadow), from one call site of the policy's trace, so lanes at
+// either kind of trace walk together; with S::kShadowAtOnce the shadow ray
+// follows its closest hit in the same step.  False when the path has
+// ended.
+template <class S>
+GOPBRT_HD bool path_step(const S& scene, const LightTables& LT, const Params& P,
+                         PathState& s, Ray& r) {
+  int idx;
+  const float t = scene.trace(r, idx);
+  bool active = r.shadow ? path_shadow(s, r, idx >= 0) : path_hit(scene, LT, P, s, r, t, idx);
+  if (S::kShadowAtOnce && active && r.shadow) {
+    scene.trace(r, idx);
+    active = path_shadow(s, r, idx >= 0);
+  }
+  return active;
+}
+
 #ifdef __CUDACC__
 
-// The persistent loop of both instances (csrc/lanes.cuh): each lane runs
-// one bounce of its path per iteration; a lane whose path has ended writes
-// its radiance and takes the next path.  All threads of the block enter.
+// The persistent loop of both instances (csrc/lanes.cuh): each lane makes
+// one step of its path per iteration (path_step).  A lane whose path has
+// ended writes its radiance and takes the next path.  s: this thread's
+// path state, where its kernel keeps it.  All threads of the block enter.
 template <class S>
 __device__ void run_paths(const S& scene, const LightTables& LT, const Params& P,
                           const float* o, const float* d, const int* pixel,
-                          const int* sample, float* L, int* next) {
-  PathState s;
+                          const int* sample, float* L, int* next, PathState& s) {
+  Ray r;
   bool active = false, drained = false;
   for (;;) {
     const int i = take_next(!active, P.n, next, drained);
     if (i >= 0) {
-      path_init(s, P, o, d, pixel, sample, i);
+      path_init(s, r, P, o, d, pixel, sample, i);
       active = P.max_depth > 0;
       if (!active) path_finish(s, L);
     }
@@ -879,9 +959,9 @@ __device__ void run_paths(const S& scene, const LightTables& LT, const Params& P
       if (drained) break;
       continue;
     }
-    if (active && !path_bounce(scene, LT, P, s)) {
-      path_finish(s, L);
-      active = false;
+    if (active) {
+      active = path_step(scene, LT, P, s, r);
+      if (!active) path_finish(s, L);
     }
   }
 }

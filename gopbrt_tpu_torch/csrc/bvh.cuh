@@ -11,7 +11,13 @@
 // prim_test.cuh, in order, a hit kept only when strictly closer.  The any
 // hit stops at the end of the leaf that holds its first accepted hit;
 // lanes with t_max <= DEAD_T_MAX (the integrators' dead shadow rays) are
-// not walked and come out unoccluded.
+// not walked and come out unoccluded.  Whether a walk is a closest or an
+// any hit is known at compile time in the walk kernels (AnyHit) and is a
+// run-time bool in the mesh megakernel, which walks both from one call
+// site; how it tests triangles is a template argument: the walk kernels
+// (csrc/bvh_intersect.cu) use the vertex form (Moller-Trumbore, as the TPU
+// cluster kernel's shared _prim_test), the mesh megakernel the plane form
+// of its TPU kernel (plane_test).
 //
 // Layout (ops/bvh.py bvh_table).  An interior node is 64 bytes, four
 // 16-byte loads, and holds both children: (left lo.xyz, left code),
@@ -21,9 +27,9 @@
 // header: the root's box and code in its first half.  Primitive records
 // (REC_K floats, rows in leaf order, so a leaf reads contiguous rows) hold
 // the params, the type, the material, the area-light id, the world->object
-// rows and the squared uniform scale.  At the 10,226 prims of the mesh
-// scene the nodes (about 0.2 MB) and records (1.3 MB) stay in the H100's
-// 50 MB L2.
+// rows (a triangle: its planes) and the squared uniform scale.  At the
+// 10,226 prims of the mesh scene the nodes (about 0.2 MB) and records
+// (1.3 MB) stay in the H100's 50 MB L2.
 //
 // What bounds it: dependent loads and divergence.  The previous walk
 // fetched a node's box only once it was popped, so every pushed far child
@@ -82,11 +88,17 @@ GOPBRT_HD bool box_hit(const float4& a, const float4& b, float ox, float oy, flo
   return tn <= tf && tf > 0.0f && tn < t_max;
 }
 
-// ray vs one primitive record: three 16-byte loads for a triangle, six
-// for a sphere or disk
+// ray vs one primitive record.  A triangle: PLANE, the plane form on
+// words 3-5 (its planes) after the type's 4 bytes of word 2, all in two
+// 32-byte sectors; else the vertex form on words 0-2 (the vertices and the
+// type).  A sphere or disk: six 16-byte loads.
+template <bool PLANE>
 GOPBRT_HD float record_test(const float4* rec, float ox, float oy, float oz, float dx,
                             float dy, float dz, float t_limit, bool full_sph,
                             bool full_disk) {
+  if (PLANE && (int)ld1(reinterpret_cast<const float*>(rec) + REC_TYPE) == TRIANGLE)
+    return plane_test(ld4(rec + 3), ld4(rec + 4), ld4(rec + 5), ox, oy, oz, dx, dy, dz,
+                      t_limit);
   float pr[12], m[12];
   const float4 r0 = ld4(rec), r1 = ld4(rec + 1), r2 = ld4(rec + 2);
   pr[0] = r0.x; pr[1] = r0.y; pr[2] = r0.z; pr[3] = r0.w;
@@ -101,6 +113,14 @@ GOPBRT_HD float record_test(const float4* rec, float ox, float oy, float oz, flo
   }
   return prim_test(ptype, m, pr, ox, oy, oz, dx, dy, dz, t_limit, full_sph, full_disk);
 }
+
+// The kind of a walk fixed at compile time, where an argument `any` of
+// the walk may be either this or a run-time bool: AnyHit<true> an any hit,
+// AnyHit<false> a closest hit.
+template <bool V>
+struct AnyHit {
+  GOPBRT_HD constexpr operator bool() const { return V; }
+};
 
 // A pushed far child: its code and entry distance.
 struct StackEntry {
@@ -121,15 +141,15 @@ struct Walk {
 
 // Sets up the walk of one ray; false when it ends before a step (a dead
 // any-hit lane, or the root's box missed): best is then t_max, slot -1.
-template <bool ANY>
+template <class Any>
 GOPBRT_HD bool walk_start(const BvhView& B, Walk& w, float ox, float oy, float oz, float dx,
-                          float dy, float dz, float t_max) {
+                          float dy, float dz, float t_max, Any any) {
   w.ox = ox; w.oy = oy; w.oz = oz;
   w.dx = dx; w.dy = dy; w.dz = dz;
   w.best = t_max;
   w.slot = -1;
   w.sp = 0;
-  if (ANY && t_max <= DEAD_T_MAX) return false;
+  if (any && t_max <= DEAD_T_MAX) return false;
   w.ix = inv_dir(dx);
   w.iy = inv_dir(dy);
   w.iz = inv_dir(dz);
@@ -182,21 +202,21 @@ GOPBRT_HD bool interior_node(const BvhView& B, Walk& w, StackEntry* stack) {
 }
 
 // The leaf w.cur: its records in order, then a pop.  False when the walk
-// is over (ANY: at the end of the leaf of the first hit).
-template <bool ANY>
-GOPBRT_HD bool leaf_node(const BvhView& B, Walk& w, StackEntry* stack) {
+// is over (any: at the end of the leaf of the first hit).
+template <bool PLANE, class Any>
+GOPBRT_HD bool leaf_node(const BvhView& B, Walk& w, StackEntry* stack, Any any) {
   const int leaf = ~w.cur;
   const int first = leaf >> LEAF_SHIFT, count = leaf & ((1 << LEAF_SHIFT) - 1);
   const bool full_sph = B.flags & BVH_FULL_SPH, full_disk = B.flags & BVH_FULL_DISK;
   for (int k = 0; k < count; ++k) {
-    const float tp = record_test(B.recs + (first + k) * (REC_K / 4), w.ox, w.oy, w.oz, w.dx,
-                                 w.dy, w.dz, w.best, full_sph, full_disk);
+    const float tp = record_test<PLANE>(B.recs + (first + k) * (REC_K / 4), w.ox, w.oy, w.oz,
+                                        w.dx, w.dy, w.dz, w.best, full_sph, full_disk);
     if (tp < w.best) {
       w.best = tp;
       w.slot = first + k;
     }
   }
-  if (ANY && w.slot >= 0) return false;
+  if (any && w.slot >= 0) return false;
   return pop_next(w, stack);
 }
 
@@ -205,22 +225,23 @@ GOPBRT_HD bool leaf_node(const BvhView& B, Walk& w, StackEntry* stack) {
 // wait for the others and test their leaves together, where a step of one
 // node each would run the interior and the leaf branch one after the
 // other.  False when the walk is over.
-template <bool ANY>
-GOPBRT_HD bool walk_step(const BvhView& B, Walk& w, StackEntry* stack) {
+template <bool PLANE, class Any>
+GOPBRT_HD bool walk_step(const BvhView& B, Walk& w, StackEntry* stack, Any any) {
   while (w.cur >= 0)
     if (!interior_node(B, w, stack)) return false;
-  return leaf_node<ANY>(B, w, stack);
+  return leaf_node<PLANE>(B, w, stack, any);
 }
 
 // The whole walk: the nearest hit closer than t_max and its record row
-// (slot, -1 and t_max where none is).  ANY: the any hit.
-template <bool ANY>
+// (slot, -1 and t_max where none is); any: the any hit.  PLANE: triangles
+// take the plane form (record_test).
+template <bool PLANE, class Any>
 GOPBRT_HD float bvh_walk(const BvhView& B, float ox, float oy, float oz, float dx,
-                         float dy, float dz, float t_max, int& slot) {
+                         float dy, float dz, float t_max, Any any, int& slot) {
   Walk w;
   StackEntry stack[STACK_DEPTH];
-  if (walk_start<ANY>(B, w, ox, oy, oz, dx, dy, dz, t_max))
-    while (walk_step<ANY>(B, w, stack)) {
+  if (walk_start(B, w, ox, oy, oz, dx, dy, dz, t_max, any))
+    while (walk_step<PLANE>(B, w, stack, any)) {
     }
   slot = w.slot;
   return w.best;

@@ -3,13 +3,14 @@
 // Replaces gopbrt_tpu/ops/pallas_cluster.py::_cluster_kernel (:127,
 // pallas_call :278) behind its entry points cluster_intersect (:313) and
 // cluster_intersect_p (:329).  The walk itself is csrc/bvh.cuh (see its
-// note: the node that holds both child boxes, the while-while step, and
-// the same leaves in the same order as the plain walk); these kernels read
-// one ray, walk, and write the result.  The plain PyTorch twins are
-// gopbrt_tpu_torch/ops/bvh.py::bvh_intersect and ::bvh_intersect_p; the
-// wrappers that launch these kernels are bvh_intersect_fused and
-// bvh_intersect_p_fused there.  A miss returns t_max and prim 0, as the
-// cluster kernel does (pallas_cluster.py:325).
+// note: the node that holds both child boxes, the while-while step, and the
+// same leaves in the same order as the plain walk); these kernels read one
+// ray, walk, and write the result.  Triangles take the vertex form
+// (Moller-Trumbore), as the cluster kernel's shared _prim_test does.  The
+// plain PyTorch twins are gopbrt_tpu_torch/ops/bvh.py::bvh_intersect and
+// ::bvh_intersect_p; the wrappers that launch these kernels are
+// bvh_intersect_fused and bvh_intersect_p_fused there.  A miss returns
+// t_max and prim 0, as the cluster kernel does (pallas_cluster.py:325).
 //
 // One thread per ray, not persistent lanes (csrc/lanes.cuh): neighbouring
 // rays of a band walk alike, so a warp of them already fills most of its
@@ -33,7 +34,7 @@ bvh_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int slot;
   const float t = gopbrt::bvh_walk<false>(B, o[3 * i], o[3 * i + 1], o[3 * i + 2],
                                           d[3 * i], d[3 * i + 1], d[3 * i + 2], t_max[i],
-                                          slot);
+                                          gopbrt::AnyHit<false>{}, slot);
   hit_out[i] = slot >= 0;
   t_out[i] = t;  // t_max itself where nothing is hit
   prim_out[i] = slot >= 0 ? prim_order[slot] : 0;
@@ -46,8 +47,8 @@ bvh_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int slot;
-  gopbrt::bvh_walk<true>(B, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
-                         d[3 * i + 2], t_max[i], slot);
+  gopbrt::bvh_walk<false>(B, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
+                          d[3 * i + 2], t_max[i], gopbrt::AnyHit<true>{}, slot);
   occ_out[i] = slot >= 0;
 }
 

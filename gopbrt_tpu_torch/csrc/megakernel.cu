@@ -47,35 +47,27 @@ static_assert(TABLE_WORDS == 3585, "Tables must match TABLE_LAYOUT");
 struct BruteScene {
   static constexpr bool kTriangles = false;  // the fast path: spheres and disks
   static constexpr bool kPlastic = false;
+  static constexpr bool kShadowAtOnce = true;
   const Tables& T;
   int n_prims;
   bool full_sph, full_disk;
 
-  GOPBRT_HD float closest(float ox, float oy, float oz, float dx, float dy, float dz,
-                          int& idx) const {
-    float t_best = BIG;
+  // The nearest prim closer than r.t_max, or (r.shadow) the first found:
+  // an any hit closer than t_max, the same answer as a sweep limited to
+  // t_max returning a prim.
+  GOPBRT_HD float trace(const Ray& r, int& idx) const {
+    float t_best = r.t_max;
     idx = -1;
     for (int p = 0; p < n_prims; ++p) {
-      const float tp = prim_test((int)T.ptype[p], T.w2o[p], T.params[p], ox, oy, oz, dx,
-                                 dy, dz, t_best, full_sph, full_disk);
+      const float tp = prim_test((int)T.ptype[p], T.w2o[p], T.params[p], r.ox, r.oy, r.oz,
+                                 r.dx, r.dy, r.dz, t_best, full_sph, full_disk);
       if (tp < t_best) {
         t_best = tp;
         idx = p;
+        if (r.shadow) break;
       }
     }
     return t_best;
-  }
-
-  // any hit closer than t_max: the same answer as a closest-hit sweep
-  // limited to t_max returning a prim
-  GOPBRT_HD bool occluded(float ox, float oy, float oz, float dx, float dy, float dz,
-                          float t_max) const {
-    for (int p = 0; p < n_prims; ++p) {
-      if (prim_test((int)T.ptype[p], T.w2o[p], T.params[p], ox, oy, oz, dx, dy, dz, t_max,
-                    full_sph, full_disk) < t_max)
-        return true;
-    }
-    return false;
   }
 
   GOPBRT_HD Winner winner(int idx) const {
@@ -99,7 +91,8 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   const BruteScene scene{T, P.n_prims, (P.flags & FLAG_FULL_SPH) != 0,
                          (P.flags & FLAG_FULL_DISK) != 0};
-  run_paths(scene, T.lights, P, o, d, pixel, sample, L, next);
+  PathState s;  // in registers: in shared memory beside the tables it ran slower
+  run_paths(scene, T.lights, P, o, d, pixel, sample, L, next, s);
 }
 
 #endif  // __CUDACC__

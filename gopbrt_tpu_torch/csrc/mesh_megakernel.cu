@@ -14,16 +14,25 @@
 // runs in one launch, on the skeleton's persistent loop (a resident grid,
 // a lane takes the next path when its own ends): every prim, triangles and
 // the rest, sits in the one BVH, the walk returns the winner's record row,
-// and the winner's attributes are one read of it (material, area light)
-// and of the per-material shade table (<= MAX_MATS rows of MAT_K floats,
-// with the light tables in shared memory, copied once per block).  The
-// tree and the records stay in global memory (L2-resident at the mesh
-// scene's 10k prims).
+// and the winner's attributes are one read of it (material, area light,
+// the geometric normal N) and of the per-material shade table (<= MAX_MATS
+// rows of MAT_K floats, with the light tables in shared memory, copied once
+// per block).  The tree and the records stay in global memory
+// (L2-resident at the mesh scene's 10k prims).  Triangles are tested in
+// the TPU kernel's Havel-Herout plane form (_tri_test_h, :330-354) on the
+// planes ops/bvh.py precomputes into each triangle's record: three dot
+// products and a divide, where the walk kernels' vertex form takes two
+// cross products.
 //
 // What bounds it: per bounce, a closest-hit walk and a shadow walk per
-// path, whose cost is divergence between the paths of a warp (see
-// csrc/bvh.cuh), then the shading math; the bytes (32 in, 12 out a path)
-// bound far less.  It neither sorts paths nor walks packets.
+// path, whose cost is divergence between the paths of a warp and the
+// registers a walk holds (see csrc/bvh.cuh), then the shading math; the
+// bytes (32 in, 12 out a path) bound far less.  So no shading value is live
+// across a walk, the path state waits in shared memory (PathState, 92 bytes
+// a thread beside the 3 KB of tables), and both walks of a bounce run from
+// one call site (csrc/bounce.cuh run_paths).  It neither sorts paths nor
+// walks packets: the TPU kernel's octant x origin-cell re-sort between
+// bounces ran slower on the H100 (PERF.md §6).
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -47,19 +56,14 @@ static_assert(MESH_TABLE_WORDS == 769, "MeshTables must match MESH_TABLE_LAYOUT"
 struct MeshScene {
   static constexpr bool kTriangles = true;
   static constexpr bool kPlastic = true;
+  static constexpr bool kShadowAtOnce = false;
   BvhView B;
   const float (*mat)[MAT_K];
 
-  GOPBRT_HD float closest(float ox, float oy, float oz, float dx, float dy, float dz,
-                          int& idx) const {
-    return bvh_walk<false>(B, ox, oy, oz, dx, dy, dz, BIG, idx);
-  }
-
-  GOPBRT_HD bool occluded(float ox, float oy, float oz, float dx, float dy, float dz,
-                          float t_max) const {
-    int slot;
-    bvh_walk<true>(B, ox, oy, oz, dx, dy, dz, t_max, slot);
-    return slot >= 0;
+  // the closest or (r.shadow) any hit: one walk for both, triangles in
+  // the plane form
+  GOPBRT_HD float trace(const Ray& r, int& idx) const {
+    return bvh_walk<true>(B, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.t_max, r.shadow, idx);
   }
 
   GOPBRT_HD Winner winner(int slot) const {
@@ -79,10 +83,12 @@ __global__ void __launch_bounds__(THREADS)
                 const int* __restrict__ pixel, const int* __restrict__ sample,
                 float* __restrict__ L, int* next) {
   __shared__ MeshTables T;
+  __shared__ PathState paths[THREADS];
   float* dst = reinterpret_cast<float*>(&T);
   for (int i = threadIdx.x; i < MESH_TABLE_WORDS; i += blockDim.x) dst[i] = tables[i];
   __syncthreads();
-  run_paths(MeshScene{B, T.mat}, T.lights, P, o, d, pixel, sample, L, next);
+  run_paths(MeshScene{B, T.mat}, T.lights, P, o, d, pixel, sample, L, next,
+            paths[threadIdx.x]);
 }
 
 #endif  // __CUDACC__

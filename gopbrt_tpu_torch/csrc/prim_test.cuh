@@ -44,6 +44,15 @@ GOPBRT_HD float4 ld4(const float4* p) {
 #endif
 }
 
+// 4 bytes through the read-only path
+GOPBRT_HD float ld1(const float* p) {
+#ifdef __CUDACC__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
 // the int32 whose bits a float holds
 GOPBRT_HD int as_int(float f) {
 #ifdef __CUDACC__
@@ -156,6 +165,26 @@ GOPBRT_HD float prim_test(int ptype, const float* m, const float* pr,
   if (hit && !full_disk)
     hit = d2 >= pr[2] * pr[2] && (pr[3] >= TWO_PI_CLIP || in_wedge(pxd, pyd, pr[3]));
   return hit ? t_pl : BIG;
+}
+
+// The Havel-Herout plane-form triangle test of the mesh megakernel
+// (pallas_mesh_megakernel.py _tri_test_h, :330-354), on the planes that
+// ops/bvh.py triangle_planes precomputes on the host: n = (N, d_n),
+// u = (U, d_u), v = (V, d_v).  The hit point p = o + t d lies on the
+// triangle's plane at t = (d_n - N.o) / N.d; its barycentrics are U.p + d_u
+// and V.p + d_v.  Three dot products and a divide where Moller-Trumbore
+// takes two cross products; the accept region is the vertex form's.
+GOPBRT_HD float plane_test(const float4& n, const float4& u, const float4& v, float ox,
+                           float oy, float oz, float dx, float dy, float dz, float t_limit) {
+  const float den = n.x * dx + n.y * dy + n.z * dz;
+  const bool degen = fabsf(den) < 1e-12f;
+  const float tt = (n.w - (n.x * ox + n.y * oy + n.z * oz)) / (degen ? 1.0f : den);
+  const float px = ox + tt * dx, py = oy + tt * dy, pz = oz + tt * dz;
+  const float bu = u.x * px + u.y * py + u.z * pz + u.w;
+  const float bv = v.x * px + v.y * py + v.z * pz + v.w;
+  const bool hit = !degen && bu >= 0.0f && bv >= 0.0f && bu + bv <= 1.0f && tt > 1e-4f &&
+                   tt < t_limit;
+  return hit ? tt : BIG;
 }
 
 }  // namespace gopbrt

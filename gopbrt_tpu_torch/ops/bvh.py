@@ -47,7 +47,7 @@ DEAD_T_MAX = 2e-4
 
 # primitive record columns (f32[P, REC_K], rows in BVH leaf order), read by
 # csrc/bvh.cuh as 16-byte loads: params, type, material, area light, the
-# world->object rows, the squared uniform scale
+# world->object rows (a triangle: its planes), the squared uniform scale
 REC_PARAMS = 0   # 0-8
 REC_TYPE = 9
 REC_MAT = 10
@@ -55,6 +55,10 @@ REC_ALID = 11
 REC_W2O = 12     # 12-23
 REC_SCALE2 = 24
 REC_K = 32
+# A triangle keeps its Havel-Herout planes in columns 12-23, where a sphere
+# or a disk keeps its world->object rows (pallas_mesh_megakernel.py
+# :100-119): N = e1 x e2, d_n = N.v0; U = (e2 x N) / |N|^2, d_u = -U.v0;
+# V = (N x e1) / |N|^2, d_v = -V.v0; then u = U.p + d_u, v = V.p + d_v.
 # an interior node of the packed tree, both children's boxes (csrc/bvh.cuh):
 # left lo.xyz, left code, left hi.xyz, split axis, right lo.xyz, right
 # code, right hi.xyz, 0; a child's code is its node index if it is
@@ -262,6 +266,28 @@ def pack_nodes(bvh: LinearBVH) -> torch.Tensor:
     return torch.cat([header, body]).contiguous()
 
 
+def triangle_planes(params: np.ndarray) -> np.ndarray:
+    """Each triangle's Havel-Herout planes, f32[T, 12] (N, d_n, U, d_u, V,
+    d_v), from its world-space vertices f32[T, 9]: in f32 on the host, with
+    the formulas of build_mesh_tables (pallas_mesh_megakernel.py:266-286)."""
+    p9 = np.asarray(params, np.float32)
+    v0 = p9[:, 0:3]
+    e1 = p9[:, 3:6] - v0
+    e2 = p9[:, 6:9] - v0
+    nrm = np.cross(e1, e2).astype(np.float32)
+    n2 = np.maximum((nrm * nrm).sum(-1, keepdims=True), 1e-30).astype(np.float32)
+    uu = (np.cross(e2, nrm).astype(np.float32) / n2).astype(np.float32)
+    vv = (np.cross(nrm, e1).astype(np.float32) / n2).astype(np.float32)
+    out = np.zeros((p9.shape[0], 12), np.float32)
+    out[:, 0:3] = nrm
+    out[:, 3] = (nrm * v0).sum(-1)
+    out[:, 4:7] = uu
+    out[:, 7] = -(uu * v0).sum(-1)
+    out[:, 8:11] = vv
+    out[:, 11] = -(vv * v0).sum(-1)
+    return out
+
+
 def bvh_table(bvh: LinearBVH, prims: Primitives, backend: Optional[str] = None,
               build_ms: Optional[float] = None) -> BVHTable:
     """Pack the tree and ``prims`` (in the tree's leaf order) for the walk;
@@ -270,12 +296,17 @@ def bvh_table(bvh: LinearBVH, prims: Primitives, backend: Optional[str] = None,
     nodes = pack_nodes(bvh)
     order = bvh.prim_order.long()
     p = prims.count
-    records = torch.zeros((p, REC_K), dtype=f32, device=prims.params.device)
+    dev = prims.params.device
+    records = torch.zeros((p, REC_K), dtype=f32, device=dev)
     records[:, REC_PARAMS:REC_PARAMS + 9] = prims.params[order]
     records[:, REC_TYPE] = prims.prim_type[order].to(f32)
     records[:, REC_MAT] = prims.material_id[order].to(f32)
     records[:, REC_ALID] = prims.area_light_id[order].to(f32)
     records[:, REC_W2O:REC_W2O + 12] = prims.world_to_obj[order, :3, :].reshape(p, 12)
+    tri = torch.nonzero(records[:, REC_TYPE] == TRIANGLE).flatten()
+    if tri.numel():
+        planes = triangle_planes(records[tri, REC_PARAMS:REC_PARAMS + 9].cpu().numpy())
+        records[tri, REC_W2O:REC_W2O + 12] = torch.as_tensor(planes, device=dev)
     records[:, REC_SCALE2] = prim_scale2(prims)[order]
     pinfo = prims.pinfo
     return BVHTable(bvh, nodes, records.contiguous(),
@@ -288,12 +319,38 @@ def bvh_table(bvh: LinearBVH, prims: Primitives, backend: Optional[str] = None,
 # ---------------------------------------------------------------------------
 
 
+def plane_test(planes, o, d, t_limit, tally=None) -> torch.Tensor:
+    """The Havel-Herout plane-form ray-triangle test of the mesh megakernel
+    (csrc/prim_test.cuh plane_test; pallas_mesh_megakernel.py _tri_test_h,
+    :330-354) -> candidate t (BIG on a miss).  planes f32[N, 12] (N, d_n,
+    U, d_u, V, d_v, one triangle per lane); o, d f32[N, 3]; t_limit f32[N].
+    The accept region of the vertex form: |N.d| >= 1e-12, u >= 0, v >= 0,
+    u + v <= 1, 1e-4 < t < t_limit.  tally: counts "plane_tests"."""
+    if tally is not None:
+        tally["plane_tests"] = tally.get("plane_tests", 0) + o.shape[0]
+    nx, ny, nz, dn, ux, uy, uz, du, vx, vy, vz, dv = planes.unbind(-1)
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    den = nx * dx + ny * dy + nz * dz
+    degen = torch.abs(den) < 1e-12
+    tt = (dn - (nx * ox + ny * oy + nz * oz)) / torch.where(degen, 1.0, den)
+    px = ox + tt * dx
+    py = oy + tt * dy
+    pz = oz + tt * dz
+    u = ux * px + uy * py + uz * pz + du
+    v = vx * px + vy * py + vz * pz + dv
+    hit = ~degen & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tt > 1e-4) & (tt < t_limit)
+    return torch.where(hit, tt, BIG)
+
+
 def prim_test_records(rec, o, d, t_limit, full_sph=False, full_disk=False,
-                      tally=None) -> torch.Tensor:
+                      tally=None, plane=False) -> torch.Tensor:
     """Each lane's ray against its own primitive record -> candidate t (BIG
     on a miss): ``brute_intersect.prim_test`` with one record per lane.
     rec f32[N, REC_K]; o, d f32[N, 3]; t_limit f32[N].  tally: see
-    ``brute_intersect.prim_test``, over every lane."""
+    ``brute_intersect.prim_test``, over every lane.  plane: triangles take
+    the plane-form ``plane_test`` of their record's planes (the mesh
+    megakernel's walk) instead of the vertex form (the walk kernels')."""
     ptype = rec[:, REC_TYPE].to(torch.int32)
     out = torch.full_like(t_limit, BIG)
     for kind in (TRIANGLE, SPHERE, DISK):
@@ -301,6 +358,10 @@ def prim_test_records(rec, o, d, t_limit, full_sph=False, full_disk=False,
         if sel.numel() == 0:
             continue
         r = rec[sel]
+        if plane and kind == TRIANGLE:
+            out[sel] = plane_test(r[:, REC_W2O:REC_W2O + 12], o[sel], d[sel], t_limit[sel],
+                                  tally)
+            continue
         out[sel] = brute_intersect.prim_test(
             kind, r[:, REC_W2O:REC_W2O + 12].unbind(-1), r[:, REC_PARAMS:REC_PARAMS + 9].unbind(-1),
             *o[sel].unbind(-1), *d[sel].unbind(-1), t_limit[sel], full_sph, full_disk, tally)
@@ -312,7 +373,8 @@ def _inv_dir(d):
 
 
 def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
-         any_hit: bool = False, tally=None, steps: Optional[torch.Tensor] = None):
+         any_hit: bool = False, tally=None, steps: Optional[torch.Tensor] = None,
+         plane: bool = False):
     """The lockstep walk (bvh.py:212-312) -> (t f32[N], slot int64[N]):
     the nearest hit closer than t_max and its record row (-1 and t_max
     where none is).  any_hit: a lane stops at its first accepted leaf hit,
@@ -332,7 +394,9 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
     far children whose box was hit along with the near child's) and the
     leaf tests by kind (see ``prim_test_records``).  steps: optional
     int64[N]; each lane's steps of csrc/bvh.cuh's walk (the leaves and
-    interior nodes it visits) are added to it."""
+    interior nodes it visits) are added to it.  plane: triangles take the
+    plane-form test (the mesh megakernel's walk; see
+    ``prim_test_records``)."""
     bvh = table.bvh
     n = o.shape[0]
     dev = o.device
@@ -369,7 +433,8 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
             pl, pk = torch.nonzero(k_slots[None, :] < cnt[li][:, None], as_tuple=True)
             lanes_p = li[pl]
             tp = prim_test_records(table.records[first[pl] + pk], o[lanes_p], d[lanes_p],
-                                   t_best[lanes_p], table.full_sph, table.full_disk, tally)
+                                   t_best[lanes_p], table.full_sph, table.full_disk, tally,
+                                   plane)
             tmat = torch.full((li.numel(), MAX_LEAF), float("inf"), device=dev)
             tmat[pl, pk] = tp
             k_best = torch.argmin(tmat, dim=1)

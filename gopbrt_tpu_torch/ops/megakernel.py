@@ -100,65 +100,69 @@ FLAG_ANY_ROUGH = 16
 
 
 # fp32 operations the CUDA kernels spend on each event that path_li_plain
-# and the plain BVH walk count, read off csrc/bounce.cuh (line ranges below),
-# csrc/prim_test.cuh and csrc/bvh.cuh.  An add, multiply, divide, square
-# root, min / max, abs, floor, sine, cosine or compare counts one; selects,
-# integer work and the RNG hash count none; an expression computed twice
-# counts once.  Rare fallbacks (the degenerate shading frame, the farther
-# quadratic root, the clips of partial spheres and disks) count none, so a
-# bound built on these is a least count.
+# and the plain BVH walk count, read off csrc/bounce.cuh (path_hit's
+# sections, named below), csrc/prim_test.cuh and csrc/bvh.cuh.  An add,
+# multiply, divide, square root, min / max, abs, floor, sine, cosine or
+# compare counts one; selects, integer work and the RNG hash count none; an
+# expression computed twice counts once.  Rare fallbacks (the degenerate
+# shading frame, the farther quadratic root, the clips of partial spheres
+# and disks) count none, so a bound built on these is a least count.
 OPS_PER_EVENT = {
-    # one primitive test (prim_test.cuh:116-132, to the discriminant) and
-    # the sweep's compare; on a root, prim_test.cuh:133-146
+    # one primitive test (prim_test: the sphere to its discriminant) and
+    # the sweep's compare; on a root, the roots and their t_eps
     "sphere_tests": 62,
     "sphere_roots": 18,
-    "disk_tests": 49,  # prim_test.cuh:116-122, 150-155, + the sweep's compare
-    "triangle_tests": 61,  # prim_test.cuh:96-114 + the sweep's compare
+    "disk_tests": 49,  # prim_test: world->object, the disk, the sweep's compare
+    "triangle_tests": 61,  # prim_test: Moller-Trumbore, the sweep's compare
+    # plane_test (the mesh megakernel's walk): N.d, its degenerate cut, t,
+    # the hit point, u and v, the accept compares (38), the leaf's compare
+    "plane_tests": 39,
     # the BVH walk (bvh.cuh): the slab test of box_hit is 28; a ray's root
     # test; an interior node's two slab tests and its direction compare;
     # a pop's distance compare
     "bvh_roots": 28,
     "bvh_nodes": 57,
     "bvh_pops": 1,
-    # a lane that hit a sphere or disk: winner geometry bounce.cuh:391-425,
-    # :456, wo :426-427, shading frame :488-509, BSDF sample inputs :648-650
+    # a lane that hit a sphere or disk: path_hit's winner geometry, wo, the
+    # ray-cone width, the shading frame and the BSDF sample's inputs
     "hits": 204,
-    # a lane that hit a triangle: :377-390 (34) and the same rest (81)
-    "triangle_hits": 115,
-    "cone_hits": 3,  # :456
-    "emitter_hits": 7,  # :431-434
-    "emissions": 9,  # :446-448
-    "emission_mis": 46,  # :436-445 with sphere_area_pdf_li (outside) :231-251
-    "checker_hits": 12,  # :458-459
-    "checker_filtered": 66,  # :460-475
-    "checker_unfiltered": 8,  # :476-484
-    "rough_hits": 31,  # :508, fresnel_diel :168-181
-    # NEE on a lane that is neither mirror nor smooth glass: :511, :518-520,
-    # :597-599, :604, :630; one compare per CDF entry :514
+    # a lane that hit a triangle: N normalised, p = o + t d, dpdu = e1 (21),
+    # and the same rest (81)
+    "triangle_hits": 102,
+    "cone_hits": 3,  # the ray-cone width at the hit
+    "emitter_hits": 7,  # the emitter's facing test
+    "emissions": 9,  # the emission added to L
+    "emission_mis": 46,  # its MIS weight with sphere_area_pdf_li (outside)
+    "checker_hits": 12,  # the planar checker's (s, t)
+    "checker_filtered": 66,  # its box filter over the ray-cone footprint
+    "checker_unfiltered": 8,  # its parity
+    "rough_hits": 31,  # F_o of rough glass, fresnel_diel
+    # NEE on a lane that is neither mirror nor smooth glass: the light
+    # pick's pmf, cos_i, the f and pdf gates; one compare per CDF entry
     "nee": 20,
     "cdf_steps": 1,
-    "nee_point": 18,  # :523-532
-    "nee_distant": 1,  # :539
-    "nee_area_outside": 117,  # :541-573, :592-595
-    "nee_area_inside": 66,  # :541-547, :574-595
-    "nee_lambert": 8,  # :614-620
-    "nee_rough": 257,  # :606-613 with rough_glass_eval :291-324 (247)
-    "nee_plastic": 147,  # :621-628 with ggx_reflection :269-289 (135)
-    "shadow_rays": 11,  # :631-636 (its primitive tests count above)
-    "unoccluded": 16,  # :637-643
-    "unoccluded_area": 5,  # :638, the power heuristic
-    "mirror_samples": 8,  # :653-661
-    "glass_reflect": 44,  # :662-686
-    "glass_refract": 74,  # :662-668, :669-675, :687-703
-    "rough_reflect": 371,  # :662-668, :704-735 with the eval
-    "rough_refract": 387,  # :662-668, :704-735 with the eval
-    "plastic_ggx": 61,  # :736-748 with ggx_half_vector :326-342
-    "lambert_samples": 59,  # :749-764 (plastic's diffuse half too)
-    "plastic_samples": 164,  # :765-780 with ggx_reflection
-    "bsdf_ok": 6,  # :781-785
-    "continues": 15,  # :787-797
-    "roulette": 9,  # :799-807
-    "paths": 3,  # :810-815
+    "nee_point": 18,  # the point light's direction and 1/d^2
+    "nee_distant": 1,
+    "nee_area_outside": 117,  # the sphere-cone sample and its pdf
+    "nee_area_inside": 66,  # the uniform-area sample and its conversion
+    "nee_lambert": 8,  # Lambert's f and pdf toward the light
+    "nee_rough": 257,  # rough glass's f and pdf, rough_glass_eval (247)
+    "nee_plastic": 147,  # plastic's two lobes, ggx_reflection (135)
+    "shadow_rays": 11,  # the shadow ray (its walk or sweep counts above)
+    "unoccluded": 16,  # the contribution it carries (path_shadow adds it)
+    "unoccluded_area": 5,  # the power heuristic of an area light's
+    "mirror_samples": 8,  # the BSDF sample: mirror
+    "glass_reflect": 44,  # FresnelSpecular, the reflection
+    "glass_refract": 74,  # FresnelSpecular, the refraction and etaScale
+    "rough_reflect": 371,  # rough glass: ggx_half_vector, reflect, the eval
+    "rough_refract": 387,  # rough glass: ggx_half_vector, refract, the eval
+    "plastic_ggx": 61,  # plastic's GGX half, with ggx_half_vector
+    "lambert_samples": 59,  # the cosine hemisphere (plastic's diffuse half too)
+    "plastic_samples": 164,  # plastic's two lobes toward the sample
+    "bsdf_ok": 6,  # the throughput update and its gate
+    "continues": 15,  # the spawn point and the path's next state
+    "roulette": 9,  # Russian roulette
+    "paths": 3,  # path_finish
 }
 
 
@@ -511,6 +515,13 @@ class _BruteScene:
     def occluded(self, o, d, t_max, active, counts):
         return first_hit(self.table, *o, *d, t_max, tally=counts, active=active) >= 0
 
+    @staticmethod
+    def triangle_normal(m, pr):
+        """A triangle winner's unnormalised geometric normal: e1 x e2."""
+        e1 = (pr[3] - pr[0], pr[4] - pr[1], pr[5] - pr[2])
+        e2 = (pr[6] - pr[0], pr[7] - pr[1], pr[8] - pr[2])
+        return _cross3(*e1, *e2)
+
     def winner(self, idx):
         """(ptype f32, w2o columns, params columns, shade columns, area-light
         id, scale2) of each lane's winner."""
@@ -541,7 +552,7 @@ class _BVHScene:
         lanes = torch.nonzero(alive).flatten()
         t[lanes], slot[lanes] = bvh_ops.walk(
             self.table, torch.stack(o, -1)[lanes], torch.stack(d, -1)[lanes], t[lanes],
-            tally=counts)
+            tally=counts, plane=True)
         return t, slot
 
     def occluded(self, o, d, t_max, active, counts):
@@ -549,10 +560,17 @@ class _BVHScene:
         lanes = torch.nonzero(active).flatten()
         occ[lanes] = bvh_ops.walk(self.table, torch.stack(o, -1)[lanes],
                                   torch.stack(d, -1)[lanes], t_max[lanes], any_hit=True,
-                                  tally=counts)[1] >= 0
+                                  tally=counts, plane=True)[1] >= 0
         return occ
 
+    @staticmethod
+    def triangle_normal(m, pr):
+        """A triangle winner's unnormalised geometric normal: N of the
+        record's planes, as the TPU kernel resolves _RC_N (no cross product)."""
+        return m[0], m[1], m[2]
+
     def winner(self, idx):
+        """As _BruteScene.winner; a triangle's w2o columns are its planes."""
         rec = self.rec[idx.long()]
         mat = torch.where(idx >= 0, rec[:, bvh_ops.REC_MAT].long(), -1)
         return (rec[:, bvh_ops.REC_TYPE], rec[:, bvh_ops.REC_W2O:bvh_ops.REC_W2O + 12].unbind(-1),
@@ -669,10 +687,9 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
         px, py, pz = scale2 * plx, scale2 * ply, scale2 * plz
         is_tri = ptype_f > 1.5
         if any_tri:
-            # world-space triangle: p = o + t d, n ~ e1 x e2, dpdu = e1
+            # world-space triangle: p = o + t d, n ~ N, dpdu = e1
             e1 = (pr[3] - pr[0], pr[4] - pr[1], pr[5] - pr[2])
-            e2 = (pr[6] - pr[0], pr[7] - pr[1], pr[8] - pr[2])
-            ntx, nty, ntz = _normalize3(*_cross3(*e1, *e2), 1e-30)
+            ntx, nty, ntz = _normalize3(*hits.triangle_normal(m, pr), 1e-30)
             px = torch.where(is_tri, ox + dx * t, px)
             py = torch.where(is_tri, oy + dy * t, py)
             pz = torch.where(is_tri, oz + dz * t, pz)

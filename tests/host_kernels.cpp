@@ -6,10 +6,11 @@
 // g++ -std=c++17 -O2 -shared -fPIC -I gopbrt_tpu_torch/csrc host_kernels.cpp
 //
 // The bounce entry points keep a few lanes in flight, take the paths in a
-// shuffled order, step the lanes round robin, and hand a lane its next path
-// as soon as its current one ends: the refill of the bounce skeleton's
-// persistent loop (csrc/bounce.cuh), in another order.  Each writes path
-// i's radiance at row i.
+// shuffled order, step the lanes round robin (path_step, the step of
+// run_paths), and hand a lane its next path as soon as its current one
+// ends: the refill of the bounce skeleton's persistent loop (csrc/bounce.cuh
+// run_paths), in another order.  Each writes path i's
+// radiance at row i.
 #include <algorithm>
 #include <numeric>
 #include <random>
@@ -52,22 +53,45 @@ gopbrt::Params params(int n, int n_prims, int n_lights, unsigned seed, float fun
                         cone_sp, max_depth, rr_start, rr_threshold, flags};
 }
 
-// The bounce skeleton over `scene`: init / bounce / finish per lane.
+// The bounce skeleton over `scene`: per lane init, then path_step, the
+// step of run_paths, until the path ends; finish.
 template <class S>
 void paths(const S& scene, const gopbrt::LightTables& LT, const gopbrt::Params& P,
            const float* o, const float* d, const int* pixel, const int* sample, float* L,
            int lanes, unsigned order_seed) {
   std::vector<gopbrt::PathState> st(lanes);
+  std::vector<gopbrt::Ray> ray(lanes);
   round_robin(
       P.n, lanes, order_seed,
       [&](int k, int i) {
-        gopbrt::path_init(st[k], P, o, d, pixel, sample, i);
+        gopbrt::path_init(st[k], ray[k], P, o, d, pixel, sample, i);
         if (P.max_depth > 0) return true;
         gopbrt::path_finish(st[k], L);
         return false;
       },
-      [&](int k) { return gopbrt::path_bounce(scene, LT, P, st[k]); },
+      [&](int k) { return gopbrt::path_step(scene, LT, P, st[k], ray[k]); },
       [&](int k) { gopbrt::path_finish(st[k], L); });
+}
+
+// One ray's walk, node by node: its steps, interior nodes and pops.
+template <bool PLANE>
+void walk_events(const gopbrt::BvhView& B, const float* o, const float* d, float t_max,
+                 bool any, int& steps, int& inner_nodes, int& pops) {
+  gopbrt::StackEntry stack[gopbrt::STACK_DEPTH];
+  gopbrt::Walk w;
+  steps = inner_nodes = pops = 0;
+  bool more = gopbrt::walk_start(B, w, o[0], o[1], o[2], d[0], d[1], d[2], t_max, any);
+  while (more) {
+    const int sp0 = w.sp;
+    const bool inner = w.cur >= 0;
+    steps += 1;
+    inner_nodes += inner;
+    more = inner ? gopbrt::interior_node(B, w, stack)
+                 : gopbrt::leaf_node<PLANE>(B, w, stack, any);
+    // a node pushes at most one entry and pops only when no child comes
+    // next
+    pops += std::max(0, sp0 - w.sp);
+  }
 }
 
 }  // namespace
@@ -80,37 +104,40 @@ extern "C" {
 // walk; and, from a second walk of each ray one node at a time
 // (interior_node / leaf_node, the pieces of walk_step), its nodes and
 // leaves, interior nodes and pops: the events the kernels' bound counts.
+// plane: triangles in the plane form (the mesh megakernel's walk), else
+// the vertex form (the walk kernels').
 void host_bvh_walk(const float* nodes, const float* recs, int flags, const float* o,
-                   const float* d, const float* t_max, int n, int any_hit, float* t_out,
-                   int* slot_out, int* steps_out, int* nodes_out, int* pops_out) {
+                   const float* d, const float* t_max, int n, int any_hit, int plane,
+                   float* t_out, int* slot_out, int* steps_out, int* nodes_out,
+                   int* pops_out) {
   const gopbrt::BvhView B{reinterpret_cast<const float4*>(nodes),
                           reinterpret_cast<const float4*>(recs), flags};
-  gopbrt::StackEntry stack[gopbrt::STACK_DEPTH];
   for (int i = 0; i < n; ++i) {
     const float* oi = o + 3 * i;
     const float* di = d + 3 * i;
-    t_out[i] = any_hit ? gopbrt::bvh_walk<true>(B, oi[0], oi[1], oi[2], di[0], di[1], di[2],
-                                                t_max[i], slot_out[i])
-                       : gopbrt::bvh_walk<false>(B, oi[0], oi[1], oi[2], di[0], di[1],
-                                                 di[2], t_max[i], slot_out[i]);
-    gopbrt::Walk w;
-    steps_out[i] = nodes_out[i] = pops_out[i] = 0;
-    bool more = any_hit ? gopbrt::walk_start<true>(B, w, oi[0], oi[1], oi[2], di[0], di[1],
-                                                   di[2], t_max[i])
-                        : gopbrt::walk_start<false>(B, w, oi[0], oi[1], oi[2], di[0], di[1],
-                                                    di[2], t_max[i]);
-    while (more) {
-      const int sp0 = w.sp;
-      const bool inner = w.cur >= 0;
-      steps_out[i] += 1;
-      nodes_out[i] += inner;
-      more = inner ? gopbrt::interior_node(B, w, stack)
-                   : (any_hit ? gopbrt::leaf_node<true>(B, w, stack)
-                              : gopbrt::leaf_node<false>(B, w, stack));
-      // a node pushes at most one entry and pops only when no child comes
-      // next
-      pops_out[i] += std::max(0, sp0 - w.sp);
+    if (plane) {
+      t_out[i] = gopbrt::bvh_walk<true>(B, oi[0], oi[1], oi[2], di[0], di[1], di[2], t_max[i],
+                                        any_hit, slot_out[i]);
+      walk_events<true>(B, oi, di, t_max[i], any_hit, steps_out[i], nodes_out[i], pops_out[i]);
+    } else {
+      t_out[i] = gopbrt::bvh_walk<false>(B, oi[0], oi[1], oi[2], di[0], di[1], di[2],
+                                         t_max[i], any_hit, slot_out[i]);
+      walk_events<false>(B, oi, di, t_max[i], any_hit, steps_out[i], nodes_out[i],
+                         pops_out[i]);
     }
+  }
+}
+
+// The plane-form triangle test of csrc/prim_test.cuh, one triangle's planes
+// (f32[n, 12]: N, d_n, U, d_u, V, d_v) per ray -> t (BIG on a miss).
+void host_plane_test(const float* planes, const float* o, const float* d,
+                     const float* t_limit, int n, float* t_out) {
+  for (int i = 0; i < n; ++i) {
+    const float* q = planes + 12 * i;
+    const float4 pn{q[0], q[1], q[2], q[3]}, pu{q[4], q[5], q[6], q[7]},
+        pv{q[8], q[9], q[10], q[11]};
+    t_out[i] = gopbrt::plane_test(pn, pu, pv, o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                                  d[3 * i], d[3 * i + 1], d[3 * i + 2], t_limit[i]);
   }
 }
 

@@ -3,7 +3,10 @@ across, and the plain walk (the plain version of csrc/bvh_intersect.cu).
 
 The builders must give the JAX package's tree array for array, from the
 same bounds (the native C++ builders are the same source built with the
-same flags).  The walk is held against the JAX lockstep walk
+same flags).  Each triangle's record holds the Havel-Herout planes of the
+JAX mesh megakernel's records (``build_mesh_tables``), and the plain
+plane-form test (the mesh megakernel's) gives ``_tri_test_h``'s answers.
+The walk is held against the JAX lockstep walk
 (``ops/bvh.bvh_intersect``) and the TPU cluster kernel in interpret mode
 (``pallas_cluster.cluster_intersect``) on the mesh scene at 16x16 (480
 triangles, a floor disk and a lamp sphere), at the bars of
@@ -25,6 +28,7 @@ from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
 from gopbrt_tpu.ops import bvh as jbvh
 from gopbrt_tpu.ops import geom as jgeom
 from gopbrt_tpu.ops import pallas_cluster as pc
+from gopbrt_tpu.ops import pallas_mesh_megakernel as jmm
 from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch import native as tnative
 from gopbrt_tpu_torch.models import meshes as tmeshes
@@ -365,3 +369,102 @@ def test_record_test_matches_the_brute_prim_test():
     assert tally["triangle_tests"] == int((kinds == TRIANGLE).sum())
     assert tally["sphere_tests"] + tally["disk_tests"] == int((kinds != TRIANGLE).sum())
     assert {int(k) for k in kinds} == {SPHERE, DISK, TRIANGLE}
+
+
+def test_triangle_records_hold_the_jax_planes(mesh):
+    """Each triangle's record columns 12-23 hold the N, d_n, U, d_u, V, d_v
+    columns of the JAX mesh megakernel's record of the same triangle
+    (pallas_mesh_megakernel.py build_mesh_tables, host numpy) within 1e-6
+    relative; spheres and disks keep their world->object rows."""
+    js, ts = mesh
+    mt = js.meshkernel
+    jrec = np.asarray(mt.tri)
+    slot_prim = np.asarray(mt.order)
+    nt = int((slot_prim[:jrec.shape[0]] >= 0).sum())
+    want = {int(p): jrec[k] for k, p in enumerate(slot_prim[:nt])}
+    rec = ts.bvh_tables.records.numpy()
+    order = ts.bvh.prim_order.numpy()
+    tri = np.nonzero(rec[:, tbvh.REC_TYPE] == TRIANGLE)[0]
+    assert tri.size == nt == 480
+    cols = [(0, jmm._RC_N, 3), (3, jmm._RC_DN, 1), (4, jmm._RC_U, 3), (7, jmm._RC_DU, 1),
+            (8, jmm._RC_V3, 3), (11, jmm._RC_DV, 1)]
+    got = rec[tri, tbvh.REC_W2O:tbvh.REC_W2O + 12]
+    ref = np.stack([want[int(order[k])] for k in tri])
+    for ours, theirs, k in cols:
+        want_cols = ref[:, theirs:theirs + k]
+        np.testing.assert_allclose(got[:, ours:ours + k], want_cols, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want_cols).max(), err_msg=str(theirs))
+    quad = np.nonzero(rec[:, tbvh.REC_TYPE] != TRIANGLE)[0]
+    w2o = ts.prims.world_to_obj[torch.as_tensor(order[quad]).long(), :3, :].reshape(-1, 12)
+    np.testing.assert_array_equal(rec[quad, tbvh.REC_W2O:tbvh.REC_W2O + 12], w2o.numpy())
+
+
+def _plane_cases(n, seed):
+    """Triangles and rays for the plane-form test: rays aimed at points
+    inside, on and just outside the edges, rays from behind and through the
+    origin's side of the plane, rays parallel to the plane, degenerate
+    (collinear) triangles, and t limits below the hit."""
+    r = np.random.default_rng(seed)
+    v = r.normal(0.0, 2.0, (n, 3, 3)).astype(np.float32)
+    kind = np.arange(n) % 8
+    v[kind == 7, 2] = v[kind == 7, 0] + 0.5 * (v[kind == 7, 1] - v[kind == 7, 0])  # collinear
+    b = r.uniform(-0.2, 1.0, (n, 2))
+    on_edge = kind == 2
+    b[on_edge, 1] = 1.0 - b[on_edge, 0]  # u + v = 1
+    b[kind == 3, 0] = 0.0  # u = 0
+    target = v[:, 0] + b[:, :1] * (v[:, 1] - v[:, 0]) + b[:, 1:] * (v[:, 2] - v[:, 0])
+    o = r.normal(0.0, 6.0, (n, 3)).astype(np.float32)
+    d = target - o
+    d[kind == 4] *= -1.0  # the triangle lies behind the origin
+    e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    nrm = np.cross(e1, e2)
+    par = kind == 5  # parallel to the triangle's plane
+    d[par] = np.cross(nrm[par], r.normal(size=(par.sum(), 3)))
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-30)
+    t_limit = np.where(kind == 6, r.uniform(0.0, 3.0, n), 1e30).astype(np.float32)
+    return v.reshape(n, 9), o.astype(np.float32), d.astype(np.float32), t_limit
+
+
+def test_plane_test_matches_jax_tri_test_h():
+    """The plain plane-form test on the port's planes against the TPU
+    kernel's _tri_test_h on JAX's, on seeded rays and triangles with
+    degenerate, edge, behind-origin, parallel and t-limited cases: the same
+    accept decision on >= 99.9% of lanes, t within 1e-5 |t| where both hit."""
+    n = 8192
+    verts, o, d, t_limit = _plane_cases(n, seed=11)
+    planes = tbvh.triangle_planes(verts)
+    got = tbvh.plane_test(torch.tensor(planes), torch.tensor(o), torch.tensor(d),
+                          torch.tensor(t_limit)).numpy()
+    q = [jnp.asarray(planes[:, k]) for k in range(12)]
+    want = np.asarray(jmm._tri_test_h(*q, *(jnp.asarray(o[:, k]) for k in range(3)),
+                                      *(jnp.asarray(d[:, k]) for k in range(3)),
+                                      jnp.asarray(t_limit)))
+    hit_g, hit_w = got < tbi.BIG, want < tbi.BIG
+    assert (hit_g == hit_w).mean() >= 0.999, f"{(hit_g != hit_w).sum()} decisions differ"
+    both = hit_g & hit_w
+    np.testing.assert_allclose(got[both], want[both], rtol=1e-5)
+    kind = np.arange(n) % 8
+    assert 0.2 < hit_w.mean() < 0.8
+    assert not hit_w[kind == 4].any() and not hit_w[kind == 7].any()
+    assert hit_w[kind == 2].any() and hit_w[kind == 3].any()
+
+
+def test_plane_walk_matches_jax_closest_hit(mesh):
+    """The mesh megakernel's walk (plane-form triangles) against JAX's
+    lockstep walk (the vertex form) at the bars of the closest hit above;
+    its tally counts plane tests in place of vertex-form ones."""
+    js, ts = mesh
+    o, d = _rays(2048, seed=6)
+    t_max = np.full((2048,), 1e30, np.float32)
+    want = jbvh.bvh_intersect(js.bvh, js.prims, jnp.asarray(o), jnp.asarray(d),
+                              jnp.asarray(t_max))
+    tally = {}
+    t, slot = tbvh.walk(ts.bvh_tables, torch.tensor(o), torch.tensor(d), torch.tensor(t_max),
+                        tally=tally, plane=True)
+    hit = slot >= 0
+    prim = torch.where(hit, ts.bvh.prim_order[slot.clamp(min=0)], 0)
+    _check_closest(want, (hit, torch.where(hit, t, torch.tensor(t_max)), prim))
+    assert "triangle_tests" not in tally and tally["plane_tests"] > 2048
+    _, slot_any = tbvh.walk(ts.bvh_tables, torch.tensor(o), torch.tensor(d),
+                            torch.tensor(t_max), any_hit=True, plane=True)
+    assert torch.equal(slot_any >= 0, hit)

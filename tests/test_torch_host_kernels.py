@@ -13,12 +13,17 @@ without a C++ compiler the tests skip.
   the parent) against the plain walk ``ops/bvh.walk`` on the 16x16 mesh
   scene: t and record row per lane of ``bvh_walk`` (the kernels' walk),
   and each lane's nodes, interior nodes and pops, walked node by node,
-  against the plain walk's tally (the events the kernels' bound counts).
-- path_init / path_bounce / path_finish of csrc/bounce.cuh against
-  ``path_li_plain`` per lane on the demo and the lobe scenes (brute
-  instance) and on the mesh (BVH instance) at 16x16, at the bars of
-  tests/test_megakernel.py; and bit for bit against themselves in another
-  interleaving, so the order of refills cannot change a lane's answer.
+  against the plain walk's tally (the events the kernels' bound counts);
+  with triangles in the vertex form (the walk kernels) and in the plane
+  form (the mesh megakernel).
+- plane_test of csrc/prim_test.cuh against the plain ``ops/bvh.plane_test``.
+- path_init / path_step / path_finish of csrc/bounce.cuh, driven as
+  run_paths drives them (path_step is run_paths' own step: a trace, then
+  the rest of the bounce or the shadow ray's contribution), against ``path_li_plain`` per lane on
+  the demo and the lobe scenes (brute instance) and on the mesh (BVH
+  instance) at 16x16, at the bars of tests/test_megakernel.py; and bit for
+  bit against themselves in another interleaving, so the order of refills
+  cannot change a lane's answer.
 """
 
 import ctypes
@@ -79,10 +84,12 @@ def lib():
     if shutil.which(os.environ.get("CXX", "g++")) is None:
         pytest.skip("no C++ compiler on this machine for the host harness")
     lib = ctypes.CDLL(_compile())
-    lib.host_bvh_walk.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
+    lib.host_bvh_walk.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+    lib.host_plane_test.argtypes = [_P, _P, _P, _P, _I, _P]
     lib.host_paths_brute.argtypes = [_P, _I] + _PATH_ARGS
     lib.host_paths_mesh.argtypes = [_P, _P, _P, _I] + _PATH_ARGS
-    for fn in (lib.host_bvh_walk, lib.host_paths_brute, lib.host_paths_mesh):
+    for fn in (lib.host_bvh_walk, lib.host_plane_test, lib.host_paths_brute,
+               lib.host_paths_mesh):
         fn.restype = None
     return lib
 
@@ -108,16 +115,17 @@ def mesh():
     return js, ts, (o, d, pix, smp)
 
 
-def _host_walk(lib, table, o, d, t_max, any_hit):
+def _host_walk(lib, table, o, d, t_max, any_hit, plane=False):
     """The harness walk -> (t, slot, nodes and leaves, interior nodes, pops)
-    per ray."""
+    per ray; plane: triangles in the plane form."""
     n = o.shape[0]
     nodes, recs = _np(table.nodes, np.float32), _np(table.records, np.float32)
     o_, d_, tm = _np(o, np.float32), _np(d, np.float32), _np(t_max, np.float32)
     t = np.empty(n, np.float32)
     slot, steps, inner, pops = (np.empty(n, np.int32) for _ in range(4))
     lib.host_bvh_walk(_ptr(nodes), _ptr(recs), table.flags, _ptr(o_), _ptr(d_), _ptr(tm), n,
-                      int(any_hit), _ptr(t), _ptr(slot), _ptr(steps), _ptr(inner), _ptr(pops))
+                      int(any_hit), int(plane), _ptr(t), _ptr(slot), _ptr(steps), _ptr(inner),
+                      _ptr(pops))
     return t, slot, steps, inner, pops
 
 
@@ -159,6 +167,55 @@ def test_walk_matches_the_plain_walk_per_lane(lib, mesh, any_hit):
         walked = t_max > tbvh.DEAD_T_MAX if any_hit else torch.ones_like(t_max, dtype=bool)
         assert int(walked.sum()) == tally["bvh_roots"]
         assert int(pops.sum()) > 0 and (k == 1 or (slot >= 0).mean() > 0.2)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plane_walk_matches_the_plain_walk_per_lane(lib, mesh, any_hit):
+    """The mesh megakernel's walk (triangles in the plane form) against the
+    plain walk with ``plane=True``: t and record per lane, and the same
+    steps, interior nodes, pops and roots; its triangle tests are plane
+    tests."""
+    _, ts, (o, d, _, _) = mesh
+    table = ts.bvh_tables
+    for ro, rd, t_max in _mesh_rays(ts, o, d):
+        tally, steps_p = {}, torch.zeros((ro.shape[0],), dtype=torch.int64)
+        t_p, slot_p = tbvh.walk(table, ro, rd, t_max, any_hit=any_hit, tally=tally,
+                                steps=steps_p, plane=True)
+        t, slot, steps, inner, pops = _host_walk(lib, table, ro, rd, t_max, any_hit, True)
+        if any_hit:
+            np.testing.assert_array_equal(slot >= 0, slot_p.numpy() >= 0)
+        else:
+            np.testing.assert_array_equal(slot, slot_p.numpy())
+            np.testing.assert_allclose(t, t_p.numpy(), rtol=1e-6)
+        np.testing.assert_array_equal(steps, steps_p.numpy())
+        assert int(inner.sum()) == tally["bvh_nodes"]
+        assert int(pops.sum()) == tally["bvh_pops"]
+        assert tally["plane_tests"] > 0 and "triangle_tests" not in tally
+
+
+def test_plane_test_matches_the_plain_plane_test(lib, mesh):
+    """plane_test of csrc/prim_test.cuh against ops/bvh.plane_test on each
+    triangle of the mesh against rays aimed at it and past its edges."""
+    _, ts, _ = mesh
+    rec = ts.bvh_tables.records
+    tri = torch.nonzero(rec[:, tbvh.REC_TYPE] == 2).flatten()
+    r = np.random.default_rng(4)
+    pick = tri[torch.tensor(r.integers(0, tri.numel(), 4096))]
+    v = rec[pick, 0:9].reshape(-1, 3, 3)
+    bary = torch.tensor(r.uniform(-0.1, 0.7, (4096, 2)).astype(np.float32))
+    target = v[:, 0] + bary[:, :1] * (v[:, 1] - v[:, 0]) + bary[:, 1:] * (v[:, 2] - v[:, 0])
+    o = torch.tensor(r.normal(0.0, 5.0, (4096, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(target - o, dim=-1)
+    t_limit = torch.full((4096,), 1e30)
+    planes = rec[pick, tbvh.REC_W2O:tbvh.REC_W2O + 12].contiguous()
+    want = tbvh.plane_test(planes, o, d, t_limit).numpy()
+    got = np.empty(4096, np.float32)
+    lib.host_plane_test(_ptr(_np(planes, np.float32)), _ptr(_np(o, np.float32)),
+                        _ptr(_np(d, np.float32)), _ptr(_np(t_limit, np.float32)), 4096,
+                        _ptr(got))
+    np.testing.assert_array_equal(got < tbvh.BIG, want < tbvh.BIG)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert 0.3 < (want < tbvh.BIG).mean() < 0.9
 
 
 # ---------------------------------------------------------------------------

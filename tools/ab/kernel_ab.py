@@ -7,7 +7,7 @@ Prepare the trees in a git checkout, then run them on a machine with the
 card:
 
     python3 tools/ab/kernel_ab.py prepare PARENT_REV [VARIANT ...]
-    python3 tools/ab/kernel_ab.py run [--out DIR] parent change one_node_step change parent
+    python3 tools/ab/kernel_ab.py run [--out DIR] parent change wavefront_sort change parent
     python3 tools/ab/kernel_ab.py launches [--out DIR] parent change change parent
 
 ``prepare`` writes ``build/ab/<tree>/``, each a whole tree of the repo:
@@ -16,8 +16,7 @@ card:
 - ``change``: the working tree as ``git add -A`` would stage it (through a
   scratch index; the checkout's own index is left alone);
 - each VARIANT: ``change`` with the patches ``tools/ab/<name>.patch``
-  applied in turn, one for each ``+``-separated name
-  (``persistent_walk+one_node_step``).
+  applied in turn, one for each ``+``-separated name (``a+b``).
 
 ``run`` runs ``python3 chip_smoke.py`` in each named tree in the order
 given (a tree may come back), one at a time, each building its kernels in
@@ -94,8 +93,9 @@ def prepare(parent: str, variants: list[str]) -> None:
 
 def _figures(log: str) -> dict:
     """What one chip_smoke.py run printed: the kernels line's figures by
-    kernel, the main paths' ms per pass, and the ptxas lines."""
-    out: dict = {"kernels": {}, "passes_ms": {}, "ptxas": {}}
+    kernel, the main paths' ms per pass, the ptxas lines and the SASS local
+    loads and stores (trees that print them)."""
+    out: dict = {"kernels": {}, "passes_ms": {}, "ptxas": {}, "sass": {}}
     for line in log.splitlines():
         if line.startswith('{"kernels"'):
             for k in json.loads(line)["kernels"]:
@@ -106,6 +106,9 @@ def _figures(log: str) -> dict:
                      r"([\d.]+) ms per pass", line)
         if m and "profiled" not in line:
             out["passes_ms"][m.group(1)] = float(m.group(2))
+        m = re.match(r"\[sass\] (\w+): (.*)", line)
+        if m:
+            out["sass"][m.group(1)] = m.group(2)
         m = re.match(r"\[build\] (\w+): nvcc [\d.]+ s; (.*)", line)
         if m:
             out["ptxas"][m.group(1)] = re.findall(
