@@ -18,8 +18,10 @@ non-zero and never prints the last line:
      matte, mirror, smooth and rough glass, sphere lamp) at 256x256, depth 8;
    - the closest-hit and any-hit kernels (csrc/intersect.cu) on every
      launch of ``li_direct`` over one band of BASELINE config 1 at 1080p
-     (camera rays, shadow rays, the bounces' rays), and on a 300-prim table
-     of every shape kind (more prims than one shared-memory chunk);
+     (camera rays, shadow rays, the bounces' rays; the instance that ran,
+     the dead lanes, answered without a test, and how many of them differ
+     from the plain answer, which must be none), and on a 300-prim table
+     of every shape kind (the general instance);
    - the general wavefront chain (``_li_wavefront`` on the intersection
      kernels) against the megakernel on the demo band, depth 10, and
      ``li_direct`` on the kernels against ``li_direct`` on the plain
@@ -32,6 +34,11 @@ non-zero and never prints the last line:
      general chain on the BVH); the mesh megakernel
      (csrc/mesh_megakernel.cu) against ``path_li_plain(accel="bvh")`` and
      against ``_li_wavefront`` on the kernels, on one band at depth 5;
+   - scenes made with ``_replace`` (the reference's gradient idiom), each
+     against its plain version at the kernel's bar and changed from the
+     base scene's result: the megakernel on the demo band with kd and the
+     lights' intensity changed, ``li_direct`` on the brute kernels with the
+     spheres moved, the mesh megakernel with the lights' intensity changed;
 4. main paths, each through ``render_pass`` with the launch counts set to 0
    just before it and read just after; one warm-up pass, then 5 timed passes
    and one more under ``torch.profiler`` (host ms of each ``render.*`` range,
@@ -49,7 +56,11 @@ non-zero and never prints the last line:
      BVH walk launches only;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
-   profiled passes.
+   profiled passes.  The brute kernels are timed on every launch of the
+   config-1 band, beside the device ms of that launch in the profiled
+   pass and its bound by two methods: the work the function needs (the
+   tests of the lanes that are not dead, the bytes every lane moves) and
+   every lane testing every prim.
 
 Beside the kernel times, ``[lane-slots]`` lines give the lane-slot
 efficiency of a launch of one thread per item on the redesigned kernels'
@@ -83,8 +94,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # bytes per path: o, d, pixel, sample in (32), radiance out (12)
 BYTES_PER_PATH = 44
 # bytes per ray of the intersection kernels: o, d, t_max in (28); out hit,
-# t, prim (9) or occluded (1); bytes per table row: type, w2o, params (88)
-BYTES_PER_RAY_CLOSEST, BYTES_PER_RAY_ANY, BYTES_PER_PRIM = 37, 29, 88
+# t, prim (9) or occluded (1); bytes per table row: the kernels' 24-word
+# row (brute_intersect.REC_K)
+BYTES_PER_RAY_CLOSEST, BYTES_PER_RAY_ANY, BYTES_PER_PRIM = 37, 29, 96
 
 W, H, DEPTH = 1920, 1080, 10
 MESH_DEPTH = 5
@@ -92,6 +104,8 @@ N_PASSES = 5
 # __global__ functions of csrc/*.cu, as the profiler names their launches
 OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel",
                "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel")
+# the compile-time instances of csrc/intersect.cu (brute_intersect.INSTANCE_*)
+INSTANCES = ("full spheres and disks", "general")
 # the kernels' wrappers by intersector: closest hit, any hit
 FUSED = {"brute": ("intersect_brute_fused", "intersect_p_brute_fused"),
          "bvh": ("bvh_intersect_fused", "bvh_intersect_p_fused")}
@@ -99,6 +113,27 @@ FUSED = {"brute": ("intersect_brute_fused", "intersect_p_brute_fused"),
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def kernel_name(symbol: str):
+    """The OWN_KERNELS name in a (mangled) symbol, with its compile-time
+    instance where it is a template of csrc/intersect.cu
+    (``closest_hit_kernel<0>``), or None."""
+    k = next((k for k in OWN_KERNELS if k in symbol), None)
+    m = k and re.search(k + r"ILi(\d+)E", symbol)
+    return f"{k}<{m.group(1)}>" if m else k
+
+
+def ptxas_lines(log: str) -> list:
+    """ptxas's registers and spills (-v) of each entry function, named."""
+    out, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif "registers" in ln or "spill" in ln:
+            out.append((f"{fn}: " if fn else "") + ln.strip())
+    return out
 
 
 def sass_local_ops(lib: str, nvcc: str) -> dict:
@@ -112,7 +147,7 @@ def sass_local_ops(lib: str, nvcc: str) -> dict:
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            fn = next((k for k in OWN_KERNELS if k in m.group(1)), None)
+            fn = kernel_name(m.group(1))
             if fn:
                 counts[fn] = [0, 0]
         elif fn and re.search(r"\bLDL\b", line):
@@ -287,12 +322,21 @@ def bvh_prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both) -> dic
             "untied": untied}
 
 
+def dead_lanes(table, d, t_max) -> torch.Tensor:
+    """The lanes csrc/intersect.cu answers without a test: t_max <= 1e-4,
+    and |d|^2 within the table's dead_d2 (inf without spheres)."""
+    from gopbrt_tpu_torch.ops import brute_intersect as bi
+
+    return (t_max <= bi.DEAD_T_MAX) & ((d * d).sum(dim=-1) <= table.dead_d2)
+
+
 def check_intersect_call(kind, table, o, d, t_max):
     """Kernel vs plain on one launch's inputs -> (agreeing fraction, max abs
     t error over lanes both hit or the any-hit's max abs error, prim-id
-    mismatches of the closest hit or None).  kind: "intersect" /
-    "intersect_any" (the brute kernels) or "bvh_intersect" /
-    "bvh_intersect_any" (the BVH walk)."""
+    mismatches of the closest hit or None, (dead lanes, dead lanes whose
+    answer is not the plain version's bit for bit) of the brute kernels or
+    None).  kind: "intersect" / "intersect_any" (the brute kernels) or
+    "bvh_intersect" / "bvh_intersect_any" (the BVH walk)."""
     from gopbrt_tpu_torch.ops import brute_intersect as bi
     from gopbrt_tpu_torch.ops import bvh
 
@@ -303,11 +347,13 @@ def check_intersect_call(kind, table, o, d, t_max):
         both = hit_k & hit_p
         err = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
         ids = bvh_prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both)
-        return float(same.float().mean()), err, ids
+        return float(same.float().mean()), err, ids, None
     if kind == "bvh_intersect_any":
         occ_k = bvh.bvh_intersect_p_fused(table, o, d, t_max)
         occ_p = bvh.bvh_intersect_p(table, o, d, t_max)
-        return float((occ_k == occ_p).float().mean()), float((occ_k != occ_p).any()), None
+        return (float((occ_k == occ_p).float().mean()), float((occ_k != occ_p).any()), None,
+                None)
+    dead = dead_lanes(table, d, t_max)
     if kind == "intersect":
         hit_k, t_k, idx_k = bi.intersect_brute_fused(table, o, d, t_max)
         hit_p, t_p, idx_p = bi.intersect_brute(table, o, d, t_max)
@@ -315,28 +361,35 @@ def check_intersect_call(kind, table, o, d, t_max):
         both = hit_k & hit_p
         err = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
         ids = prim_mismatches(table, o, d, t_max, t_k, idx_k, t_p, idx_p, both)
-        return float(same.float().mean()), err, ids
+        off = (hit_k != hit_p) | (t_k != t_p) | (idx_k != idx_p)
+        return float(same.float().mean()), err, ids, (int(dead.sum()), int((off & dead).sum()))
     occ_k = bi.intersect_p_brute_fused(table, o, d, t_max)
     occ_p = bi.intersect_p_brute(table, o, d, t_max)
-    return float((occ_k == occ_p).float().mean()), float((occ_k != occ_p).any()), None
+    off = occ_k != occ_p
+    return (float((~off).float().mean()), float(off.any()), None,
+            (int(dead.sum()), int((off & dead).sum())))
 
 
-def check_agreement(what: str, agree: float, ids) -> None:
-    """The kernels' bars: > 0.999 of lanes agree, and no closest-hit lane
-    clear of ties names another prim."""
+def check_agreement(what: str, agree: float, ids, dead=None) -> None:
+    """The kernels' bars: > 0.999 of lanes agree, no closest-hit lane clear
+    of ties names another prim, and every dead lane (the brute kernels'
+    lanes answered without a test) has the plain answer bit for bit."""
     if agree <= 0.999:
         raise AssertionError(f"{what}: kernel disagrees with its plain version ({agree})")
     if ids is not None and ids["untied"]:
         raise AssertionError(f"{what}: the kernel names other prims {ids}")
+    if dead is not None and dead[1]:
+        raise AssertionError(f"{what}: {dead[1]} of {dead[0]} dead lanes disagree")
 
 
-def intersect_flops(kind, table, o, d, t_max, steps=None):
+def intersect_flops(kind, table, o, d, t_max, steps=None, active=None):
     """(fp32 operations the kernel's threads need on these rays, the events
     counted): every primitive test of the closest-hit sweep, or the
-    any-hit's tests up to each ray's first occluder; for the BVH walk, the
-    events of csrc/bvh.cuh as the plain walk counts them (root tests,
-    interior nodes, pops, leaf tests), each lane's steps added to
-    ``steps``; at ``megakernel.OPS_PER_EVENT`` each."""
+    any-hit's tests up to each ray's first occluder, of the lanes of
+    ``active`` (all where None); for the BVH walk, the events of
+    csrc/bvh.cuh as the plain walk counts them (root tests, interior nodes,
+    pops, leaf tests), each lane's steps added to ``steps``; at
+    ``megakernel.OPS_PER_EVENT`` each."""
     from gopbrt_tpu_torch.ops import brute_intersect as bi
     from gopbrt_tpu_torch.ops import bvh, megakernel
 
@@ -346,10 +399,33 @@ def intersect_flops(kind, table, o, d, t_max, steps=None):
                  steps=steps)
         return megakernel.fp32_ops(tally), tally
     args = (table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max)
-    every = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    if active is None:
+        active = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     sweep = bi.closest_hit if kind == "intersect" else bi.first_hit
-    sweep(*args, tally=tally, active=every)
+    sweep(*args, tally=tally, active=active)
     return megakernel.fp32_ops(tally), tally
+
+
+def brute_bounds(kind, table, o, d, t_max):
+    """The bound of one brute launch by two methods, each (ms, "operations"
+    or "bytes", fp32 ops): every lane tests every prim and moves a whole
+    ray (the first port's count); and what the function needs, the tests
+    of the lanes that are not dead (``dead_lanes``: their answer needs no
+    test), a live lane moving o, d, t_max and its answer, a dead lane
+    t_max, d where the table holds spheres, and its answer."""
+    n = o.shape[0]
+    per_ray, out = ((BYTES_PER_RAY_CLOSEST, 9) if kind == "intersect"
+                    else (BYTES_PER_RAY_ANY, 1))
+    table_bytes = table.count * BYTES_PER_PRIM
+    flops, _ = intersect_flops(kind, table, o, d, t_max)
+    old = bound(flops, n * per_ray + table_bytes) + (flops,)
+    dead = dead_lanes(table, d, t_max)
+    n_dead = int(dead.sum())
+    live_flops, _ = intersect_flops(kind, table, o, d, t_max, active=~dead)
+    dead_bytes = 4 + out + (12 if math.isfinite(float(table.dead_d2)) else 0)
+    new = bound(live_flops, (n - n_dead) * per_ray + n_dead * dead_bytes
+                + table_bytes) + (live_flops,)
+    return old, new
 
 
 def lobe_scene(device):
@@ -466,7 +542,8 @@ def timed_passes(render, film_mod, scene, camera, settings, dev):
 def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
     """One more pass under the profiler, read by render_pass's stage ranges
     (host time) and the device's busy time -> (the line to print, device
-    ms of the pass in each of the port's kernels, by OWN_KERNELS name)."""
+    ms of the pass in each of the port's kernels, by OWN_KERNELS name, and
+    the device ms of each of their launches in start order)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev)
@@ -480,16 +557,17 @@ def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
     work = [e for e in prof.events()
             if e.device_type == cuda and not e.name.startswith("render.")]
     device_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
-    own = {k: sum(e.time_range.elapsed_us() for e in work if k in e.name) / 1e3
+    seq = {k: [e.time_range.elapsed_us() / 1e3
+               for e in sorted(work, key=lambda e: e.time_range.start) if k in e.name]
            for k in OWN_KERNELS}
-    own = {k: v for k, v in own.items() if v > 0}
+    own = {k: sum(v) for k, v in seq.items() if v}
     busy = (f"device busy {device_ms:.3f} ms in {len(work)} kernels and copies, "
             f"{sum(own.values()):.3f} ms of it in the port's CUDA kernels "
             f"({', '.join(f'{k} {v:.4f}' for k, v in own.items())} ms per pass); idle "
             f"{1.0 - device_ms / pass_ms:.4f} of a timed pass"
             if device_ms > 0 else "device time not measured")
     return ("one profiled pass, host ms by range: "
-            + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f"; {busy}"), own
+            + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f"; {busy}"), own, seq
 
 
 def shadow_rays(scene, o, d, t, hit):
@@ -570,7 +648,7 @@ def mesh_checks(dev, band_rows: int) -> dict:
           + ", ".join(f"{k} {t:.4f}" for k, t in zip((c[0] for c in calls), walk_ms)))
     worst = {"bvh_intersect": (1.0, 0.0), "bvh_intersect_any": (1.0, 0.0)}
     for i, call in enumerate(calls):
-        agree, err, ids = check_intersect_call(*call)
+        agree, err, ids, _ = check_intersect_call(*call)
         live = float((call[4] > 2e-4).float().mean())
         phase("kernel-vs-plain", f"{call[0]} launch {i} of a metal-mesh band ({n} rays, "
               f"{live:.4f} live): {agree:.6f} agree, max abs err {err:.3e}"
@@ -600,6 +678,21 @@ def mesh_checks(dev, band_rows: int) -> dict:
           f"max abs err {mesh_err:.3e}, mean L {float(ref.mean()):.6f}")
     if not (frac >= 0.9999 and mean_rel < 2e-3):
         raise AssertionError("mesh band: the mesh megakernel disagrees with its plain version")
+    # a light edit by _replace: the light rows packed from the new scene
+    rmesh = scene._replace(lights=scene.lights._replace(intensity=scene.lights.intensity * 2.0))
+    _build.LAUNCHES.clear()
+    r_out = mesh_megakernel.mesh_li_fused(rmesh, o, d, pix, smp, settings.seed, cfg, cone=cone)
+    r_launches = dict(_build.LAUNCHES)
+    r_ref = megakernel.path_li_plain(rmesh, o, d, pix, smp, settings.seed, cfg, cone=cone,
+                                     accel="bvh")
+    rfrac, rmean, rmax = agreement(r_out, r_ref)
+    phase("replace", f"mesh megakernel on the mesh band of base._replace(light intensity "
+          f"x 2), launches {r_launches}: {rfrac:.5f} of lanes within 1e-3 of its plain twin, "
+          f"mean diff {rmean:.2e}, max abs err {rmax:.3e}; mean L {float(r_out.mean()):.6f} "
+          f"against the base's {float(mesh_out.mean()):.6f}")
+    if not (rfrac >= 0.9999 and rmean < 2e-3 and r_launches == {"mesh_megakernel": 1}
+            and not torch.equal(r_out, mesh_out)):
+        raise AssertionError("the mesh megakernel on a replaced scene: not its own lights")
     wave = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
     wfrac, wmean, wmax = agreement(wave, mesh_out)
     phase("chain-vs-chain", f"_li_wavefront on the BVH kernels vs the mesh megakernel, mesh "
@@ -668,7 +761,7 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
         "ms_per_pass": dt, "device": device_name, "power_limit": power_limit,
     }), flush=True)
     k_ms = m["timing"]["mesh_megakernel"][0]
-    line, own_m = profiled_pass(render, scene, cam, film, settings, dev, dt)
+    line, own_m, _ = profiled_pass(render, scene, cam, film, settings, dev, dt)
     phase("main-path", "mesh: " + line
           + f"; the kernel is ~{4 * k_ms:.2f} ms (4 launches at the second band's time)")
 
@@ -683,7 +776,7 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
     phase("main-path", f"metal mesh, the general chain on the BVH: {N_PASSES} passes of "
           f"{W}x{H} 1 spp path depth {MESH_DEPTH}: {dtc:.2f} ms per pass, launches per pass "
           f"{per_pass}, image mean {float(img_c.mean()):.4f}")
-    line, own_c = profiled_pass(render, metal, cam, film_c, settings, dev, dtc)
+    line, own_c, _ = profiled_pass(render, metal, cam, film_c, settings, dev, dtc)
     phase("main-path", "metal mesh: " + line)
     return launches, launches_c, {**own_m, **own_c}
 
@@ -723,9 +816,8 @@ def main() -> int:
         _build.load(name)
     build_s = time.perf_counter() - t0
     for name, rec in info.items():
-        ptxas = [ln.strip() for ln in rec["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        phase("build", f"{name}: nvcc {rec['seconds']:.1f} s; " + " | ".join(ptxas))
+        phase("build", f"{name}: nvcc {rec['seconds']:.1f} s; "
+              + " | ".join(ptxas_lines(rec["log"])))
         local = sass_local_ops(rec["path"], _build._nvcc())
         phase("sass", f"{name}: " + ", ".join(f"{k} {v[0]} LDL / {v[1]} STL"
                                                 for k, v in local.items()))
@@ -793,20 +885,22 @@ def main() -> int:
         raise AssertionError(f"li_direct made the launches {kinds}")
     worst = {"intersect": (1.0, 0.0), "intersect_any": (1.0, 0.0)}
     for i, call in enumerate(calls):
-        agree, err, ids = check_intersect_call(*call)
+        agree, err, ids, dead = check_intersect_call(*call)
         live = float((call[4] > 2e-4).float().mean())
         phase("kernel-vs-plain", f"{call[0]} launch {i} of a config-1 band ({n_band} rays, "
-              f"{live:.4f} live): {agree:.6f} agree, max abs err {err:.3e}"
-              + ("" if ids is None else f", prim ids {ids}"))
-        check_agreement(f"{call[0]} launch {i}", agree, ids)
+              f"{live:.4f} live; instance {INSTANCES[call[1].instance]}; {dead[0]} dead "
+              f"lanes, {dead[1]} of them off the plain answer): {agree:.6f} agree, max abs "
+              f"err {err:.3e}" + ("" if ids is None else f", prim ids {ids}"))
+        check_agreement(f"{call[0]} launch {i}", agree, ids, dead)
         worst[call[0]] = (min(worst[call[0]][0], agree), max(worst[call[0]][1], err))
     big = big_table(dev)
     for kind in ("intersect", "intersect_any"):
-        agree, err, ids = check_intersect_call(kind, *big)
+        agree, err, ids, dead = check_intersect_call(kind, *big)
         phase("kernel-vs-plain", f"{kind}, {big[0].count}-prim table of every shape kind, "
-              f"{big[1].shape[0]} rays: {agree:.6f} agree, max abs err {err:.3e}"
+              f"{big[1].shape[0]} rays (instance {INSTANCES[big[0].instance]}; {dead[0]} "
+              f"dead lanes, {dead[1]} off): {agree:.6f} agree, max abs err {err:.3e}"
               + ("" if ids is None else f", prim ids {ids}"))
-        check_agreement(f"{kind} on the big table", agree, ids)
+        check_agreement(f"{kind} on the big table", agree, ids, dead)
 
     # two chains of the port: li_direct on the kernels vs on the plain
     # intersection; the general wavefront chain vs the megakernel
@@ -829,6 +923,62 @@ def main() -> int:
     if not (wfrac > 0.98 and wmean < 1e-2):
         raise AssertionError("the general chain disagrees with the megakernel")
 
+    # scenes made with _replace (the reference's gradient idiom) render
+    # their own tables: the megakernel with other materials and lights,
+    # li_direct on the brute kernels with a prim moved
+    rscene = scene._replace(
+        materials=scene.materials._replace(kd=scene.materials.kd * 0.5),
+        lights=scene.lights._replace(intensity=scene.lights.intensity * 3.0))
+    _build.LAUNCHES.clear()
+    r_k = megakernel.path_li_fused(rscene, o, d, pixel, sample, settings.seed, cfg, cone=cone)
+    r_launches = dict(_build.LAUNCHES)
+    r_p = megakernel.path_li_plain(rscene, o, d, pixel, sample, settings.seed, cfg, cone=cone)
+    rfrac, rmean, rmax = agreement(r_k, r_p)
+    phase("replace", f"megakernel on the demo band of base._replace(kd x 0.5, light "
+          f"intensity x 3), launches {r_launches}: {rfrac:.5f} of lanes within 1e-3 of its "
+          f"plain twin, mean diff {rmean:.2e}, max abs err {rmax:.3e}; mean L "
+          f"{float(r_k.mean()):.6f} against the base's {float(mega.mean()):.6f}")
+    if not (rfrac > 0.99 and rmean < 2e-3 and r_launches == {"megakernel": 1}
+            and not torch.equal(r_k, mega)):
+        raise AssertionError("the megakernel on a replaced scene: not its own tables")
+    move = torch.tensor([0.0, 3.0, 0.0], device=dev)
+    sph = scene1.prims.prim_type == 0
+    o2w, w2o = scene1.prims.obj_to_world.clone(), scene1.prims.world_to_obj.clone()
+    o2w[sph, :3, 3] += move
+    w2o[sph, :3, 3] -= move  # translated spheres: w2o = translate(-centre)
+    mscene = scene1._replace(prims=scene1.prims._replace(obj_to_world=o2w, world_to_obj=w2o))
+    mcalls = []
+    _build.LAUNCHES.clear()
+    with recording(mcalls):
+        m_k = integrators.li_direct(mscene, o1, d1, pix1, smp1, set1.seed,
+                                    max_depth=set1.max_depth, cone=cone1,
+                                    light_strategy=set1.light_strategy)
+    m_launches = dict(_build.LAUNCHES)
+    if mcalls[0][1] is scene1.brute:
+        raise AssertionError("li_direct on a replaced scene read the base scene's table")
+    # each launch at the kernels' own bars, on the table packed on the card
+    m_agree, m_dead = [], [0, 0]
+    for i, call in enumerate(mcalls):
+        agree, _, ids, dead = check_intersect_call(*call)
+        check_agreement(f"replaced scene {call[0]} launch {i}", agree, ids, dead)
+        m_agree.append(agree)
+        m_dead = [m_dead[0] + dead[0], m_dead[1] + dead[1]]
+    with plain_intersection():
+        m_p = integrators.li_direct(mscene, o1, d1, pix1, smp1, set1.seed,
+                                    max_depth=set1.max_depth, cone=cone1,
+                                    light_strategy=set1.light_strategy)
+    mfrac, mmean, mmax = agreement(m_k, m_p)
+    phase("replace", f"li_direct on the brute kernels, config-1 band with its spheres moved "
+          f"3 up by _replace, launches {m_launches}: kernels vs plain on each launch, min "
+          f"agreement {min(m_agree):.6f}, {m_dead[0]} dead lanes, {m_dead[1]} of them off; "
+          f"{mfrac:.5f} of lanes within 1e-3 of li_direct on the plain intersection, mean "
+          f"diff {mmean:.2e}; "
+          f"{float(((m_k - direct_k).abs().amax(dim=-1) > 0).float().mean()):.4f} of the "
+          f"lanes changed from the base scene's")
+    if not (mfrac > 0.99 and m_launches == {"intersect": 4, "intersect_any": 3}
+            and not torch.equal(m_k, direct_k)):
+        raise AssertionError("li_direct on a replaced scene: not its own prims")
+
     # the mesh scene: kernels #4 and #5, their checks, times and bounds
     mesh = mesh_checks(dev, band_rows)
 
@@ -846,22 +996,24 @@ def main() -> int:
           f"bound {mega_bound[0]:.5f} ms by {mega_bound[1]} ({flops / 1e9:.3f} GFLOP); "
           f"{mega_bound[0] / kernel_ms:.4f} of the bound")
     lane_slots("demo band, bounces per path", bounces)
-    timing = {}
-    for kind, fused, plain, per_ray in (
-            ("intersect", bi.intersect_brute_fused, bi.intersect_brute,
-             BYTES_PER_RAY_CLOSEST),
-            ("intersect_any", bi.intersect_p_brute_fused, bi.intersect_p_brute,
-             BYTES_PER_RAY_ANY)):
-        # the first launch of each: the camera rays, the first shadow rays
-        args = next(c[1:] for c in calls if c[0] == kind)
-        k_ms = cuda_ms(lambda: fused(*args), reps=21)
-        p_ms = cuda_ms(lambda: plain(*args), reps=5)
-        k_flops, _ = intersect_flops(kind, *args)
-        b_ms, b_by = bound(k_flops, n_band * per_ray + args[0].count * BYTES_PER_PRIM)
-        timing[kind] = (k_ms, p_ms, b_ms, b_by)
-        phase("kernel-time", f"{kind} {k_ms:.4f} ms, plain {p_ms:.3f} ms per launch of "
-              f"{n_band} rays; bound {b_ms:.5f} ms by {b_by} ({k_flops / 1e9:.4f} GFLOP); "
-              f"{b_ms / k_ms:.4f} of the bound")
+    # every launch of the config-1 band: single launches between events,
+    # and the bound of each by both methods: every lane tests every prim
+    # (the old), and the work the function needs, the live lanes' tests
+    # and the bytes each lane moves (the new)
+    fused = {"intersect": bi.intersect_brute_fused, "intersect_any": bi.intersect_p_brute_fused}
+    plain = {"intersect": bi.intersect_brute, "intersect_any": bi.intersect_p_brute}
+    timing, band_launches = {}, []
+    for i, (kind, *args) in enumerate(calls):
+        k_ms = cuda_ms(lambda: fused[kind](*args), reps=21)
+        b_old, b_new = brute_bounds(kind, *args)
+        band_launches.append((kind, k_ms, b_old, b_new))
+        phase("kernel-time", f"config-1 band launch {i}, {kind}: {k_ms:.4f} ms a single "
+              f"launch of {n_band} rays; bound {b_new[0]:.5f} ms by {b_new[1]} (live lanes' "
+              f"tests, {b_new[2] / 1e9:.4f} GFLOP), every lane {b_old[0]:.5f} ms by "
+              f"{b_old[1]} ({b_old[2] / 1e9:.4f} GFLOP)")
+        if kind not in timing:  # the first launch of each: camera, first shadow rays
+            p_ms = cuda_ms(lambda: plain[kind](*args), reps=5)
+            timing[kind] = (k_ms, p_ms, b_new[0], b_new[1])
 
     # ---- 4. main paths --------------------------------------------------
     # the demo, path depth 10: the megakernel only
@@ -876,7 +1028,7 @@ def main() -> int:
         "metric": "camera_rays_per_s_1080p_path_depth10", "value": W * H / (dt / 1e3),
         "unit": "rays/s", "device": device_name, "power_limit": power_limit,
     }), flush=True)
-    prof_line, own_d = profiled_pass(render, scene, camera, film, settings, dev, dt)
+    prof_line, own_d, _ = profiled_pass(render, scene, camera, film, settings, dev, dt)
     phase("main-path", "demo: " + prof_line
           + f"; the kernel is {4 * kernel_ms:.2f} ms (4 launches x {kernel_ms:.3f} ms)")
 
@@ -916,10 +1068,26 @@ def main() -> int:
     img1 = film_mod.develop(film1)
     if not (bool(torch.isfinite(img1).all()) and float(img1.mean()) > 0.01):
         raise AssertionError("config 1: bad image")
-    k1 = timing["intersect"][0] * 16 + timing["intersect_any"][0] * 12
-    prof_line, own_1 = profiled_pass(render, scene1, camera1, film1, set1, dev, dt1)
+    k1 = 4 * sum(b[1] for b in band_launches)
+    prof_line, own_1, seq_1 = profiled_pass(render, scene1, camera1, film1, set1, dev, dt1)
     phase("main-path", "config 1: " + prof_line
-          + f"; the kernels are ~{k1:.2f} ms (16 + 12 launches at the first launches' times)")
+          + f"; the kernels are ~{k1:.2f} ms (4 bands of the recorded band's single launches)")
+    # the profiled pass's device ms of each launch of a band (the mean of
+    # the 4 bands), beside that launch's single time and bounds
+    for kind, fn in (("intersect", "closest_hit_kernel"), ("intersect_any", "any_hit_kernel")):
+        mine = [b for b in band_launches if b[0] == kind]
+        per = len(mine)
+        if len(seq_1.get(fn, [])) != 4 * per:
+            raise AssertionError(f"config-1 profiled pass: {len(seq_1.get(fn, []))} {fn} "
+                                 f"launches, expected {4 * per}")
+        prof = [statistics.mean(seq_1[fn][k::per]) for k in range(per)]
+        phase("kernel-time", f"config-1 profiled pass, {kind} launch k of each band: device "
+              "ms (mean of 4 bands) / single launch / bound / bound every lane: "
+              + "; ".join(f"{k} {p:.4f} / {b[1]:.4f} / {b[3][0]:.5f} / {b[2][0]:.5f}"
+                          for k, (p, b) in enumerate(zip(prof, mine)))
+              + f"; 4 x the recorded band's bounds (the other bands' rays differ) "
+              f"{4 * sum(b[3][0] for b in mine):.5f} ms, every lane "
+              f"{4 * sum(b[2][0] for b in mine):.5f} ms")
 
     # outside the fast path: the general chain, path depth 5
     fscene, fcam = feature_scene(dev)
@@ -940,8 +1108,8 @@ def main() -> int:
                        cone=render._cone(fcam, fset))
     fagree = []
     for i, call in enumerate(fcalls):
-        agree, _, ids = check_intersect_call(*call)
-        check_agreement(f"feature scene {call[0]} launch {i}", agree, ids)
+        agree, _, ids, dead = check_intersect_call(*call)
+        check_agreement(f"feature scene {call[0]} launch {i}", agree, ids, dead)
         fagree.append(agree)
     phase("main-path", f"feature scene (plastic, metal, Oren-Nayar, triangle, disk lamp, "
           f"uv checker, power lights): {N_PASSES} passes of {W}x{H} 1 spp path depth 5: "

@@ -46,9 +46,10 @@ _SIGNATURES = {
             + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P],
     },
     "intersect": {
-        # o, d, t_max, n, ptype, w2o, params, n_prims, flags, outputs, stream
-        "gopbrt_intersect": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "gopbrt_intersect_any": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+        # o, d, t_max, n, rec, n_prims, dead_d2, instance, flags, outputs,
+        # stream
+        "gopbrt_intersect": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+        "gopbrt_intersect_any": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
     },
     "bvh_intersect": {
         # o, d, t_max, n, nodes, records, (prim_order,) flags, outputs, stream

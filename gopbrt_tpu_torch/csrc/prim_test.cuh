@@ -97,12 +97,14 @@ GOPBRT_HD bool sphere_clip_ok(const float* pr, float oox, float ooy, float ooz,
 
 // m: 12 world->object entries (row-major 3x4); pr: 9 params
 // (sphere: radius, zmin, zmax, phimax; disk: height, radius, inner,
-// phimax; triangle: three world-space vertices).
+// phimax; triangle: three world-space vertices).  TRIANGLES = false
+// compiles the sphere and disk tests only, for tables without triangles.
+template <bool TRIANGLES = true>
 GOPBRT_HD float prim_test(int ptype, const float* m, const float* pr,
                           float ox, float oy, float oz,
                           float dx, float dy, float dz, float t_limit,
                           bool full_sph, bool full_disk) {
-  if (ptype == TRIANGLE) {
+  if (TRIANGLES && ptype == TRIANGLE) {
     const float e1x = pr[3] - pr[0], e1y = pr[4] - pr[1], e1z = pr[5] - pr[2];
     const float e2x = pr[6] - pr[0], e2y = pr[7] - pr[1], e2z = pr[8] - pr[2];
     const float pvx = dy * e2z - dz * e2y;

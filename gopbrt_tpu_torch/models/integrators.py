@@ -101,7 +101,7 @@ def _scene_intersect(scene, o, d, t_max):
     args = (o.contiguous(), d.contiguous(), t_max.contiguous())
     if _use_bvh(scene):
         return bvh_ops.bvh_intersect_fused(scene.bvh_tables, *args)
-    return brute_intersect.intersect_brute_fused(scene.brute, *args)
+    return brute_intersect.intersect_brute_fused(brute_intersect.scene_table(scene), *args)
 
 
 def _scene_intersect_p(scene, o, d, t_max):
@@ -109,7 +109,8 @@ def _scene_intersect_p(scene, o, d, t_max):
     args = (o.contiguous(), d.contiguous(), t_max.contiguous())
     if _use_bvh(scene):
         return bvh_ops.bvh_intersect_p_fused(scene.bvh_tables, *args)
-    return brute_intersect.intersect_p_brute_fused(scene.brute, *args)
+    return brute_intersect.intersect_p_brute_fused(brute_intersect.scene_table(scene),
+                                                   *args)
 
 
 def _light_pick(scene, u):

@@ -14,10 +14,13 @@ spatial light grid raise ``NotImplementedError`` naming their ROADMAP item.
 
 ``scene_from_arrays`` carries a scene across from tables given as NumPy
 arrays, the tree included, so the tests render identical tables in both
-packages.  It also packs, once per scene, the tables the kernels read:
-``Scene.brute`` (the brute intersection), ``Scene.kernel`` (the bounce
-megakernel), ``Scene.bvh_tables`` (the BVH walk) and ``Scene.mesh`` (the
-mesh megakernel).
+packages.  It also packs the tables the kernels read: ``Scene.brute`` (the
+brute intersection), ``Scene.kernel`` (the bounce megakernel),
+``Scene.bvh_tables`` (the BVH walk) and ``Scene.mesh`` (the mesh
+megakernel).  A launch reads ``brute``, ``kernel`` and the lights of
+``mesh`` only while they were packed from the scene's tensors as they
+stand, and packs them again otherwise (``ops/packed.py``), so a scene made
+with ``_replace`` renders its own materials, lights and prims.
 """
 
 from __future__ import annotations
@@ -82,13 +85,19 @@ class Scene(NamedTuple):
     world_center: torch.Tensor  # f32[3]
     world_radius: torch.Tensor  # f32[]
     fastinfo: Optional[FastPathInfo] = None
-    # the primitive table packed for the brute intersection, made once
+    # the primitive table packed for the brute intersection by the builder;
+    # read through brute_intersect.scene_table, which packs again for
+    # prims it was not packed from (ops/packed.py)
     brute: Optional[brute_intersect.BruteTable] = None
-    # the megakernel's packed tables, made once where the scene fits it
+    # the megakernel's packed tables, where the scene fits it; read through
+    # megakernel.tables_for, likewise
     kernel: Optional[megakernel.KernelTables] = None
-    # the SAH BVH (accelerator="bvh" above 4 prims) packed for the walk
+    # the SAH BVH (accelerator="bvh" above 4 prims) packed for the walk,
+    # made at build (as the reference's: a geometry edit does not reach it)
     bvh_tables: Optional[bvh_ops.BVHTable] = None
-    # the mesh megakernel's packed tables, made once where the scene fits it
+    # the mesh megakernel's packed tables, where the scene fits it: material
+    # rows made at build (as the reference's), lights read through
+    # mesh_megakernel.tables_for
     mesh: Optional[mesh_megakernel.MeshTables] = None
 
     @property

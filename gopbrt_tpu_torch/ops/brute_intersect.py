@@ -10,8 +10,12 @@ by ``intersect_brute_fused`` and ``intersect_p_brute_fused``: on CUDA
 tensors these launch the kernel (and count it in ``_build.LAUNCHES``), on
 CPU tensors they run the plain version.  The CUDA twin of ``prim_test`` is
 ``csrc/prim_test.cuh``, which the bounce megakernel (``ops/megakernel.py``)
-inlines too.  All of them read the table as ``brute_table`` packs it, once
-per scene (``Scene.brute``).
+inlines too.  All of them read the table as ``brute_table`` packs it: the
+builder once per scene (``Scene.brute``), ``scene_table`` again for a scene
+whose prims are no longer the ones it was packed from.  The kernels take
+two compile-time instances (``BruteTable.instance``), read the rows
+``BruteTable.rec`` from device memory, and answer a dead lane without a
+test where ``dead_d2`` proves that no prim can take it.
 
 One primitive is tested against a batch of rays: the primitive's entries
 are Python floats holding float32 values (a table row read on the host),
@@ -23,13 +27,15 @@ the TPU kernel's SMEM scalars do.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from gopbrt_tpu_torch import _build
+from gopbrt_tpu_torch.ops import packed
 from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
 
 BIG = 1e30
@@ -175,43 +181,139 @@ def _triangle(pr, ox, oy, oz, dx, dy, dz, t_limit):
 FLAG_FULL_SPH = 1
 FLAG_FULL_DISK = 2
 
+# A kernel row of the table (``BruteTable.rec``, f32[P, REC_K], six 16-byte
+# words): world->object (12), the type as a float, params (9), padding; the
+# first four words hold all that a full sphere or disk reads.
+REC_K = 24
+REC_TYPE = 12
+REC_PARAMS = 13
 
-class BruteTable(NamedTuple):
-    """The primitive table as the brute intersection reads it, packed once
-    per scene (``models/scene.scene_from_arrays`` stores it as
-    ``Scene.brute``): the kernels read the device tensors, the plain
-    versions the same rows on the host."""
+# The compile-time instances of csrc/intersect.cu: spheres and disks, all
+# full (no clip, no triangle code); and every shape with its clips.
+INSTANCE_FULL_SPH_DISK = 0
+INSTANCE_GENERAL = 1
+
+# A lane with t_max <= DEAD_T_MAX is dead where ``dead_d2`` says so: no
+# disk or triangle accepts t <= 1e-4 (csrc/prim_test.cuh), and a sphere
+# only where the ray's direction is long in its object space (see
+# ``dead_d2``).  The integrators mark a dead lane with t_max 1e-4.
+DEAD_T_MAX = float(np.float32(1e-4))
+# the margin of dead_d2 on |d|: 1% (squared), far above float rounding
+_DEAD_MARGIN2 = 1.01 ** 2
+
+
+def flat_w2o(prims: Primitives) -> torch.Tensor:
+    """Rows 0-2 of each prim's world->object, f32[P, 12] row-major
+    (pallas_intersect.py ``_flatten_w2o``)."""
+    return prims.world_to_obj[:, :3, :].reshape(prims.count, 12).contiguous()
+
+
+def dead_d2(ptype: torch.Tensor, w2o: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """f32[1]: the largest |d|^2 at which a ray with t_max <= 1e-4 can hit
+    none of these prims (inf without spheres), computed where the table
+    lies, with no read back to the host.
+
+    A sphere accepts a root only above t_eps = 1e-4 olen / dlen (olen =
+    max(|o'|, 1), dlen = |d'|, o' and d' in object space), so with t_max
+    <= 1e-4 it needs olen < dlen (1 + 1e-6).  Where |d'| <= 1 / 1.01 that
+    fails: dlen <= 1 and t_eps >= 1e-4.  Where |d'| <= r / 1.01 it puts the
+    origin inside the sphere by more than 0.98% of r: the near root is
+    negative and the far one beyond 0.0098, far above 1e-4, float rounding
+    (about 1e-6 of r / dlen) included.  |d'| <= ||M||_2 |d| for the linear
+    part M of world->object, and ||M||_2^2 <= ||M^T M||_inf.  So every
+    sphere misses where |d|^2 <= max(1, r^2) / (||M^T M||_inf 1.01^2):
+    the least of these over the spheres, in float64, rounded down to f32.
+    A sphere of r / ||M||_2 below 1 gives a bound below 1, and unit rays
+    then run their tests."""
+    if ptype.numel() == 0:
+        return torch.full((1,), math.inf, dtype=torch.float32, device=ptype.device)
+    m = w2o.to(torch.float64).reshape(-1, 3, 4)[:, :, :3]
+    gram = torch.abs(m.transpose(1, 2) @ m).sum(dim=2).amax(dim=1)
+    r2 = params[:, 0].to(torch.float64) ** 2
+    limit = torch.maximum(r2, torch.ones_like(r2)) / (gram * _DEAD_MARGIN2)
+    limit = torch.where(ptype == SPHERE, limit, math.inf)
+    return (limit.amin() * (1.0 - 1e-6)).to(torch.float32).reshape(1)
+
+
+@dataclass(frozen=True, eq=False)
+class BruteTable:
+    """The primitive table as the brute intersection reads it: the device
+    tensors (the kernels read ``rec`` and ``dead_d2``), the static shape
+    facts, and the key of the prims it was packed from
+    (``ops/packed.py``).  ``models/scene.scene_from_arrays`` packs it once
+    as ``Scene.brute``; ``scene_table`` packs again for a scene whose prims
+    are no longer those."""
 
     ptype: torch.Tensor  # int32[P]
     w2o: torch.Tensor  # f32[P,12]: world->object, row-major 3x4
     params: torch.Tensor  # f32[P,9]
-    rows: list  # (ptype, w2o row, params row) per primitive, host floats
+    rec: torch.Tensor  # f32[P,REC_K]: the kernels' rows
+    dead_d2: torch.Tensor  # f32[1], see dead_d2
     # all spheres full / all disks full: static on the TPU
     # (pallas_intersect.py:240-246); when set, the partial-shape clips are
     # skipped
     full_sph: bool
     full_disk: bool
+    types: tuple  # the prim kinds the table may hold
+    key: tuple
 
     @property
     def count(self) -> int:
-        return len(self.rows)
+        return self.ptype.shape[0]
 
     @property
     def flags(self) -> int:
         return (FLAG_FULL_SPH if self.full_sph else 0) | (
             FLAG_FULL_DISK if self.full_disk else 0)
 
+    @property
+    def instance(self) -> int:
+        """The kernels' compile-time instance for this table."""
+        if set(self.types) <= {SPHERE, DISK} and self.full_sph and self.full_disk:
+            return INSTANCE_FULL_SPH_DISK
+        return INSTANCE_GENERAL
+
+    @functools.cached_property
+    def rows(self) -> list:
+        """(ptype, w2o row, params row) per primitive, host floats: what the
+        plain versions sweep (read from the device at first use)."""
+        return list(zip(self.ptype.tolist(), self.w2o.tolist(), self.params.tolist()))
+
+
+def _sources(prims: Primitives) -> tuple:
+    return (prims.prim_type, prims.world_to_obj, prims.params)
+
+
+def _rows(ptype: torch.Tensor, w2o: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The kernels' rows f32[P, REC_K] of the flat table."""
+    pad = torch.zeros((ptype.shape[0], REC_K - REC_PARAMS - 9), dtype=torch.float32,
+                      device=w2o.device)
+    return torch.cat([w2o, ptype.to(torch.float32)[:, None], params, pad], dim=1).contiguous()
+
 
 def brute_table(prims: Primitives) -> BruteTable:
-    """Pack ``prims`` for the intersection kernels and their plain versions."""
+    """Pack ``prims`` for the intersection kernels and their plain versions,
+    on the device where they lie."""
     ptype = prims.prim_type.to(torch.int32).contiguous()
-    w2o = prims.world_to_obj[:, :3, :].reshape(prims.count, 12).contiguous()
+    w2o = flat_w2o(prims)
     params = prims.params.contiguous()
-    rows = list(zip(ptype.tolist(), w2o.tolist(), params.tolist()))
     pinfo = prims.pinfo
-    return BruteTable(ptype, w2o, params, rows,
-                      pinfo is not None and pinfo.all_full_spheres,
-                      pinfo is not None and pinfo.all_full_disks)
+    return BruteTable(
+        ptype, w2o, params, _rows(ptype, w2o, params), dead_d2(ptype, w2o, params),
+        pinfo is not None and pinfo.all_full_spheres,
+        pinfo is not None and pinfo.all_full_disks,
+        tuple(pinfo.types) if pinfo is not None else (SPHERE, DISK, TRIANGLE),
+        (packed.key(_sources(prims)), pinfo))
+
+
+def scene_table(scene) -> BruteTable:
+    """The table of ``scene.prims``: ``scene.brute`` while it was packed from
+    them, else packed now."""
+    t = scene.brute
+    prims = scene.prims
+    if t is not None and t.key[1] == prims.pinfo and packed.holds(t.key[0], _sources(prims)):
+        return t
+    return brute_table(prims)
 
 
 def closest_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
@@ -290,9 +392,8 @@ def _kernel_args(table: BruteTable, o, d, t_max):
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
     if not (o.is_contiguous() and d.is_contiguous() and t_max.is_contiguous()):
         raise ValueError("o, d and t_max must be contiguous")
-    return (o.data_ptr(), d.data_ptr(), t_max.data_ptr(), o.shape[0],
-            table.ptype.data_ptr(), table.w2o.data_ptr(), table.params.data_ptr(),
-            table.count, table.flags)
+    return (o.data_ptr(), d.data_ptr(), t_max.data_ptr(), o.shape[0], table.rec.data_ptr(),
+            table.count, table.dead_d2.data_ptr(), table.instance, table.flags)
 
 
 def _stream(dev):

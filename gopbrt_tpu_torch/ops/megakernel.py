@@ -25,8 +25,9 @@ import torch
 
 from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.ops import bvh as bvh_ops
-from gopbrt_tpu_torch.ops import rng
-from gopbrt_tpu_torch.ops.brute_intersect import BIG, closest_hit, first_hit
+from gopbrt_tpu_torch.ops import packed, rng
+from gopbrt_tpu_torch.ops.brute_intersect import (BIG, closest_hit, first_hit, flat_w2o,
+                                                  scene_table)
 from gopbrt_tpu_torch.ops.bsdf import GLASS, MIRROR, PLASTIC
 from gopbrt_tpu_torch.ops.geom import INV_PI, PI, SHADOW_EPSILON
 from gopbrt_tpu_torch.ops.intersect import TRIANGLE
@@ -275,7 +276,7 @@ def pack_tables(scene) -> torch.Tensor:
     """All tables as one float32[TABLE_WORDS] tensor in TABLE_LAYOUT order."""
     prims = scene.prims
     parts = dict(
-        w2o=scene.brute.w2o,
+        w2o=flat_w2o(prims),
         params=prims.params,
         shade=shade_table(scene),
         ptype=prims.prim_type[:, None],
@@ -286,11 +287,13 @@ def pack_tables(scene) -> torch.Tensor:
 
 class KernelTables(NamedTuple):
     """What every launch for one scene reads: the packed tables on the
-    scene's device and two scene scalars on the host."""
+    scene's device, two scene scalars on the host, and the key of the
+    scene tensors they were packed from (``ops/packed.py``)."""
 
     tables: torch.Tensor  # f32[TABLE_WORDS]
     func_int: float
     world_radius: float
+    key: tuple
 
 
 def fits(scene) -> bool:
@@ -301,11 +304,42 @@ def fits(scene) -> bool:
             and 1 <= scene.lights.count <= MAX_LIGHTS)
 
 
-def kernel_tables(scene) -> KernelTables:
-    """Packs the scene for the kernel; scene_from_arrays does it once per
-    scene, so a launch reads ``scene.kernel``."""
-    return KernelTables(pack_tables(scene), float(scene.light_func_int),
-                        float(scene.world_radius))
+def scalar_sources(scene) -> tuple:
+    """The scene tensors of a launch's two host scalars."""
+    return (scene.light_func_int, scene.world_radius)
+
+
+def host_scalars(scene, old) -> tuple:
+    """(func_int, world_radius) as floats: those of the packed tables
+    ``old`` while their tensors stand (their key ends with them), else read
+    from the scene."""
+    src = scalar_sources(scene)
+    if old is not None and packed.holds(old.key[-len(src):], src):
+        return old.func_int, old.world_radius
+    return float(scene.light_func_int), float(scene.world_radius)
+
+
+def _table_sources(scene) -> tuple:
+    return packed.tensors(scene.prims, scene.materials, scene.textures, scene.lights,
+                          scene.light_func, scene.light_cdf) + scalar_sources(scene)
+
+
+def kernel_tables(scene, old=None) -> KernelTables:
+    """Packs the scene for the kernel (the builder does it once per scene);
+    ``old``: earlier tables of the scene, whose host scalars are kept while
+    their tensors stand."""
+    src = _table_sources(scene)
+    return KernelTables(pack_tables(scene), *host_scalars(scene, old), packed.key(src))
+
+
+def tables_for(scene) -> KernelTables:
+    """What a launch on ``scene`` reads: ``scene.kernel`` while it was packed
+    from the scene's tensors as they stand, else tables packed now (the
+    reference packs them per call, pallas_megakernel.py:1225-1232)."""
+    kt = scene.kernel
+    if kt is not None and packed.holds(kt.key, _table_sources(scene)):
+        return kt
+    return kernel_tables(scene, kt)
 
 
 def kernel_flags(scene, use_cone: bool) -> int:
@@ -493,16 +527,16 @@ def _with_zero_row(t: torch.Tensor) -> torch.Tensor:
 
 
 class _BruteScene:
-    """The intersector of csrc/megakernel.cu: brute sweeps over
-    ``scene.brute``, winners read from per-prim tables."""
+    """The intersector of csrc/megakernel.cu: brute sweeps over the
+    scene's brute table, winners read from per-prim tables."""
 
     plastic = False
 
     def __init__(self, scene):
         prims = scene.prims
-        self.table = scene.brute
+        self.table = scene_table(scene)
         self.shade = _with_zero_row(shade_table(scene))
-        self.w2o = _with_zero_row(scene.brute.w2o)
+        self.w2o = _with_zero_row(self.table.w2o)
         self.params = _with_zero_row(prims.params)
         self.ptype = _with_zero_row(prims.prim_type.to(torch.float32)[:, None])[:, 0]
 
@@ -541,7 +575,10 @@ class _BVHScene:
     def __init__(self, scene):
         self.table = scene.bvh_tables
         self.rec = _with_zero_row(self.table.records)
-        self.mat = _with_zero_row(material_table(scene))
+        # the kernel's material rows: made at build where the scene carries
+        # them (as the reference's mesh kernel), else from the scene
+        mat = material_table(scene) if scene.mesh is None else scene.mesh.mat
+        self.mat = _with_zero_row(mat)
 
     def closest(self, o, d, alive, counts):
         """(t, slot) of every lane, slot -1 on a miss; only alive lanes walk."""
@@ -585,7 +622,7 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
     csrc/bounce.cuh (``_mega_kernel``, ``_mesh_kernel``) over 1-D lane
     tensors, bounce by bounce, with ``torch.where`` for its selects.
 
-    accel: the intersector, "brute" (the sweep over ``scene.brute``, the
+    accel: the intersector, "brute" (the sweep over the scene's brute table, the
     twin of csrc/megakernel.cu) or "bvh" (the walk over
     ``scene.bvh_tables``, the twin of csrc/mesh_megakernel.cu).  counts:
     optional dict; gets, for each event of OPS_PER_EVENT, how often the CUDA
@@ -1239,10 +1276,7 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     check_launch(o, d, out)
 
     fn = _build.load().gopbrt_path_li
-    kt = scene.kernel
-    if kt is None:
-        raise ValueError("the scene carries no packed tables (SceneBuilder.build "
-                         "and scene_from_arrays pack them)")
+    kt = tables_for(scene)
     tables = kt.tables
     pix32, smp32 = as_i32_bits(pixel), as_i32_bits(sample)
     w0, sp = (0.0, 0.0) if cone is None else (float(cone[0]), float(cone[1]))

@@ -3,9 +3,11 @@ one CUDA kernel.
 
 Counterpart of ``gopbrt_tpu/ops/pallas_mesh_megakernel.py``: the
 per-material shade table (``_mat_shade_np``, here
-``ops/megakernel.material_table``), the tables packed once per scene
-(``build_mesh_tables``, here ``mesh_tables``: the materials and the lights;
-the tree and the primitive records are ``Scene.bvh_tables``), and
+``ops/megakernel.material_table``), the tables packed by the builder
+(``mesh_tables``: the materials, made at build as in ``build_mesh_tables``,
+and the lights, packed again for a scene whose lights changed, as the
+reference packs them per call; the tree and the primitive records are
+``Scene.bvh_tables``, made at build), and
 ``mesh_li_fused``.  On CUDA tensors ``mesh_li_fused`` launches
 ``csrc/mesh_megakernel.cu`` (the bounce skeleton over the BVH walk), the
 whole depth in one launch per band; on CPU tensors it runs
@@ -25,6 +27,7 @@ import torch
 
 from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.ops import megakernel as mk
+from gopbrt_tpu_torch.ops import packed
 
 # Packed table layout read by csrc/mesh_megakernel.cu (struct MeshTables):
 # the material rows, then the light tables of ops/megakernel.TABLE_LAYOUT.
@@ -34,12 +37,15 @@ MESH_TABLE_WORDS = sum(n for _, n in MESH_TABLE_LAYOUT)
 
 
 class MeshTables(NamedTuple):
-    """What every launch for one scene reads besides the BVH tables."""
+    """What every launch for one scene reads besides the BVH tables, and
+    the key of the scene tensors it was packed from (``ops/packed.py``)."""
 
     tables: torch.Tensor  # f32[MESH_TABLE_WORDS]
+    mat: torch.Tensor  # f32[M, MAT_K]: the material rows, made at build
     n_mats: int
     func_int: float
     world_radius: float
+    key: tuple
 
 
 def fits(scene) -> bool:
@@ -52,13 +58,35 @@ def fits(scene) -> bool:
             and scene.materials.mat_type.shape[0] <= mk.MAX_MATS)
 
 
-def mesh_tables(scene) -> MeshTables:
-    """Packs the scene for the kernel; scene_from_arrays does it once per
-    scene, so a launch reads ``scene.mesh``."""
-    tables = mk.pack_layout({"mat": mk.material_table(scene), **mk.light_parts(scene)},
-                            MESH_TABLE_LAYOUT)
-    return MeshTables(tables, int(scene.materials.mat_type.shape[0]),
-                      float(scene.light_func_int), float(scene.world_radius))
+def _light_sources(scene) -> tuple:
+    return packed.tensors(scene.lights, scene.light_func, scene.light_cdf) + \
+        mk.scalar_sources(scene)
+
+
+def mesh_tables(scene, old=None) -> MeshTables:
+    """Packs the scene for the kernel; the builder does it once per scene.
+    ``old``: earlier tables of the scene, whose material rows (made at
+    build, as the reference's ``build_mesh_tables``,
+    pallas_mesh_megakernel.py:317) and host scalars it keeps; the light
+    rows are packed from the scene."""
+    mat = mk.material_table(scene) if old is None else old.mat
+    tables = mk.pack_layout({"mat": mat, **mk.light_parts(scene)}, MESH_TABLE_LAYOUT)
+    return MeshTables(tables, mat, int(mat.shape[0]), *mk.host_scalars(scene, old),
+                      packed.key(_light_sources(scene)))
+
+
+def tables_for(scene) -> MeshTables:
+    """What a launch on ``scene`` reads: ``scene.mesh`` while its lights were
+    packed from the scene's tensors as they stand, else its material rows
+    with the lights packed now (the reference packs them per call,
+    pallas_mesh_megakernel.py:1346)."""
+    mt = scene.mesh
+    if mt is None:
+        raise ValueError("the scene carries no packed mesh tables (SceneBuilder.build "
+                         "and scene_from_arrays pack them)")
+    if packed.holds(mt.key, _light_sources(scene)):
+        return mt
+    return mesh_tables(scene, mt)
 
 
 _WHY = "the mesh megakernel takes mesh fast-path scenes above 64 prims with a BVH"
@@ -70,11 +98,8 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     ``out`` (f32[N,3], on the card), and counts the launch."""
     pixel, sample = mk.check_inputs(scene, o, d, pixel, sample, fits, _WHY)
     mk.check_launch(o, d, out)
-    if scene.mesh is None:
-        raise ValueError("the scene carries no packed mesh tables (SceneBuilder.build "
-                         "and scene_from_arrays pack them)")
+    mt, bt = tables_for(scene), scene.bvh_tables
     fn = _build.load("mesh_megakernel").gopbrt_mesh_li
-    mt, bt = scene.mesh, scene.bvh_tables
     pix32, smp32 = mk.as_i32_bits(pixel), mk.as_i32_bits(sample)
     w0, sp = (0.0, 0.0) if cone is None else (float(cone[0]), float(cone[1]))
     args = (

@@ -1,7 +1,7 @@
 // Host harness of the port's CUDA kernels: their device code compiled as
 // plain C++ (the GOPBRT_HD path of gopbrt_tpu_torch/csrc/prim_test.cuh) and
-// driven the way the persistent kernels drive it, so the tests can hold it
-// per lane against the plain PyTorch versions without a card.
+// driven the way the kernels drive it, so the tests can hold it per lane
+// against the plain PyTorch versions without a card.
 //
 // g++ -std=c++17 -O2 -shared -fPIC -I gopbrt_tpu_torch/csrc host_kernels.cpp
 //
@@ -16,6 +16,7 @@
 #include <random>
 #include <vector>
 
+#include "intersect.cu"
 #include "megakernel.cu"
 #include "mesh_megakernel.cu"
 
@@ -94,9 +95,50 @@ void walk_events(const gopbrt::BvhView& B, const float* o, const float* d, float
   }
 }
 
+// The brute intersection kernels' lane (csrc/intersect.cu): the dead-lane
+// test, then, on a live lane, the sweep of the compile-time instance
+// `instance` over the table rows rec (f32[P, 24]).  any_hit: occ_out, else
+// hit_out / t_out / idx_out as the closest-hit kernel writes them;
+// dead_out: the lanes that took their answer without a test.
+template <int INSTANCE>
+void intersect_lanes(const float4* rec, int n_prims, float dead_d2, int flags, const float* o,
+                     const float* d, const float* t_max, int n, int any_hit, bool* hit_out,
+                     float* t_out, int* idx_out, bool* occ_out, bool* dead_out) {
+  namespace b = gopbrt::brute;
+  for (int i = 0; i < n; ++i) {
+    const float* oi = o + 3 * i;
+    const float* di = d + 3 * i;
+    const bool dead = dead_out[i] = b::dead_lane(t_max[i], di, dead_d2);
+    if (any_hit) {
+      occ_out[i] = !dead && b::any_sweep<INSTANCE>(rec, n_prims, flags, oi, di, t_max[i]);
+      continue;
+    }
+    int idx = -1;
+    const float t =
+        dead ? t_max[i] : b::closest_sweep<INSTANCE>(rec, n_prims, flags, oi, di, t_max[i], idx);
+    hit_out[i] = idx >= 0;
+    t_out[i] = t;
+    idx_out[i] = idx < 0 ? 0 : idx;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+void host_intersect(const float* rec, int n_prims, float dead_d2, int instance, int flags,
+                    const float* o, const float* d, const float* t_max, int n, int any_hit,
+                    bool* hit_out, float* t_out, int* idx_out, bool* occ_out, bool* dead_out) {
+  namespace b = gopbrt::brute;
+  const float4* r = reinterpret_cast<const float4*>(rec);
+  if (instance == b::INSTANCE_GENERAL)
+    intersect_lanes<b::INSTANCE_GENERAL>(r, n_prims, dead_d2, flags, o, d, t_max, n, any_hit,
+                                         hit_out, t_out, idx_out, occ_out, dead_out);
+  else
+    intersect_lanes<b::INSTANCE_FULL_SPH_DISK>(r, n_prims, dead_d2, flags, o, d, t_max, n,
+                                               any_hit, hit_out, t_out, idx_out, occ_out,
+                                               dead_out);
+}
 
 // The BVH walk of csrc/bvh.cuh on rays o, d (f32[n, 3]) below t_max, over
 // the packed nodes and records (ops/bvh.py bvh_table): t_out (t_max on a

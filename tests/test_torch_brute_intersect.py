@@ -164,3 +164,7 @@ def test_builder_packs_the_intersection_table_once():
                                   table.params.tolist()))
     packed = tmk.pack_tables(ts)
     assert torch.equal(packed[:table.count * 12], table.w2o.reshape(-1))
+    # the kernels' rows: w2o, the type, params, zero padding
+    rows = torch.cat([table.w2o, table.ptype[:, None].float(), table.params], dim=1)
+    assert torch.equal(table.rec[:, :brute_intersect.REC_PARAMS + 9], rows)
+    assert not table.rec[:, brute_intersect.REC_PARAMS + 9:].any()

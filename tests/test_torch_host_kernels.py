@@ -17,6 +17,13 @@ without a C++ compiler the tests skip.
   with triangles in the vertex form (the walk kernels) and in the plane
   form (the mesh megakernel).
 - plane_test of csrc/prim_test.cuh against the plain ``ops/bvh.plane_test``.
+- The brute intersection kernels' lane (csrc/intersect.cu: the dead-lane
+  test, then the sweep of either compile-time instance) against
+  ``intersect_brute`` / ``intersect_p_brute``, bit for bit: on the inputs
+  of every launch ``li_direct`` makes on config 1 at 64x36 (dead lanes
+  included), on the partial-shape and triangle cases of
+  tests/test_torch_brute_intersect.py, and on a sphere shrunk to 0.01 in
+  world space, whose shadow rays hit it below t = 1e-4 and so are not dead.
 - path_init / path_step / path_finish of csrc/bounce.cuh, driven as
   run_paths drives them (path_step is run_paths' own step: a trace, then
   the rest of the bounce or the shadow ray's contribution), against ``path_li_plain`` per lane on
@@ -38,17 +45,23 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (as_torch, camera_rays, carry, lane_agreement,
+from _torch_parity import (as_torch, camera_rays, carry, carry_prims, lane_agreement,
                            rough_glass_camera, rough_glass_scene)
 from gopbrt_tpu.models import demo as jdemo
 from gopbrt_tpu.models import gallery as jgallery
 from gopbrt_tpu.models import meshes as jmeshes
 from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
 from gopbrt_tpu.ops import geom as jgeom
+from gopbrt_tpu.ops import intersect as jisect
 from gopbrt_tpu_torch._build import BUILD_ROOT, CSRC
+from gopbrt_tpu_torch.models import gallery as tgallery
 from gopbrt_tpu_torch.models import integrators as tint
+from gopbrt_tpu_torch.models import render as trender
+from gopbrt_tpu_torch.ops import brute_intersect as tbi
 from gopbrt_tpu_torch.ops import bvh as tbvh
 from gopbrt_tpu_torch.ops import megakernel as tmk
+from tests.test_bvh import random_rays
+from tests.test_intersect import make_prims, sphere_entry
 
 HARNESS = Path(__file__).resolve().parent / "host_kernels.cpp"
 CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
@@ -85,11 +98,13 @@ def lib():
         pytest.skip("no C++ compiler on this machine for the host harness")
     lib = ctypes.CDLL(_compile())
     lib.host_bvh_walk.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+    lib.host_intersect.argtypes = [_P, _I, _F, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                                   _P]
     lib.host_plane_test.argtypes = [_P, _P, _P, _P, _I, _P]
     lib.host_paths_brute.argtypes = [_P, _I] + _PATH_ARGS
     lib.host_paths_mesh.argtypes = [_P, _P, _P, _I] + _PATH_ARGS
-    for fn in (lib.host_bvh_walk, lib.host_plane_test, lib.host_paths_brute,
-               lib.host_paths_mesh):
+    for fn in (lib.host_bvh_walk, lib.host_intersect, lib.host_plane_test,
+               lib.host_paths_brute, lib.host_paths_mesh):
         fn.restype = None
     return lib
 
@@ -216,6 +231,130 @@ def test_plane_test_matches_the_plain_plane_test(lib, mesh):
     np.testing.assert_array_equal(got < tbvh.BIG, want < tbvh.BIG)
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert 0.3 < (want < tbvh.BIG).mean() < 0.9
+
+
+# ---------------------------------------------------------------------------
+# The brute intersection kernels
+# ---------------------------------------------------------------------------
+
+
+def _host_intersect(lib, table, o, d, t_max, any_hit, instance):
+    """The kernels' lane on the host -> (hit, t, prim) or occluded, and the
+    lanes taken as dead."""
+    n = o.shape[0]
+    rec = _np(table.rec, np.float32)
+    o_, d_, tm = _np(o, np.float32), _np(d, np.float32), _np(t_max, np.float32)
+    hit, occ, dead = (np.zeros(n, np.bool_) for _ in range(3))
+    t, idx = np.empty(n, np.float32), np.empty(n, np.int32)
+    lib.host_intersect(_ptr(rec), table.count, float(table.dead_d2), instance, table.flags,
+                       _ptr(o_), _ptr(d_), _ptr(tm), n, int(any_hit), _ptr(hit),
+                       _ptr(t), _ptr(idx), _ptr(occ), _ptr(dead))
+    return (occ if any_hit else (hit, t, idx)), dead
+
+
+def _check_intersect(lib, table, o, d, t_max) -> int:
+    """Both kernels' lanes, in every instance the table allows, against the
+    plain versions ->
+    the number of dead lanes.  Hits, prims, occlusion and the dead lanes'
+    answers are equal bit for bit, and so is t but where a sphere's root
+    went through torch's CPU sqrt, which is not correctly rounded (one ulp
+    off on 0.7% of uniform f32 inputs; sqrtf is): there t is within 1e-6
+    relative, or 1e-8 where the roots cancel."""
+    hit_p, t_p, idx_p = (x.numpy() for x in tbi.intersect_brute(table, o, d, t_max))
+    occ_p = tbi.intersect_p_brute(table, o, d, t_max).numpy()
+    for instance in {tbi.INSTANCE_GENERAL, table.instance}:
+        (hit, t, idx), dead = _host_intersect(lib, table, o, d, t_max, False, instance)
+        np.testing.assert_array_equal(hit, hit_p)
+        np.testing.assert_array_equal(idx, idx_p)
+        np.testing.assert_array_equal(t[dead], t_p[dead])
+        np.testing.assert_allclose(t, t_p, rtol=1e-6, atol=1e-8)
+        assert (t == t_p).mean() >= 0.99
+        occ, dead_any = _host_intersect(lib, table, o, d, t_max, True, instance)
+        np.testing.assert_array_equal(occ, occ_p)
+        np.testing.assert_array_equal(dead_any, dead)
+    assert not (hit_p[dead].any() or occ_p[dead].any())
+    return int(dead.sum())
+
+
+def test_intersect_lane_on_li_direct_launches(lib, monkeypatch):
+    """Every launch li_direct makes over config 1 at 64x36 (camera rays,
+    shadow rays, the MIS segments, the final pass): the fast instance
+    (all spheres and disks full) and the general one give the plain
+    answers, and the launches of dead lanes skip them all."""
+    scene, camera, settings = tgallery.config1(64, 36, device="cpu")
+    settings = settings._replace(spp=1, samples_per_pass=1)
+    _, o, d, pix, smp = trender.band_rays(camera, settings, 0, 36, 0)
+    calls = []
+    for name in ("intersect_brute_fused", "intersect_p_brute_fused"):
+        fn = getattr(tbi, name)
+        monkeypatch.setattr(tbi, name, lambda *a, fn=fn: calls.append(a) or fn(*a))
+    tint.li_direct(scene, o, d, pix, smp, settings.seed, max_depth=settings.max_depth)
+    assert len(calls) == 7
+    table = calls[0][0]
+    assert table is scene.brute and table.instance == tbi.INSTANCE_FULL_SPH_DISK
+    dead = [_check_intersect(lib, *call) for call in calls]
+    n = o.shape[0]
+    assert dead[0] == 0 and dead.count(n) >= 3, dead  # 4 of 7 on the demo's matte
+
+
+_EYE = np.eye(4, dtype=np.float32)
+# (prims, ray spread, whether the lanes with t_max 1e-4 are dead): spheres
+# of r / ||M|| <= 1 leave unit rays live (dead_d2 < 1); a table without
+# spheres has no bound
+_CLIPPED = {
+    "partial_r1": ([(jisect.SPHERE, _EYE, [1.0, 0.0, 1.0, 2 * np.pi], 0),
+                    (jisect.SPHERE, _EYE, [1.0, -1.0, 1.0, np.pi / 2], 0),
+                    (jisect.DISK, _EYE, [0.0, 2.0, 0.5, 1.5 * np.pi], 0)], 5.0, False),
+    "partial_r2": ([(jisect.SPHERE, _EYE, [2.0, 0.0, 2.0, 2 * np.pi], 0),
+                    (jisect.SPHERE, _EYE, [2.0, -2.0, 2.0, np.pi / 2], 0),
+                    (jisect.DISK, _EYE, [0.0, 2.0, 0.5, 1.5 * np.pi], 0)], 5.0, True),
+    "mixed": ([sphere_entry([0.0, 0.0, -2.0], 0.5),
+               (jisect.DISK, _EYE, [-5.0, 10.0, 0.0, 2 * np.pi], 1),
+               (jisect.TRIANGLE, _EYE, [-1, -1, -8, 1, -1, -8, 0, 1, -8], 2)], 8.0, False),
+    "disk_triangle": ([(jisect.DISK, _EYE, [-5.0, 10.0, 0.0, 2 * np.pi], 1),
+                       (jisect.TRIANGLE, _EYE, [-1, -1, -8, 1, -1, -8, 0, 1, -8], 2)],
+                      8.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_CLIPPED))
+def test_intersect_lane_on_clipped_shapes_and_triangles(lib, case):
+    """The general instance on partial spheres, annulus and wedge disks and
+    a triangle, a third of the lanes with t_max 1e-4: dead exactly where
+    the table's bound allows."""
+    entries, spread, dead = _CLIPPED[case]
+    table = tbi.brute_table(carry_prims(make_prims(entries)))
+    assert table.instance == tbi.INSTANCE_GENERAL
+    o, d = (torch.tensor(np.asarray(a)) for a in random_rays(2048, seed=9, spread=spread))
+    t_max = torch.full((2048,), 1e30)
+    t_max[::3] = tbi.DEAD_T_MAX
+    t_max[1::3] = 6.0
+    assert _check_intersect(lib, table, o, d, t_max) == (683 if dead else 0)
+    assert bool(tbi.intersect_brute(table, o, d, t_max)[0].any())
+
+
+def test_intersect_lane_keeps_lanes_a_small_sphere_can_hit(lib):
+    """A sphere of radius 1 scaled to 0.01 in world space: rays from just
+    outside it hit it below t = 1e-4, so a lane with t_max 1e-4 is not dead
+    there (dead_d2 < 1), and the lanes give the plain hits."""
+    o2w = np.asarray(jgeom.matmul(jgeom.translate([3.0, -2.0, 1.0]),
+                                  jgeom.scale(0.01, 0.01, 0.01)))
+    table = tbi.brute_table(carry_prims(make_prims(
+        [(jisect.SPHERE, o2w, [1.0, -1.0, 1.0, 2 * np.pi], 0)])))
+    assert float(table.dead_d2) < 1e-3
+    r = np.random.default_rng(5)
+    n = 1024
+    out = r.normal(size=(n, 3))
+    out /= np.linalg.norm(out, axis=1, keepdims=True)
+    center = np.array([3.0, -2.0, 1.0])
+    o = center + out * r.uniform(0.01002, 0.0101, (n, 1))
+    d = -out + r.normal(scale=0.05, size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.tensor(o, dtype=torch.float32), torch.tensor(d, dtype=torch.float32)
+    t_max = torch.full((n,), tbi.DEAD_T_MAX)
+    assert _check_intersect(lib, table, o, d, t_max) == 0
+    hit = tbi.intersect_brute(table, o, d, t_max)[0]
+    assert 0.2 < float(hit.float().mean()) < 1.0
 
 
 # ---------------------------------------------------------------------------
