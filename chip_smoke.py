@@ -74,6 +74,7 @@ outside a checkout of the repository, the script fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -87,6 +88,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -101,6 +103,9 @@ BYTES_PER_RAY_CLOSEST, BYTES_PER_RAY_ANY, BYTES_PER_PRIM = 37, 29, 96
 W, H, DEPTH = 1920, 1080, 10
 MESH_DEPTH = 5
 N_PASSES = 5
+# BASELINE config 5 (benchmarks/bench_inverse.py:33-35, 127): image side,
+# samples a pixel a step, Adam steps
+INV_SIZE, INV_SPP, INV_STEPS = 64, 64, 40
 # __global__ functions of csrc/*.cu, as the profiler names their launches
 OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel",
                "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel")
@@ -539,23 +544,30 @@ def timed_passes(render, film_mod, scene, camera, settings, dev):
     return dt_ms, dict(_build.LAUNCHES), film
 
 
+def _trace(fn, ranges: tuple):
+    """Runs ``fn()`` under the profiler -> (host ms of each
+    ``record_function`` range in ``ranges``, the device's kernels and
+    copies).  A range shows twice, as a host event and as an annotation on
+    the device's timeline; the device is busy for its kernels and copies."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    host = {k: sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.name == k and e.device_type == cpu) / 1e3 for k in ranges}
+    return host, [e for e in prof.events() if e.device_type == cuda and e.name not in ranges]
+
+
 def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
     """One more pass under the profiler, read by render_pass's stage ranges
     (host time) and the device's busy time -> (the line to print, device
     ms of the pass in each of the port's kernels, by OWN_KERNELS name, and
     the device ms of each of their launches in start order)."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev)
-        torch.cuda.synchronize()
-    # a range shows twice, as a host event and as an annotation on the
-    # device's timeline; the device is busy for its kernels and copies
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    host = {k: sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.name == f"render.{k}" and e.device_type == cpu) / 1e3
-            for k in ("band_rays", "li", "splat")}
-    work = [e for e in prof.events()
-            if e.device_type == cuda and not e.name.startswith("render.")]
+    host, work = _trace(
+        lambda: render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev),
+        ("render.band_rays", "render.li", "render.splat"))
+    host = {k.split(".")[1]: v for k, v in host.items()}
     device_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
     seq = {k: [e.time_range.elapsed_us() / 1e3
                for e in sorted(work, key=lambda e: e.time_range.start) if k in e.name]
@@ -568,6 +580,20 @@ def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
             if device_ms > 0 else "device time not measured")
     return ("one profiled pass, host ms by range: "
             + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f"; {busy}"), own, seq
+
+
+def profiled(fn, ranges: tuple = ()) -> str:
+    """Runs ``fn()`` once more under the profiler -> a line: host ms of each
+    ``record_function`` range in ``ranges``, the device's busy ms, its
+    kernel count and the five kernels that took the most device time."""
+    host, work = _trace(fn, ranges)
+    by_name = collections.Counter()
+    for e in work:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    top = ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in by_name.most_common(5))
+    return ("host ms by range: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+            + f"; device busy {sum(by_name.values()):.3f} ms in {len(work)} kernels and "
+            f"copies; most device ms: {top}")
 
 
 def shadow_rays(scene, o, d, t, hit):
@@ -738,7 +764,7 @@ def mesh_checks(dev, band_rows: int) -> dict:
                 lane_slots("metal-mesh camera band, nodes per ray" if kind == "bvh_intersect"
                            else "metal-mesh first shadow band, nodes per ray", steps)
     return dict(scene=scene, metal=metal, cam=cam, settings=settings, timing=timing,
-                worst=worst, mesh_err=mesh_err)
+                worst=worst, mesh_err=mesh_err, band=(o, d, pix, smp, cfg, cone))
 
 
 def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limit: str):
@@ -779,6 +805,202 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
     line, own_c, _ = profiled_pass(render, metal, cam, film_c, settings, dev, dtc)
     phase("main-path", "metal mesh: " + line)
     return launches, launches_c, {**own_m, **own_c}
+
+
+def grad_check(what: str, scene, band, seed, kernel: str, replay_kernels: tuple,
+               device_name: str, power_limit: str) -> dict:
+    """The ``[grad]`` phase on one band: ``integrators.li`` through the
+    kernel's ``autograd.Function`` (the kernel forward, the path-replay
+    backward through ``_li_wavefront`` on the intersection kernels), with
+    every light's intensity scaled by one scalar s = 1, and the materials'
+    kd and the textures' first colours (the demo camera sees only the
+    checker backdrop) as leaves.  L is exactly linear in s, so d sum(L) / ds
+    must equal the kernel's own sum(L) (relative 1e-3, the lanes whose
+    discrete decisions float noise flips apart); the kd and colour
+    gradients must equal autograd through ``_li_wavefront`` on the same
+    lanes (relative 1e-4 of the largest entry of each).  The launch counts
+    are set to 0 just before the forward and read after the backward."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import integrators
+
+    o, d, pix, smp, cfg, cone = band
+    s = torch.ones((), device=o.device, requires_grad=True)
+    kd = scene.materials.kd.detach().clone().requires_grad_()
+    col = scene.textures.value1.detach().clone().requires_grad_()
+
+    def with_leaves(kd_, col_):
+        return scene._replace(materials=scene.materials._replace(kd=kd_),
+                              textures=scene.textures._replace(value1=col_))
+
+    def forward():
+        sc = with_leaves(kd, col)
+        return integrators.li(sc._replace(lights=sc.lights._replace(
+            intensity=sc.lights.intensity * s)), o, d, pix, smp, seed, cfg, cone=cone)
+
+    # the first backward on the card loads its kernels: timed apart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.autograd.grad(forward().sum(), [s, kd, col])
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    L = forward()
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    g_s, g_kd, g_col = torch.autograd.grad(L.sum(), [s, kd, col])
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.LAUNCHES)
+    if type(L.grad_fn).__name__ != "_ReplayBackward" or fwd_launches != {kernel: 1}:
+        raise AssertionError(f"[grad] {what}: the forward launched {fwd_launches}, "
+                             f"grad_fn {type(L.grad_fn).__name__}")
+    if not all(launches.get(k, 0) > 0 for k in replay_kernels):
+        raise AssertionError(f"[grad] {what}: the replay launched {launches}")
+    total = float(L.detach().double().sum())
+    rel_s = abs(float(g_s) - total) / abs(total)
+    # the same gradient by autograd through the chain on the same lanes
+    kd2 = kd.detach().clone().requires_grad_()
+    col2 = col.detach().clone().requires_grad_()
+    wave = integrators._li_wavefront(with_leaves(kd2, col2), o, d, pix, smp, seed, cfg,
+                                     cone=cone)
+    g_kd2, g_col2 = torch.autograd.grad(wave.sum(), [kd2, col2])
+    scales = (float(g_kd2.abs().max()), float(g_col2.abs().max()))
+    rel = [float((g - g2).abs().max()) / sc_ if sc_ > 0 else float((g - g2).abs().max())
+           for g, g2, sc_ in ((g_kd, g_kd2, scales[0]), (g_col, g_col2, scales[1]))]
+    finite = (bool(torch.isfinite(g_kd).all() & torch.isfinite(g_col).all())
+              and math.isfinite(float(g_s)))
+    phase("grad", f"{what} band ({o.shape[0]} lanes, depth {cfg.max_depth}), {kernel} "
+          f"forward, path-replay backward: forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms "
+          f"(the first forward and backward on the card {cold_ms:.2f} ms), "
+          f"peak memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); launches "
+          f"{launches}; d sum(L)/ds {float(g_s):.6f} against the kernel's sum(L) "
+          f"{total:.6f}: relative {rel_s:.3e} (bar 1e-3); against autograd through "
+          f"_li_wavefront, max diff / max entry: kd {rel[0]:.3e} (max entry {scales[0]:.6e}), "
+          f"texture colours {rel[1]:.3e} (max entry {scales[1]:.6e}); bar 1e-4")
+    L = forward()
+    phase("grad", f"{what} band, the replay backward profiled: " + profiled(
+        lambda: torch.autograd.grad(L.sum(), [s, kd, col])))
+    out = dict(metric=f"grad_replay_{what}_band", lanes=o.shape[0], depth=cfg.max_depth,
+               fwd_ms=fwd_ms, bwd_ms=bwd_ms, first_ms=cold_ms, peak_memory_bytes=peak,
+               launches=launches,
+               rel_s=rel_s, rel_kd=rel[0], rel_colour=rel[1], max_kd_grad=scales[0],
+               max_colour_grad=scales[1], device=device_name, power_limit=power_limit)
+    print(json.dumps(out), flush=True)
+    if not (finite and rel_s < 1e-3 and max(rel) < 1e-4 and max(scales) > 0.0):
+        raise AssertionError(f"[grad] {what}: the replay gradient is off")
+    return out
+
+
+def inverse_config5(dev, device_name: str, power_limit: str) -> dict:
+    """The ``[inverse]`` phase: BASELINE config 5 (benchmarks/
+    bench_inverse.py) on the card.  The target at 64x64, 64 spp, depth 3
+    with the true atlas and radiance; then ``steps`` Adam steps at 3e-2 on
+    the sigmoid atlas and the log radiance through ``render_wave`` (the
+    torch chain forward on the intersection kernels, autograd backward).
+    Prints the benchmark's JSON fields; fails unless the loss fell, the
+    visible texels' error fell and every loss and gradient is finite.
+    The launch counts are set to 0 just before the steps and read after."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import film as film_mod
+    from gopbrt_tpu_torch.models import gallery, render
+
+    w = h = INV_SIZE
+    spp, steps = INV_SPP, INV_STEPS
+    true_atlas, true_rad = gallery.config5_truth()
+    scene, cam, settings = gallery.config5(true_atlas, true_rad, w, h, device=dev)
+    n = w * h
+    pixel = torch.arange(n, device=dev).repeat(spp)
+    sample = torch.arange(spp, device=dev).repeat_interleave(n)
+
+    def render64(sc, off):
+        film = render.render_wave(sc, cam, film_mod.new_film(w, h, device=dev), settings,
+                                  pixel, sample + off)
+        return film.rgb / torch.clamp(film.weight[..., None], min=1e-8)
+
+    with torch.no_grad():
+        target = render64(scene, 1 << 20)
+        # the loss cannot fall below the MSE of two independent renders
+        noise_floor = float(torch.mean((render64(scene, 1 << 21) - target) ** 2))
+    logit = torch.zeros((16, 16, 3), device=dev, requires_grad=True)  # sigmoid(0) = 0.5
+    log_rad = torch.full((3,), math.log(10.0), device=dev, requires_grad=True)
+    opt = torch.optim.Adam([logit, log_rad], lr=3e-2)
+    losses, finite, vis = [], torch.ones((), dtype=torch.bool, device=dev), None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    t_first = time.perf_counter()
+    def step(k):
+        opt.zero_grad()
+        with record_function("inverse.forward"):
+            sc = scene._replace(
+                textures=scene.textures._replace(atlas=torch.sigmoid(logit)),
+                lights=scene.lights._replace(intensity=torch.exp(log_rad)[None, :]))
+            loss = torch.mean((render64(sc, k * spp) - target) ** 2)
+        with record_function("inverse.backward"):
+            loss.backward()
+        with record_function("inverse.adam"):
+            opt.step()
+        return loss
+
+    for k in range(steps):
+        if k == 1:
+            t0 = time.perf_counter()
+        loss = step(k)
+        if vis is None:
+            # the texels the view constrains: nonzero gradient at the start
+            vis = (logit.grad.abs().amax(dim=-1) > 1e-7).cpu().numpy()
+        finite &= torch.isfinite(logit.grad).all() & torch.isfinite(log_rad.grad).all()
+        losses.append(float(loss))
+        if k == 0:
+            first_ms = (time.perf_counter() - t_first) * 1e3
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t0) / max(steps - 1, 1) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.LAUNCHES)
+    # one more step under the profiler, after the timed ones (its update is
+    # not in the results below)
+    state = (logit.detach().clone(), log_rad.detach().clone())
+    prof_line = profiled(lambda: step(steps),
+                         ("inverse.forward", "inverse.backward", "inverse.adam"))
+    with torch.no_grad():
+        logit.copy_(state[0])
+        log_rad.copy_(state[1])
+    atlas = torch.sigmoid(logit).detach().cpu().numpy()
+    err0 = np.abs(0.5 - true_atlas).max(-1)
+    err = np.abs(atlas - true_atlas).max(-1)
+    rad_err = float(np.abs(np.exp(log_rad.detach().cpu().numpy()) - true_rad).mean())
+    out = {
+        "metric": "inverse_rendering_config5", "image": f"{w}x{h}", "spp_per_step": spp,
+        "steps": steps, "loss_first": losses[0], "loss_last": losses[-1],
+        "mc_noise_floor": noise_floor, "visible_texels": int(vis.sum()),
+        "atlas_mae_visible_init": float(err0[vis].mean()),
+        "atlas_mae_visible_final": float(err[vis].mean()),
+        "radiance_mae_final": rad_err, "ms_per_step": ms_per_step,
+        "first_step_ms": first_ms, "peak_memory_bytes": peak, "launches": launches,
+        "device": device_name, "power_limit": power_limit,
+    }
+    print(json.dumps(out), flush=True)
+    phase("inverse", f"config 5, {steps} Adam steps of {w}x{h} x {spp} spp ({n * spp} lanes), "
+          f"depth 3: loss {losses[0]:.6f} -> {losses[-1]:.6f} (noise floor {noise_floor:.6f}), "
+          f"visible-texel atlas MAE {out['atlas_mae_visible_init']:.4f} -> "
+          f"{out['atlas_mae_visible_final']:.4f} on {int(vis.sum())} texels, radiance MAE "
+          f"{rad_err:.3f}; {ms_per_step:.2f} ms per step (first {first_ms:.2f}), peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}")
+    phase("inverse", f"one more step profiled (a timed step took {ms_per_step:.2f} ms): "
+          + prof_line)
+    all_finite = bool(finite) and all(math.isfinite(x) for x in losses)
+    if not (all_finite and losses[-1] < losses[0]
+            and out["atlas_mae_visible_final"] < out["atlas_mae_visible_init"]):
+        raise AssertionError("[inverse] config 5 did not train: " + json.dumps(out))
+    if not (launches.get("intersect", 0) > 0 and launches.get("intersect_any", 0) > 0
+            and "megakernel" not in launches):
+        raise AssertionError(f"[inverse] the trainer launched {launches}")
+    return out
 
 
 def main() -> int:
@@ -982,6 +1204,14 @@ def main() -> int:
     # the mesh scene: kernels #4 and #5, their checks, times and bounds
     mesh = mesh_checks(dev, band_rows)
 
+    # gradients: the bounce kernels forward, the path replay backward
+    grad_demo = grad_check("demo", scene, (o, d, pixel, sample, cfg, cone), settings.seed,
+                           "megakernel", ("intersect", "intersect_any"), device_name,
+                           power_limit)
+    grad_mesh = grad_check("mesh", mesh["scene"], mesh["band"], mesh["settings"].seed,
+                           "mesh_megakernel", ("bvh_intersect", "bvh_intersect_any"),
+                           device_name, power_limit)
+
     # kernel and plain times at the main paths' launch shapes (CUDA events,
     # medians); the bounds count what these inputs need
     kernel_ms = cuda_ms(launch, reps=9)
@@ -1123,6 +1353,13 @@ def main() -> int:
     # device ms per pass of each kernel, from the profiled passes
     per_pass = {**own_d, **own_1, **own_m}
 
+    # config 5: the inverse-rendering trainer
+    inverse = inverse_config5(dev, device_name, power_limit)
+    slice_launches = {}
+    for counts in (grad_demo["launches"], grad_mesh["launches"], inverse["launches"]):
+        for k, v in counts.items():
+            slice_launches[k] = slice_launches.get(k, 0) + v
+
     # ---- 5. kernels line ------------------------------------------------
     line = [{
         "name": "megakernel", "route": "cuda",
@@ -1164,6 +1401,8 @@ def main() -> int:
             last = mesh["timing"][name + "_last"]
             row.update(ms_last_launch=last[0], bound_ms_last_launch=last[2])
         line.append(row)
+    for row in line:  # the [grad] and [inverse] paths' launches of each kernel
+        row["launches_grad_inverse"] = slice_launches.get(row["name"], 0)
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Film: filtered sample accumulation, development and PNG output.
 
 Counterpart of ``gopbrt_tpu/models/film.py`` (``Film``, ``new_film``,
-``add_samples_rows``, ``develop``, ``srgb_encode``, ``to_uint8``,
-``write_png``).  Unlike the JAX version, ``add_samples_rows`` accumulates
-into the film's tensors in place (one 1080p film is 33 MB; a pass makes no
-copy of it) and returns the same film.
+``add_samples``, ``add_samples_rows``, ``develop``, ``srgb_encode``,
+``to_uint8``, ``write_png``).  Unlike the JAX version, ``add_samples_rows``
+accumulates into the film's tensors in place (one 1080p film is 33 MB; a
+pass makes no copy of it) and returns the same film; autograd records the
+in-place fold, so the film carries a gradient to L where L has one.
+``add_samples`` is out of place, as the reference's scatter.
 """
 
 from __future__ import annotations
@@ -33,6 +35,44 @@ def new_film(width: int, height: int, device=None) -> Film:
         rgb=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
         weight=torch.zeros((height, width), dtype=torch.float32, device=device),
     )
+
+
+def _splat_index(i: torch.Tensor, size: int):
+    """A tap index as the reference's ``.at[i].add(mode="drop")`` takes it:
+    a negative index counts from the end (JAX normalizes indices from
+    -size to -1 before the drop), any other outside [0, size) is dropped ->
+    (the index clamped into the film, whether the tap lands)."""
+    i = torch.where(i < 0, i + size, i)
+    inside = (i >= 0) & (i < size)
+    return torch.clamp(i, 0, size - 1), inside
+
+
+def add_samples(film: Film, p_film: torch.Tensor, L: torch.Tensor,
+                filt: Filter = box_filter(1.0)) -> Film:
+    """Splat samples at continuous film coordinates p_film f32[N,2] with
+    radiance L f32[N,3] (film.go:211-248 AddSample; film.py:43-70): each
+    sample's filter support as a static K x K set of scatter taps, added
+    out of place with ``index_put(accumulate=True)``; a tap that does not
+    land adds 0.  Differentiable with respect to L."""
+    h, w = film.weight.shape
+    r = filt.radius
+    # discrete pixels touched: ceil(p - 0.5 - r) .. floor(p - 0.5 + r)
+    k = int(np.floor(2 * r)) + 1
+    base_x = torch.ceil(p_film[:, 0] - 0.5 - r).long()
+    base_y = torch.ceil(p_film[:, 1] - 0.5 - r).long()
+    rgb, wsum = film.rgb, film.weight
+    for oy in range(k):
+        for ox in range(k):
+            px, py = base_x + ox, base_y + oy
+            # offset from the pixel center to the sample (film.go:232-241)
+            fw = evaluate(filt, px.to(torch.float32) + 0.5 - p_film[:, 0],
+                          py.to(torch.float32) + 0.5 - p_film[:, 1])
+            xi, x_in = _splat_index(px, w)
+            yi, y_in = _splat_index(py, h)
+            fw = torch.where(x_in & y_in, fw, 0.0)
+            rgb = rgb.index_put((yi, xi), fw[:, None] * L, accumulate=True)
+            wsum = wsum.index_put((yi, xi), fw, accumulate=True)
+    return Film(rgb=rgb, weight=wsum)
 
 
 def add_samples_rows(film: Film, row0: int, jitter: torch.Tensor,

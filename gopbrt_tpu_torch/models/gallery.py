@@ -6,7 +6,9 @@ Counterpart of ``gopbrt_tpu/models/gallery.py``:
   2. a Cornell-style box: matte walls and a mirror sphere, path depth 5;
   3. a triangle mesh (1,104 triangles) under the SAH BVH, textured matte
      and plastic, path depth 3;
-  4. area lights, MIS and smooth glass, path depth 8.
+  4. area lights, MIS and smooth glass, path depth 8;
+  5. inverse rendering: an image-textured sphere and one area light
+     (``config5``, its ground truth ``config5_truth``), path depth 3.
 
 Each builder returns (scene, camera, settings) with the tables on
 ``device`` (None = the card).  Configs 1, 2 and 4 build no BVH, as the JAX
@@ -14,6 +16,8 @@ ones do (accelerator="none").
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from gopbrt_tpu_torch.models import camera as cam_mod
 from gopbrt_tpu_torch.models.render import RenderSettings
@@ -88,6 +92,35 @@ def config4(width=64, height=64, device=None):
     )
     settings = RenderSettings(width=width, height=height, spp=16, max_depth=8,
                               integrator="path", samples_per_pass=4, seed=3)
+    return b.build(accelerator="none", device=device), cam, settings
+
+
+def config5_truth():
+    """The ground truth of BASELINE config 5 (benchmarks/bench_inverse.py:
+    67-72): a smooth RGB gradient as a 16x16 albedo atlas, and a warm lamp
+    -> (atlas f32[16,16,3], radiance f32[3]) as NumPy arrays."""
+    yy, xx = np.mgrid[0:16, 0:16].astype(np.float32) / 15.0
+    atlas = np.stack([0.2 + 0.7 * xx, 0.2 + 0.7 * yy, 0.9 - 0.6 * xx * yy], -1)
+    return atlas.astype(np.float32), np.asarray([26.0, 22.0, 18.0], np.float32)
+
+
+def config5(atlas, radiance, width=64, height=64, device=None):
+    """Inverse rendering (BASELINE config 5; the scene of
+    benchmarks/bench_inverse.py:37-58): an image-textured sphere (``atlas``,
+    uv-mapped) on a matte floor disk under one sphere area light of
+    ``radiance``, path depth 3, 64 spp a gradient step."""
+    b = SceneBuilder()
+    b.disk(geom.rotate_x(-90.0), 40.0, b.matte(kd=(0.4, 0.4, 0.4)))
+    tex = b.image_texture(atlas)
+    b.sphere(geom.translate([0.0, 1.0, 0.0]), 1.0, b.matte(kd=(1.0, 1.0, 1.0), kd_tex=tex))
+    lamp = b.sphere(geom.translate([-2.0, 3.5, 2.0]), 0.5, b.matte(kd=(0.0, 0.0, 0.0)))
+    b.area_light(lamp, radiance=tuple(float(x) for x in radiance), two_sided=False)
+    cam = cam_mod.perspective_camera(
+        geom.look_at([0.0, 1.6, 4.0], [0.0, 0.9, 0.0], [0.0, 1.0, 0.0]),
+        width, height, fov_deg=40.0, device=device,
+    )
+    settings = RenderSettings(width=width, height=height, spp=64, max_depth=3,
+                              samples_per_pass=1)
     return b.build(accelerator="none", device=device), cam, settings
 
 

@@ -34,7 +34,7 @@ from gopbrt_tpu_torch.ops import geom
 from gopbrt_tpu_torch.ops import intersect as isect
 from gopbrt_tpu_torch.ops import lights as light_ops
 from gopbrt_tpu_torch.ops import texture as tex_ops
-from gopbrt_tpu_torch.ops.geom import dot, normalize
+from gopbrt_tpu_torch.ops.geom import dot, gather_rows, normalize
 from gopbrt_tpu_torch.ops.rng import (  # noqa: F401  (re-exports)
     D_BSDF_LOBE,
     D_BSDF_UV,
@@ -129,20 +129,20 @@ def _light_pick_pmf(scene, light_idx):
 def _material_at(scene, si: isect.SurfaceInteraction, fw=None) -> bsdf_ops.MaterialParams:
     """Material parameters at the hits, textures evaluated
     (ComputeScatteringFunctions; integrators.py:281-320).  The one-hot
-    matmul of the JAX version is a TPU device; a row gather reads the same
-    rows."""
+    matmul of the JAX version is a TPU device; ``geom.gather_rows`` reads
+    the same rows."""
     mats = scene.materials
     mid = scene.prims.material_id[si.prim_idx.long()].long()
     kd_tex = mats.kd_tex[mid]
     kd_sampled = tex_ops.eval_spectrum(scene.textures, kd_tex, si.p, si.uv, fw=fw)
     return bsdf_ops.MaterialParams(
         mat_type=mats.mat_type[mid],
-        kd=torch.where((kd_tex >= 0)[..., None], kd_sampled, mats.kd[mid]),
-        sigma=mats.sigma[mid],
-        kr=mats.kr[mid],
-        kt=mats.kt[mid],
-        eta=mats.eta[mid],
-        roughness=mats.roughness[mid],
+        kd=torch.where((kd_tex >= 0)[..., None], kd_sampled, gather_rows(mats.kd, mid)),
+        sigma=gather_rows(mats.sigma, mid),
+        kr=gather_rows(mats.kr, mid),
+        kt=gather_rows(mats.kt, mid),
+        eta=gather_rows(mats.eta, mid),
+        roughness=gather_rows(mats.roughness, mid),
         info=mats.info,
     )
 
@@ -181,6 +181,7 @@ def _estimate_direct(scene, si, mp, ss, ts, ns, active, sampler: _Sampler,
     if n_lights == 0:
         return torch.zeros_like(si.p)
     if fixed_light is None:
+        # a discrete decision: the index carries no gradient (integrators.py:482-484)
         light_idx, pick_pmf = _light_pick(scene, sampler.u1(dim_base + D_LIGHT_PICK))
         uv_dim = dim_base + D_LIGHT_UV
     else:
@@ -283,27 +284,39 @@ def _footprint(st: PathState, cone_spread, t, si):
     return fw_hit, fw_hit * torch.rsqrt(torch.clamp(geom.absdot(si.n, si.wo), min=0.05))
 
 
-def _sample_bsdf(mp, si, ss, ts, ns, sampler: _Sampler, dim_base: int, beta):
+def _sample_bsdf(mp, si, ss, ts, ns, sampler: _Sampler, dim_base: int):
     """BSDF sampling at the hits (path.go:91-101) -> (the sample, its world
-    direction, whether it carries light, the updated throughput)."""
+    direction)."""
     bs = bsdf_ops.bsdf_sample(mp, _to_local(ss, ts, ns, si.wo),
                               sampler.u2(dim_base + D_BSDF_UV),
                               sampler.u1(dim_base + D_BSDF_LOBE))
-    wi_w = _to_world(ss, ts, ns, bs.wi)
-    cos_term = geom.absdot(wi_w, ns)
+    return bs, _to_world(ss, ts, ns, bs.wi)
+
+
+def _scatter(bs, wi_w, ns, beta, pdf):
+    """The throughput after the BSDF sample ``bs`` toward ``wi_w``, divided
+    by ``pdf`` -> (whether it carries light, the updated throughput)."""
     ok = (bs.pdf > 1e-9) & (torch.amax(torch.abs(bs.f), dim=-1) > 0.0)
+    cos_term = geom.absdot(wi_w, ns)
     beta = beta * torch.where(
-        ok[..., None], bs.f * (cos_term / torch.clamp(bs.pdf, min=1e-20))[..., None], 0.0)
-    return bs, wi_w, ok, beta
+        ok[..., None], bs.f * (cos_term / torch.clamp(pdf, min=1e-20))[..., None], 0.0)
+    return ok, beta
 
 
 def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
                  st: PathState, cone_spread=None) -> PathState:
     """One path-tracing bounce over the wavefront (integrators.py:654-957),
-    surface scenes only: one segment, no medium, subsurface or bump."""
+    surface scenes only: one segment, no medium, subsurface or bump.
+
+    The detached-sampling estimator of the reference: the hit search, the
+    sampled direction, its pdf in the throughput and in the next MIS
+    weight, and the roulette's survival scale carry no gradient
+    (integrators.py:696-697, 883, 889, 939, 951); the shading at the hit is
+    derived again from (t, prim) and keeps its gradient."""
     dim_base = DIM_BOUNCE_BASE + bounce_idx * DIMS_PER_BOUNCE
     t_lim = torch.where(st.alive, 1e30, 1e-4)
     hit_k, t_k, prim_k = _scene_intersect(scene, st.o, st.d, t_lim)
+    t_k, prim_k = t_k.detach(), prim_k.detach()
     hit = hit_k & st.alive
     t = torch.where(st.alive, t_k, 1e30)
     prim_idx = torch.where(st.alive, prim_k, 0)
@@ -318,7 +331,9 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     ss, ts, ns = _shading_frame(si)
     L = L + st.beta * _estimate_direct(scene, si, mp, ss, ts, ns, alive, sampler, dim_base)
 
-    bs, wi_w, ok, beta = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base, st.beta)
+    bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
+    wi_w = wi_w.detach()
+    ok, beta = _scatter(bs, wi_w, ns, st.beta, bs.pdf.detach())
     eta_scale = st.eta_scale * bs.eta_scale
     alive = alive & ok & (torch.amax(beta, dim=-1) > 0.0)
 
@@ -327,19 +342,21 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     q = torch.clamp(1.0 - rr_beta_max, min=0.05)
     do_rr = (bounce_idx >= cfg.rr_start_depth) & (rr_beta_max < cfg.rr_threshold)
     killed = do_rr & (sampler.u1(dim_base + D_RR) < q)
-    beta = beta * torch.where(do_rr & ~killed, 1.0 / (1.0 - q), 1.0)[..., None]
+    beta = beta * torch.where(do_rr & ~killed, 1.0 / (1.0 - q), 1.0).detach()[..., None]
 
     return PathState(
         o=isect.spawn_ray(si, wi_w), d=wi_w, beta=beta, L=L, eta_scale=eta_scale,
-        alive=alive & ~killed, specular=bs.is_specular, prev_bsdf_pdf=bs.pdf,
+        alive=alive & ~killed, specular=bs.is_specular, prev_bsdf_pdf=bs.pdf.detach(),
         cone_w=st.cone_w if cone_spread is None else fw_hit,
     )
 
 
 def _sanitize(L: torch.Tensor) -> torch.Tensor:
-    """NaN/Inf lanes to zero, negatives clamped (integrator.go:256-262)."""
+    """NaN/Inf lanes to zero, negatives clamped (integrator.go:256-262).
+    ``torch.maximum``, not ``clamp``: at a channel that is exactly 0 it
+    passes half the gradient, as the reference's ``jnp.maximum`` does."""
     bad = ~torch.all(torch.isfinite(L), dim=-1)
-    return torch.where(bad[..., None], 0.0, torch.clamp(L, min=0.0))
+    return torch.where(bad[..., None], 0.0, torch.maximum(L, torch.zeros_like(L)))
 
 
 def _li_wavefront(scene, o, d, pixel, sample, seed, cfg: PathConfig = PathConfig(),
@@ -406,7 +423,8 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
                                                sampler, dim_base)
         # specular lanes recurse (directlighting.go:97-101); diffuse lanes
         # get one MIS segment
-        bs, wi_w, ok, beta = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base, st.beta)
+        bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
+        ok, beta = _scatter(bs, wi_w, ns, st.beta, bs.pdf)
         st = PathState(
             o=isect.spawn_ray(si, wi_w), d=wi_w, beta=beta, L=L,
             eta_scale=st.eta_scale, alive=alive & ok, specular=bs.is_specular,

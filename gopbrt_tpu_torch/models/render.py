@@ -1,7 +1,8 @@
 """Render driver: row bands of one sample per pixel, splatted into a film.
 
 Counterpart of ``gopbrt_tpu/models/render.py``: ``RenderSettings``,
-``camera_samples``, ``band_jitter_radiance``, ``render_wave_rows``,
+``camera_samples``, ``render_wave`` (explicit pixel-sample lanes, splatted
+by scatter), ``band_jitter_radiance``, ``render_wave_rows``,
 ``render_pass`` and ``render``.  Where the JAX driver scans the bands under
 ``jit``, this one is a Python loop: one ``li`` (path) or ``li_direct``
 (direct lighting) call per band.  Crop windows, checkpoints, the Halton
@@ -87,6 +88,32 @@ def _cone(camera: cam_mod.Camera, settings: RenderSettings):
     return float(np.float32(w0) * s), float(np.float32(spread) * s)
 
 
+def _radiance(scene, o, d, pixel, sample, camera, settings: RenderSettings):
+    """Radiance of the rays under the settings' integrator."""
+    if settings.integrator == "direct":
+        return integrators.li_direct(scene, o, d, pixel, sample, settings.seed,
+                                     max_depth=settings.max_depth,
+                                     cone=_cone(camera, settings),
+                                     light_strategy=settings.light_strategy)
+    if settings.integrator != "path":
+        raise ValueError(f"unknown integrator {settings.integrator!r}")
+    return integrators.li(scene, o, d, pixel, sample, settings.seed,
+                          path_config(settings), cone=_cone(camera, settings))
+
+
+def render_wave(scene, camera: cam_mod.Camera, film: film_mod.Film,
+                settings: RenderSettings, pixel_idx: torch.Tensor,
+                sample_idx: torch.Tensor) -> film_mod.Film:
+    """Render one wavefront, a lane per (pixel, sample) pair given as int64
+    counters, and splat it with ``film.add_samples`` (render.py:120-156).
+    Out of place: returns a new film, differentiable with respect to the
+    scene's tensors that the integrator reads."""
+    p_film, u_lens = camera_samples(settings, pixel_idx, sample_idx, settings.seed)
+    o, d = cam_mod.generate_rays(camera, p_film, u_lens)
+    L = _radiance(scene, o, d, pixel_idx, sample_idx, camera, settings)
+    return film_mod.add_samples(film, p_film, L, settings.filter)
+
+
 def band_rays(camera: cam_mod.Camera, settings: RenderSettings, row0: int,
               n_rows: int, sample_idx: int):
     """Camera rays of one sample for every pixel of the band of ``n_rows``
@@ -122,14 +149,7 @@ def band_jitter_radiance(scene, camera: cam_mod.Camera, settings: RenderSettings
         jitter, o, d, pixel, sample = band_rays(camera, settings, row0, n_rows,
                                                 sample_idx)
     with record_function("render.li"):
-        if settings.integrator == "direct":
-            L = integrators.li_direct(scene, o, d, pixel, sample, settings.seed,
-                                      max_depth=settings.max_depth,
-                                      cone=_cone(camera, settings),
-                                      light_strategy=settings.light_strategy)
-        else:
-            L = integrators.li(scene, o, d, pixel, sample, settings.seed,
-                               path_config(settings), cone=_cone(camera, settings))
+        L = _radiance(scene, o, d, pixel, sample, camera, settings)
     w = settings.width
     return jitter.reshape(n_rows, w, 2), L.reshape(n_rows, w, 3)
 

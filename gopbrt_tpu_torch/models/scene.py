@@ -4,13 +4,14 @@ Counterpart of ``gopbrt_tpu/models/scene.py``: ``Scene``, ``Materials`` and
 the subset of ``SceneBuilder`` that the port runs — spheres, disks and
 world-space triangles; matte (Lambert and Oren-Nayar), mirror, glass
 (smooth and rough), plastic and metal; constant, checkerboard (planar and
-uv mapping) and uv textures; point, distant, and sphere- and disk-area
-lights under the uniform or the power light distribution; triangle meshes
-and the SAH BVH (``accelerator="bvh"``, built on the host by
-``ops/bvh.build_from_bounds``).  The builder runs in NumPy on the host and
-``build`` ends in ``torch.as_tensor(..., device=device)``.  Image textures,
-bump mapping, subsurface and null materials, media, animation and the
-spatial light grid raise ``NotImplementedError`` naming their ROADMAP item.
+uv mapping), uv and image textures (one atlas, the images stacked
+vertically); point, distant, and sphere- and disk-area lights under the
+uniform or the power light distribution; triangle meshes and the SAH BVH
+(``accelerator="bvh"``, built on the host by ``ops/bvh.build_from_bounds``).
+The builder runs in NumPy on the host and ``build`` ends in
+``torch.as_tensor(..., device=device)``.  Bump mapping, subsurface and null
+materials, media, animation and the spatial light grid raise
+``NotImplementedError`` naming their ROADMAP item.
 
 ``scene_from_arrays`` carries a scene across from tables given as NumPy
 arrays, the tree included, so the tests render identical tables in both
@@ -164,7 +165,7 @@ class SceneBuilder:
     def constant_texture(self, rgb) -> int:
         return self._add_texture(
             dict(type=TEX_CONSTANT, v1=_rgb(rgb), v2=(0, 0, 0), mapping=MAP_UV,
-                 vs=(1, 0, 0), vt=(0, 1, 0), dsdt=(0, 0))
+                 vs=(1, 0, 0), vt=(0, 1, 0), dsdt=(0, 0), image=None)
         )
 
     def checkerboard_texture(
@@ -176,18 +177,26 @@ class SceneBuilder:
         return self._add_texture(
             dict(type=TEX_CHECKERBOARD, v1=_rgb(tex1_rgb), v2=_rgb(tex2_rgb),
                  mapping=MAP_PLANAR if mapping == "planar" else MAP_UV,
-                 vs=tuple(vs), vt=tuple(vt), dsdt=(ds, dt))
+                 vs=tuple(vs), vt=tuple(vt), dsdt=(ds, dt), image=None)
         )
 
     def uv_texture(self) -> int:
         """The (u, v) debug texture."""
         return self._add_texture(
             dict(type=TEX_UV, v1=(0, 0, 0), v2=(0, 0, 0), mapping=MAP_UV,
-                 vs=(1, 0, 0), vt=(0, 1, 0), dsdt=(0, 0))
+                 vs=(1, 0, 0), vt=(0, 1, 0), dsdt=(0, 0), image=None)
         )
 
     def image_texture(self, image, su=1.0, sv=1.0) -> int:
-        _not_ported("image textures", "open item 1.7")
+        """Image texture from an [H, W, 3] float array, uv-mapped with scales
+        (su, sv) (scene.py:210-216)."""
+        img = np.asarray(image, np.float32)
+        if img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"an image texture is [H, W, 3], got {img.shape}")
+        return self._add_texture(
+            dict(type=TEX_IMAGE, v1=(0, 0, 0), v2=(0, 0, 0), mapping=MAP_UV,
+                 vs=(su, 0, 0), vt=(0, sv, 0), dsdt=(0, 0), image=img)
+        )
 
     # --- materials --------------------------------------------------------
 
@@ -448,8 +457,7 @@ class SceneBuilder:
             "textures.vs": [r["vs"] for r in texs],
             "textures.vt": [r["vt"] for r in texs],
             "textures.dsdt": [r["dsdt"] for r in texs],
-            "textures.atlas": np.zeros((1, 1, 3), np.float32),
-            "textures.image_rect": [(0, 0, 1, 1)] * len(texs),
+            **_atlas(texs),
             "lights.light_type": [r["type"] for r in lights],
             "lights.p": [r["p"] for r in lights],
             "lights.intensity": [r["intensity"] for r in lights],
@@ -531,6 +539,28 @@ class SceneBuilder:
                             has_rough_glass=has_rough_glass)
 
 
+def _atlas(texs: list) -> dict:
+    """The images of the texture rows stacked vertically into one atlas,
+    and each row's window (y0, x0, h, w) in it; (0, 0, 1, 1) and a 1x1 black
+    atlas where there are none (scene.py:693-725)."""
+    images = [r["image"] for r in texs if r["image"] is not None]
+    if not images:
+        return {"textures.atlas": np.zeros((1, 1, 3), np.float32),
+                "textures.image_rect": [(0, 0, 1, 1)] * len(texs)}
+    atlas = np.zeros((sum(im.shape[0] for im in images),
+                      max(im.shape[1] for im in images), 3), np.float32)
+    rects, y = [], 0
+    for r in texs:
+        im = r["image"]
+        if im is None:
+            rects.append((0, 0, 1, 1))
+            continue
+        atlas[y:y + im.shape[0], :im.shape[1]] = im
+        rects.append((y, 0, im.shape[0], im.shape[1]))
+        y += im.shape[0]
+    return {"textures.atlas": atlas, "textures.image_rect": rects}
+
+
 def _as_table(value, device) -> torch.Tensor:
     a = np.array(value)  # a writable copy
     if a.dtype == np.bool_:
@@ -555,8 +585,6 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
         return {f: _as_table(arrays[f"{name}.{f}"], device)
                 for f in ARRAY_FIELDS[name]}
 
-    if TEX_IMAGE in np.asarray(arrays["textures.tex_type"]).tolist():
-        _not_ported("image textures", "open item 1.7")
     pinfo = PrimInfo(**{**infos["pinfo"], "types": tuple(infos["pinfo"]["types"])})
     minfo = MatInfo(**{**infos["minfo"],
                        "mat_types": tuple(infos["minfo"]["mat_types"])})
@@ -564,7 +592,8 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
     scene = Scene(
         prims=Primitives(**group("prims"), pinfo=pinfo),
         materials=Materials(**group("materials"), info=minfo),
-        textures=Textures(**group("textures")),
+        textures=Textures(**group("textures"), has_image=TEX_IMAGE in np.asarray(
+            arrays["textures.tex_type"]).tolist()),
         lights=Lights(**group("lights")),
         fastinfo=FastPathInfo(**infos["fastinfo"]),
         **top,

@@ -224,14 +224,43 @@ def bounds_intersect_p(lo, hi, o, d, t_max, inv_d=None) -> torch.Tensor:
     return (tn <= tf) & (tf > 0.0) & (tn < t_max)
 
 
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for table [P, ...] and int32 or int64 idx [N] -> [N, ...].
+    The JAX package's one-hot matmul (intersect.py:436) is a TPU device;
+    here ``index_select``, whose backward adds the lanes' gradients with
+    atomics (``index_add``).  Plain ``table[idx]`` gives the same rows, but
+    its backward on CUDA sorts the indices and adds each row's duplicates
+    in one serial loop: with ~10^5 lanes on a few dozen rows that took 97%
+    of a gradient step's device time on an H100 (PERF.md)."""
+    return torch.index_select(table, 0, idx)
+
+
+class _NextafterAway(torch.autograd.Function):
+    """Each component of po one ulp away from zero where offset != 0.
+
+    ``torch.nextafter`` has no derivative; the op is a sub-ulp rounding, so
+    the backward is the identity to po and nothing to offset (the custom
+    JVP of geom.py:321-341)."""
+
+    @staticmethod
+    def forward(po, offset):
+        inf = torch.tensor(float("inf"), dtype=po.dtype, device=po.device)
+        up = torch.where(po > 0, torch.nextafter(po, inf), po)
+        dn = torch.where(po < 0, torch.nextafter(po, -inf), po)
+        return torch.where(offset > 0, up, torch.where(offset < 0, dn, po))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def _nextafter_away(po: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
-    """Each component of po one ulp away from zero where offset != 0.  The
-    forward pass only: the identity JVP of geom.py:335 comes with the
-    gradients slice."""
-    inf = torch.tensor(float("inf"), dtype=po.dtype, device=po.device)
-    up = torch.where(po > 0, torch.nextafter(po, inf), po)
-    dn = torch.where(po < 0, torch.nextafter(po, -inf), po)
-    return torch.where(offset > 0, up, torch.where(offset < 0, dn, po))
+    """Each component of po one ulp away from zero where offset != 0."""
+    return _NextafterAway.apply(po, offset)
 
 
 def offset_ray_origin(p: torch.Tensor, p_err: torch.Tensor, n: torch.Tensor,

@@ -2,8 +2,8 @@
 
 Counterpart of ``gopbrt_tpu/ops/intersect.py``: ``Primitives``,
 ``SurfaceInteraction``, the per-shape hit geometry (``_sphere_geometry``,
-``_disk_geometry``, ``_triangle_geometry``), ``gather_rows``,
-``surface_interaction`` (phase 2: the full hit record of a known winner)
+``_disk_geometry``, ``_triangle_geometry``; the rows through
+``geom.gather_rows``), ``surface_interaction`` (phase 2: the full hit record of a known winner)
 and ``spawn_ray``.  The t-only shape tests (phase 1) live in
 ``ops/brute_intersect.py`` (plain PyTorch) and ``csrc/prim_test.cuh``
 (CUDA).  Animated primitives (``AnimPrims``) are not ported.
@@ -143,13 +143,6 @@ def _triangle_geometry(o, d, t, params):
     return p, gamma(7) * torch.abs(p), n, uv, e1, e2
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] for table [P, ...] and idx int[N] -> [N, ...].  The JAX
-    package's one-hot matmul (intersect.py:436) is a TPU device; a row
-    gather gives the same rows."""
-    return table[idx.long()]
-
-
 def _det3(m: torch.Tensor) -> torch.Tensor:
     """Determinant of the 3x3 blocks of m [..., 4, 4], by cofactors."""
     a = m[..., :3, :3]
@@ -165,11 +158,11 @@ def surface_interaction(prims: Primitives, hit, t, prim_idx, o, d) -> SurfaceInt
     has_xf = SPHERE in types or DISK in types  # shapes stored in object space
     idx = prim_idx.long()
     ptype = prims.prim_type[idx]
-    params = gather_rows(prims.params, idx)
+    params = geom.gather_rows(prims.params, idx)
     rev = prims.reverse_orientation[idx]
     if has_xf:
-        o2w = gather_rows(prims.obj_to_world, idx)
-        w2o = gather_rows(prims.world_to_obj, idx)
+        o2w = geom.gather_rows(prims.obj_to_world, idx)
+        w2o = geom.gather_rows(prims.world_to_obj, idx)
         oo = geom.lane_point(w2o, o)
         od = geom.lane_vector(w2o, d)
 

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 from gopbrt_tpu_torch.ops import geom
-from gopbrt_tpu_torch.ops.geom import PI, dot, length, length_sq, normalize
+from gopbrt_tpu_torch.ops.geom import PI, dot, gather_rows, length, length_sq, normalize
 from gopbrt_tpu_torch.ops.sampling import (
     concentric_sample_disk,
     uniform_cone_pdf,
@@ -138,9 +138,9 @@ def _sample_disk_li(o2w, w2o, params, ref_p, u2):
 
 def _rows(lights: Lights, idx):
     i = idx.long()
-    return (lights.light_type[i], lights.p[i], lights.intensity[i],
-            lights.two_sided[i], lights.o2w[i], lights.w2o[i], lights.params[i],
-            lights.shape_kind[i])
+    return (lights.light_type[i], gather_rows(lights.p, i), gather_rows(lights.intensity, i),
+            lights.two_sided[i], gather_rows(lights.o2w, i), gather_rows(lights.w2o, i),
+            gather_rows(lights.params, i), lights.shape_kind[i])
 
 
 def sample_li(lights: Lights, idx, ref_p, u2, world_radius) -> LiSample:
@@ -242,7 +242,7 @@ def le_emitted(lights: Lights, prims_area_light_id, prim_idx, n, wo):
     safe = torch.clamp(lid, min=0).long()
     facing = dot(n, wo) > 0.0
     out = torch.where((lights.two_sided[safe] | facing)[..., None],
-                      lights.intensity[safe], 0.0)
+                      gather_rows(lights.intensity, safe), 0.0)
     return torch.where((lid >= 0)[..., None], out, 0.0), lid
 
 

@@ -13,8 +13,15 @@ that follows it op for op; ``accel`` picks its intersector.
 Scope is the fast-path feature sets (ops/static_info.FastPathInfo): spheres
 and disks (``ok``), plus world-space triangles and plastic (``mesh_ok``);
 matte, mirror, smooth and rough glass; constant or planar-checker kd with
-the ray-cone box filter; point, distant and sphere-area lights.  The
-forward pass only: gradients (path replay) are a later slice.
+the ray-cone box filter; point, distant and sphere-area lights.
+
+The kernels are forward only.  ``path_li_fused`` and
+``mesh_megakernel.mesh_li_fused`` return their radiance through
+``replayed``, a ``torch.autograd.Function`` whose backward replays the same
+paths (the same counter streams) through the differentiable chain
+``integrators._li_wavefront`` and backpropagates there: path-replay
+backpropagation, as the reference's ``custom_vjp``
+(pallas_megakernel.py:1309-1357).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.ops import bvh as bvh_ops
@@ -1303,17 +1311,78 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     return launch
 
 
+# ---------------------------------------------------------------------------
+# Gradients: the kernel forward, a path-replay backward
+# ---------------------------------------------------------------------------
+
+
+class _Replay(torch.autograd.Function):
+    """The radiance of ``run()`` (a kernel launch, or a plain version under
+    no_grad), with a backward that replays the lanes through
+    ``replay(scene, o, d)``, the differentiable chain on the same counter
+    streams, and takes ``torch.autograd.grad`` there.  The scene's float
+    source tensors come in as arguments (``packed.float_sources``), so that
+    a gradient reaches them; the backward puts fresh leaves in their places
+    with ``_replace`` for those that need one."""
+
+    @staticmethod
+    def forward(ctx, run, replay, scene, paths, o, d, *sources):
+        ctx.replay, ctx.scene, ctx.paths = replay, scene, paths
+        ctx.save_for_backward(o, d, *sources)
+        return run()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[4:]
+        inputs = [x.detach().requires_grad_() if n else x
+                  for x, n in zip(ctx.saved_tensors, need)]
+        leaves = [x for x, n in zip(inputs, need) if n]
+        with torch.enable_grad():
+            scene = packed.replace_sources(
+                ctx.scene, [p for p, n in zip(ctx.paths, need[2:]) if n],
+                [x for x, n in zip(inputs[2:], need[2:]) if n])
+            L = ctx.replay(scene, inputs[0], inputs[1])
+            got = iter(torch.autograd.grad(L, leaves, grad, allow_unused=True))
+        return (None, None, None, None, *(next(got) if n else None for n in need))
+
+
+def replayed(run, scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Tensor:
+    """``run()``'s radiance f32[N,3] for the lanes (o, d, pixel, sample),
+    connected by ``_Replay`` to the rays and to the scene's float source
+    tensors; the replay is ``_li_wavefront`` with the same seed and cfg.
+    The cone stays a pair of floats with no gradient: a cone tensor that
+    requires one raises.  A second derivative through the replay raises
+    (``once_differentiable``)."""
+    if cone is not None and any(torch.is_tensor(c) and c.requires_grad for c in cone):
+        raise ValueError("the ray cone is a pair of floats: no gradient reaches it")
+
+    def replay(scene_, o_, d_):
+        from gopbrt_tpu_torch.models import integrators
+
+        return integrators._li_wavefront(scene_, o_, d_, pixel, sample, seed, cfg, cone=cone)
+
+    paths, sources = zip(*packed.float_sources(scene))
+    return _Replay.apply(run, replay, scene, paths, o, d, *sources)
+
+
 def path_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Tensor:
     """Drop-in for integrators.li on fast-path scenes: radiance f32[N,3].
 
     CUDA tensors launch the kernel of ``csrc/megakernel.cu`` on the current
     stream; CPU tensors run ``path_li_plain``.  cone: optional
-    (width0, spread) ray-cone floats enabling the checker box filter.
+    (width0, spread) ray-cone floats enabling the checker box filter.  The
+    result carries a gradient to o, d and the scene's float tensors where
+    they need one, by path replay (``replayed``).
     """
     if o.device.type == "cpu":
-        pixel, sample = check_inputs(scene, o, d, pixel, sample)
-        return path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=cone)
-    out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
-    if o.shape[0] == 0:
-        return out
-    return make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out)()
+        def run():
+            p, s = check_inputs(scene, o, d, pixel, sample)
+            return path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone)
+    else:
+        def run():
+            out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
+            if o.shape[0] == 0:
+                return out
+            return make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out)()
+    return replayed(run, scene, o, d, pixel, sample, seed, cfg, cone)

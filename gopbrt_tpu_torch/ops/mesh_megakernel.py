@@ -131,12 +131,18 @@ def mesh_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Ten
     f32[N,3].  CUDA tensors launch csrc/mesh_megakernel.cu on the current
     stream; CPU tensors run ``path_li_plain(accel="bvh")``.  cone:
     optional (width0, spread) ray-cone floats enabling the checker box
-    filter."""
+    filter.  The result carries a gradient by path replay
+    (``megakernel.replayed``, pallas_mesh_megakernel.py:1521-1556): the
+    forward reads the build's material rows, the replay ``scene.materials``,
+    as in the reference."""
     if o.device.type == "cpu":
-        pixel, sample = mk.check_inputs(scene, o, d, pixel, sample, fits, _WHY)
-        return mk.path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=cone,
-                                accel="bvh")
-    out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
-    if o.shape[0] == 0:
-        return out
-    return make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out)()
+        def run():
+            p, s = mk.check_inputs(scene, o, d, pixel, sample, fits, _WHY)
+            return mk.path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone, accel="bvh")
+    else:
+        def run():
+            out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
+            if o.shape[0] == 0:
+                return out
+            return make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out)()
+    return mk.replayed(run, scene, o, d, pixel, sample, seed, cfg, cone)

@@ -2,9 +2,8 @@
 
 Counterpart of ``gopbrt_tpu/ops/texture.py``: the table types and
 ``eval_spectrum`` with ``_st`` (uv and planar mapping), ``_bump_int`` and
-``_checker_filtered`` (the ray-cone box filter).  Constant, checkerboard
-and uv textures are ported; the image atlas (``_image_lookup``) waits for
-the builder's ``image_texture`` and evaluates to black here.
+``_checker_filtered`` (the ray-cone box filter) and the bilinear image
+atlas lookup ``_image_lookup``.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from gopbrt_tpu_torch.ops.geom import dot
+from gopbrt_tpu_torch.ops.geom import dot, gather_rows
 
 TEX_CONSTANT = 0
 TEX_CHECKERBOARD = 1
@@ -36,20 +35,54 @@ class Textures(NamedTuple):
     dsdt: torch.Tensor  # f32[T,2] offsets
     atlas: torch.Tensor  # f32[H,W,3] image atlas (1x1 black if unused)
     image_rect: torch.Tensor  # int32[T,4]
+    # whether any row is an image texture, known at build: a table without
+    # one skips the atlas lookup (its lanes never select it)
+    has_image: bool = True
 
 
 def _st(tex: Textures, tex_id, p, uv):
     """Mapped (s, t) (UVMapping2D.Map / PlanarMapping2D.Map)."""
     mapping = tex.mapping[tex_id]
-    vs = tex.vs[tex_id]
-    vt = tex.vt[tex_id]
-    ds = tex.dsdt[tex_id]
+    vs = gather_rows(tex.vs, tex_id)
+    vt = gather_rows(tex.vt, tex_id)
+    ds = gather_rows(tex.dsdt, tex_id)
     s_uv = uv[..., 0] * vs[..., 0] + ds[..., 0]
     t_uv = uv[..., 1] * vt[..., 1] + ds[..., 1]
     s_pl = ds[..., 0] + dot(p, vs)
     t_pl = ds[..., 1] + dot(p, vt)
     is_uv = mapping == MAP_UV
     return torch.where(is_uv, s_uv, s_pl), torch.where(is_uv, t_uv, t_pl)
+
+
+def _image_lookup(tex: Textures, tex_id, s, t):
+    """Bilinear atlas fetch with wrap addressing (texture.py:80-110).
+
+    s and t are sanitized first: missed lanes carry garbage uv, and a NaN
+    uv makes the bilinear weights NaN, which the gather's backward would
+    scatter into the atlas gradient as NaN * 0."""
+    s = torch.nan_to_num(s, nan=0.0, posinf=0.0, neginf=0.0)
+    t = torch.nan_to_num(t, nan=0.0, posinf=0.0, neginf=0.0)
+    rect = tex.image_rect[tex_id].long()
+    y0, x0 = rect[..., 0], rect[..., 1]
+    h = torch.clamp(rect[..., 2], min=1)
+    w = torch.clamp(rect[..., 3], min=1)
+    fx = (s % 1.0) * w.to(torch.float32) - 0.5
+    fy = (t % 1.0) * h.to(torch.float32) - 0.5
+    x_lo = torch.floor(fx).long()
+    y_lo = torch.floor(fy).long()
+    ax = (fx - x_lo.to(torch.float32))[..., None]
+    ay = (fy - y_lo.to(torch.float32))[..., None]
+
+    atlas = tex.atlas.reshape(-1, 3)
+    width = tex.atlas.shape[1]
+
+    def fetch(yy, xx):
+        return gather_rows(atlas, (y0 + (yy % h)) * width + x0 + (xx % w))
+
+    return (fetch(y_lo, x_lo) * (1 - ax) * (1 - ay)
+            + fetch(y_lo, x_lo + 1) * ax * (1 - ay)
+            + fetch(y_lo + 1, x_lo) * (1 - ax) * ay
+            + fetch(y_lo + 1, x_lo + 1) * ax * ay)
 
 
 def _bump_int(x):
@@ -78,23 +111,24 @@ def eval_spectrum(tex: Textures, tex_id, p, uv, fw=None):
     """
     safe_id = torch.clamp(tex_id, min=0).long()
     ttype = tex.tex_type[safe_id]
-    v1 = tex.value1[safe_id]
-    v2 = tex.value2[safe_id]
+    v1 = gather_rows(tex.value1, safe_id)
+    v2 = gather_rows(tex.value2, safe_id)
     s, t = _st(tex, safe_id, p, uv)
     parity = (torch.floor(s).to(torch.int32) + torch.floor(t).to(torch.int32)) % 2
     checker = torch.where((parity == 0)[..., None], v1, v2)
     if fw is not None:
         # world-space cone width -> (s, t) widths by the mapping's scale
-        vs = tex.vs[safe_id]
-        vt = tex.vt[safe_id]
+        vs = gather_rows(tex.vs, safe_id)
+        vt = gather_rows(tex.vt, safe_id)
         scale_s = torch.sqrt(torch.sum(vs * vs, dim=-1))
         scale_t = torch.sqrt(torch.sum(vt * vt, dim=-1))
         checker = _checker_filtered(v1, v2, s, t, fw * scale_s, fw * scale_t)
     uv_dbg = torch.stack([uv[..., 0] % 1.0, uv[..., 1] % 1.0, torch.zeros_like(s)],
                          dim=-1)
+    img = _image_lookup(tex, safe_id, s, t) if tex.has_image else 0.0
     out = torch.where(
         (ttype == TEX_CONSTANT)[..., None], v1,
         torch.where((ttype == TEX_CHECKERBOARD)[..., None], checker,
-                    torch.where((ttype == TEX_UV)[..., None], uv_dbg, 0.0)),
+                    torch.where((ttype == TEX_UV)[..., None], uv_dbg, img)),
     )
     return torch.where((tex_id < 0)[..., None], 0.0, out)

@@ -65,7 +65,7 @@ def test_non_uniform_scale_leaves_the_fast_path():
 
 
 @pytest.mark.parametrize("call", [
-    lambda b: b.image_texture(np.zeros((4, 4, 3), np.float32)),
+    lambda b: b.add_medium((0.1, 0.1, 0.1)),
     lambda b: b.subsurface(),
     lambda b: b.matte(bump_tex=0),
     lambda b: b.set_medium((0.1, 0.1, 0.1)),
