@@ -39,6 +39,14 @@ non-zero and never prints the last line:
      base scene's result: the megakernel on the demo band with kd and the
      lights' intensity changed, ``li_direct`` on the brute kernels with the
      spheres moved, the mesh megakernel with the lights' intensity changed;
+   - media and subsurface (``family_checks``): every #2 / #3 launch of
+     ``_li_wavefront`` over one 960x544 band of each of the reference's
+     media and subsurface families (bounded media: closest hits at a finite
+     t_max for the null-boundary walks; global fog; the BSSRDF's probe
+     chords), each family's chain on the kernels against it on the plain
+     intersection, ``li_direct`` with the fog, the BSSRDF and a bump-mapped
+     matte (256x256), and d sum(L) / d kd of the SSS sphere and the fog
+     floor at 128x128 on the kernels against the plain intersection;
 4. main paths, each through ``render_pass`` with the launch counts set to 0
    just before it and read just after; one warm-up pass, then 5 timed passes
    and one more under ``torch.profiler`` (host ms of each ``render.*`` range,
@@ -54,6 +62,10 @@ non-zero and never prints the last line:
      bench_mesh.py's workload): 4 mesh megakernel launches per pass;
    - the metal mesh, the general chain on the BVH, at 1920x1080, depth 5:
      BVH walk launches only;
+   - the media and subsurface families of benchmarks/bench_families.py at
+     their size, 960x544, 1 spp (one band): bounded media (a fog ball
+     behind a null boundary) depth 5, 30 closest-hit launches a pass;
+     global fog depth 5, 5 + 5; subsurface depth 4, 8 + 4;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
    profiled passes.  The brute kernels are timed on every launch of the
@@ -807,6 +819,185 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
     return launches, launches_c, {**own_m, **own_c}
 
 
+# launches of #2 / #3 a pass of each family at one band (bench_families.py's
+# 960x544, 1 spp): bounded media 3 segments and a 3-step shadow walk of
+# closest hits a bounce (a null material: no any hit); global fog a hit and
+# a shadow ray a bounce; subsurface a hit, the probe's chord and a shadow ray
+FAMILY_LAUNCHES = {"bounded_media": {"intersect": 30},
+                   "global_fog": {"intersect": 5, "intersect_any": 5},
+                   "sss": {"intersect": 8, "intersect_any": 4}}
+FAM_GRAD_SIZE = 128
+
+
+def bump_scene(device, size=256):
+    """A bump-mapped matte sphere (a 32x32 uv checker as its height, scale
+    0.5, tests/test_torch_media_chain.py's scene) on a floor under a point
+    light, and its camera."""
+    from gopbrt_tpu_torch.models import camera as cam_mod
+    from gopbrt_tpu_torch.models.scene import SceneBuilder
+    from gopbrt_tpu_torch.ops import geom
+
+    b = SceneBuilder()
+    tex = b.checkerboard_texture((1, 1, 1), (0, 0, 0), vs=(32.0, 0, 0), vt=(0, 32.0, 0),
+                                 mapping="uv")
+    b.sphere(geom.translate([0.0, 1.0, 0.0]), 1.0,
+             b.matte(kd=(0.5, 0.5, 0.5), bump_tex=tex, bump_scale=0.5))
+    b.disk(geom.rotate_x(-90.0), 20.0, b.matte(kd=(0.4, 0.4, 0.4)))
+    b.point_light(p=(3.0, 4.0, 3.0), intensity=(60.0,) * 3)
+    camera = cam_mod.perspective_camera(
+        geom.look_at([0.0, 1.5, 4.5], [0.0, 0.8, 0.0], [0.0, 1.0, 0.0]), size, size,
+        fov_deg=45.0, device=device)
+    return b.build(accelerator="none", device=device), camera
+
+
+def chains_agree(what: str, run, bar: float) -> torch.Tensor:
+    """``run()`` on the intersection kernels against ``run()`` on the plain
+    intersection, per lane (> ``bar`` within 1e-3) -> the kernels' result."""
+    got = run()
+    with plain_intersection():
+        ref = run()
+    frac, mean_rel, max_abs = agreement(got, ref)
+    phase("chain-vs-chain", f"{what} on the kernels vs on the plain intersection: "
+          f"{frac:.5f} of lanes within 1e-3, mean diff {mean_rel:.2e}, max abs err "
+          f"{max_abs:.3e}, mean L {float(ref.mean()):.6f}")
+    if not (frac > bar and bool(torch.isfinite(got).all()) and float(ref.mean()) > 0.0):
+        raise AssertionError(f"{what}: the kernels change the result")
+    return got
+
+
+def family_checks(dev, render, film_mod, device_name: str, power_limit: str) -> dict:
+    """Media and subsurface on the card (the media and subsurface families
+    of bench_families.py at their own size, and a bump-mapped matte):
+
+    - ``[kernel-vs-plain]``: every #2 / #3 launch of ``_li_wavefront`` over
+      one band of each family against the plain versions (instance, dead
+      lanes and those off the plain answer, which must be none; > 0.999
+      agree; no closest-hit prim other than the plain one clear of ties);
+    - ``[chain-vs-chain]``: each family's ``_li_wavefront`` on the kernels
+      against the same chain on the plain intersection (> 0.98 of lanes
+      within 1e-3); ``li_direct`` with the global fog, the BSSRDF and bump
+      (> 0.99); ``_li_wavefront`` on the bump scene at 256x256 (> 0.98);
+    - ``[main-path]``: ``render_pass`` of each family, 1 warm-up, 5 timed
+      passes with the launch counts set to 0 just before and read just
+      after (``FAMILY_LAUNCHES`` a pass), one profiled;
+    - ``[grad]``: d sum(L) to the SSS sphere's albedo and the fog floor's
+      kd at 128x128, the chain on the kernels against the chain on the
+      plain intersection (1e-4 of the largest entry).
+
+    -> {"launches": {family: launch counts of the timed passes}, "worst":
+    {kind: (least agreement, max abs t error)}, "dead": [dead lanes, off]}."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import gallery, integrators
+
+    out = {"launches": {}, "worst": {"intersect": (1.0, 0.0), "intersect_any": (1.0, 0.0)},
+           "dead": [0, 0]}
+    for name, build in gallery.FAMILIES.items():
+        scene, camera, settings = build(device=dev)
+        cfg = render.path_config(settings)
+        cone = render._cone(camera, settings)
+        _, o, d, pix, smp = render.band_rays(camera, settings, 0, settings.height, 0)
+        n = o.shape[0]
+        calls = []
+        with recording(calls):
+            integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+        kinds = collections.Counter(c[0] for c in calls)
+        if dict(kinds) != FAMILY_LAUNCHES[name]:
+            raise AssertionError(f"{name}: _li_wavefront made the launches {dict(kinds)}")
+        dead_fam, lo = [0, 0], {"intersect": 1.0, "intersect_any": 1.0}
+        for i, call in enumerate(calls):
+            agree, err, ids, dead = check_intersect_call(*call)
+            check_agreement(f"{name} {call[0]} launch {i}", agree, ids, dead)
+            dead_fam = [dead_fam[0] + dead[0], dead_fam[1] + dead[1]]
+            lo[call[0]] = min(lo[call[0]], agree)
+            w = out["worst"][call[0]]
+            out["worst"][call[0]] = (min(w[0], agree), max(w[1], err))
+            finite = call[4] < 1e29
+            phase("kernel-vs-plain", f"{name} {call[0]} launch {i} ({n} rays, "
+                  f"{float(finite.float().mean()):.4f} with a finite t_max, "
+                  f"{float((call[4] > 2e-4).float().mean()):.4f} live; instance "
+                  f"{INSTANCES[call[1].instance]}; {dead[0]} dead lanes, {dead[1]} off): "
+                  f"{agree:.6f} agree, max abs err {err:.3e}"
+                  + ("" if ids is None else f", prim ids {ids}"))
+        out["dead"] = [out["dead"][0] + dead_fam[0], out["dead"][1] + dead_fam[1]]
+        del calls
+        phase("kernel-vs-plain", f"{name}: {dict(kinds)} launches over one {settings.width}x"
+              f"{settings.height} band, depth {cfg.max_depth}; least agreement {lo}; "
+              f"{dead_fam[0]} dead lanes, {dead_fam[1]} of them off the plain answer")
+
+        chains_agree(f"{name} _li_wavefront, one band, depth {cfg.max_depth}",
+                     lambda: integrators._li_wavefront(scene, o, d, pix, smp, settings.seed,
+                                                       cfg, cone=cone), 0.98)
+        if name in ("global_fog", "sss"):
+            chains_agree(f"{name} li_direct, one band, depth 3",
+                         lambda: integrators.li_direct(scene, o, d, pix, smp, settings.seed,
+                                                       max_depth=3, cone=cone), 0.99)
+
+        dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
+        want = {k: v * N_PASSES for k, v in FAMILY_LAUNCHES[name].items()}
+        if launches != want:
+            raise AssertionError(f"{name} main path launched {launches} in {N_PASSES} "
+                                 f"passes, expected {want}")
+        img = film_mod.develop(film)
+        mean = float(img.mean())
+        if not (bool(torch.isfinite(img).all()) and mean > 0.01):
+            raise AssertionError(f"{name}: bad image (mean {mean})")
+        out["launches"][name] = launches
+        pixels = settings.width * settings.height
+        phase("main-path", f"{name}: {N_PASSES} passes of {settings.width}x{settings.height} "
+              f"1 spp path depth {cfg.max_depth}: {dt:.2f} ms per pass "
+              f"({pixels / (dt / 1e3):.0f} camera rays/s), launches per pass "
+              f"{FAMILY_LAUNCHES[name]}, image mean {mean:.4f} ({device_name}, "
+              f"{power_limit})")
+        print(json.dumps({
+            "metric": f"family_{name}_camera_rays_per_s_{settings.width}x{settings.height}"
+                      f"_depth{cfg.max_depth}", "value": pixels / (dt / 1e3), "unit": "rays/s",
+            "ms_per_pass": dt, "launches_per_pass": FAMILY_LAUNCHES[name],
+            "device": device_name, "power_limit": power_limit}), flush=True)
+        line, _, _ = profiled_pass(render, scene, camera, film, settings, dev, dt)
+        phase("main-path", f"{name}: " + line)
+
+    bscene, bcam = bump_scene(dev)
+    bset = render.RenderSettings(width=256, height=256, spp=1, max_depth=3, seed=5)
+    _, bo, bd, bpix, bsmp = render.band_rays(bcam, bset, 0, 256, 0)
+    bcone = render._cone(bcam, bset)
+    chains_agree("bump scene _li_wavefront, 256x256, depth 3",
+                 lambda: integrators._li_wavefront(bscene, bo, bd, bpix, bsmp, bset.seed,
+                                                   render.path_config(bset), cone=bcone), 0.98)
+    chains_agree("bump scene li_direct, 256x256, depth 3",
+                 lambda: integrators.li_direct(bscene, bo, bd, bpix, bsmp, bset.seed,
+                                               max_depth=3, cone=bcone), 0.99)
+
+    for name in ("sss", "global_fog"):
+        scene, camera, settings = gallery.FAMILIES[name](FAM_GRAD_SIZE, FAM_GRAD_SIZE, device=dev)
+        cfg = render.path_config(settings)
+        _, o, d, pix, smp = render.band_rays(camera, settings, 0, FAM_GRAD_SIZE, 0)
+
+        def grad():
+            kd = scene.materials.kd.detach().clone().requires_grad_()
+            L = integrators._li_wavefront(
+                scene._replace(materials=scene.materials._replace(kd=kd)), o, d, pix, smp,
+                settings.seed, cfg)
+            return torch.autograd.grad(L.sum(), [kd])[0]
+
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        g_k = grad()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        with plain_intersection():
+            g_p = grad()
+        scale = float(g_p.abs().max())
+        rel = float((g_k - g_p).abs().max()) / scale if scale > 0 else math.inf
+        phase("grad", f"{name} {FAM_GRAD_SIZE}x{FAM_GRAD_SIZE}, depth {cfg.max_depth}: "
+              f"d sum(L) / d kd on the kernels (launches {launches}, forward and backward "
+              f"{ms:.2f} ms) vs on the plain intersection: max diff / max entry {rel:.3e} "
+              f"(max entry {scale:.6e}; bar 1e-4); row 0 {g_k[0].tolist()}")
+        if not (bool(torch.isfinite(g_k).all()) and rel < 1e-4 and float(g_k[0].abs().max()) > 0):
+            raise AssertionError(f"[grad] {name}: the kernels change the gradient")
+    return out
+
+
 def grad_check(what: str, scene, band, seed, kernel: str, replay_kernels: tuple,
                device_name: str, power_limit: str) -> dict:
     """The ``[grad]`` phase on one band: ``integrators.li`` through the
@@ -1353,6 +1544,9 @@ def main() -> int:
     # device ms per pass of each kernel, from the profiled passes
     per_pass = {**own_d, **own_1, **own_m}
 
+    # media and subsurface: the families on kernels #2 / #3
+    fam = family_checks(dev, render, film_mod, device_name, power_limit)
+
     # config 5: the inverse-rendering trainer
     inverse = inverse_config5(dev, device_name, power_limit)
     slice_launches = {}
@@ -1373,12 +1567,16 @@ def main() -> int:
     for kind, line_no, fn in (("intersect", 172, "closest_hit_kernel"),
                               ("intersect_any", 276, "any_hit_kernel")):
         k_ms, p_ms, b_ms, b_by = timing[kind]
+        # the families' main paths launch it too
+        by_family = {f: c.get(kind, 0) for f, c in fam["launches"].items()}
         line.append({
             "name": kind, "route": "cuda", "source": "gopbrt_tpu_torch/csrc/intersect.cu",
             "replaces": f"gopbrt_tpu/ops/pallas_intersect.py:{line_no}",
-            "launches": launches1[kind], "launches_per_pass": launches1[kind] // N_PASSES,
-            "max_abs_err": worst[kind][1], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches": launches1[kind] + sum(by_family.values()),
+            "launches_per_pass": launches1[kind] // N_PASSES,
+            "launches_families": by_family,
+            "max_abs_err": max(worst[kind][1], fam["worst"][kind][1]), "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "ms_per_pass": per_pass.get(fn),
         })
     for name, source, replaces, launches, err, fn in (

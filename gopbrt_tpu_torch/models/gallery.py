@@ -8,11 +8,16 @@ Counterpart of ``gopbrt_tpu/models/gallery.py``:
      and plastic, path depth 3;
   4. area lights, MIS and smooth glass, path depth 8;
   5. inverse rendering: an image-textured sphere and one area light
-     (``config5``, its ground truth ``config5_truth``), path depth 3.
+     (``config5``, its ground truth ``config5_truth``), path depth 3;
+
+and the media and subsurface families of the reference's per-family
+ledger (``benchmarks/bench_families.py:77-121``, 960x544, 1 spp):
+``bounded_media`` (a fog ball behind a null boundary, depth 5),
+``global_fog`` (depth 5) and ``sss`` (a Burley BSSRDF sphere, depth 4).
 
 Each builder returns (scene, camera, settings) with the tables on
-``device`` (None = the card).  Configs 1, 2 and 4 build no BVH, as the JAX
-ones do (accelerator="none").
+``device`` (None = the card).  Configs 1, 2 and 4 and the families build
+no BVH, as the JAX ones do (accelerator="none").
 """
 
 from __future__ import annotations
@@ -122,6 +127,68 @@ def config5(atlas, radiance, width=64, height=64, device=None):
     settings = RenderSettings(width=width, height=height, spp=64, max_depth=3,
                               samples_per_pass=1)
     return b.build(accelerator="none", device=device), cam, settings
+
+
+def _family_camera(eye, look, width, height, device):
+    """The families' camera (bench_families.py:38-45): 45 degrees."""
+    return cam_mod.perspective_camera(geom.look_at(list(eye), list(look), [0.0, 1.0, 0.0]),
+                                      width, height, fov_deg=45.0, device=device)
+
+
+def _family_settings(width, height, depth):
+    return RenderSettings(width=width, height=height, spp=1, max_depth=depth,
+                          integrator="path", samples_per_pass=1)
+
+
+def bounded_media(width=960, height=544, device=None):
+    """A fog ball (a bounded medium behind a null-material sphere), a
+    matte floor and ball, a point light and a sphere lamp, path depth 5
+    (bench_families.py:77-95)."""
+    b = SceneBuilder()
+    b.disk(geom.rotate_x(-90.0), 60.0, b.matte(kd=(0.6, 0.6, 0.6)))
+    fog = b.add_medium(sigma_a=(0.08,) * 3, sigma_s=(0.4,) * 3, g=0.2)
+    ball = b.sphere(geom.translate([0.0, 1.5, 0.0]), 1.5, b.null_material())
+    b.set_medium_interface(ball, inside=fog)
+    b.sphere(geom.translate([2.4, 0.8, -1.4]), 0.8, b.matte(kd=(0.7, 0.3, 0.2)))
+    b.point_light(p=(3.0, 5.0, 3.0), intensity=(80.0,) * 3)
+    lamp = b.sphere(geom.translate([-2.5, 4.0, 2.0]), 0.5, b.matte(kd=(0.0, 0.0, 0.0)))
+    b.area_light(lamp, radiance=(30.0, 28.0, 24.0), two_sided=False)
+    return (b.build(accelerator="none", device=device),
+            _family_camera((0, 2.4, 6.5), (0, 1.2, 0), width, height, device),
+            _family_settings(width, height, 5))
+
+
+def global_fog(width=960, height=544, device=None):
+    """A global homogeneous medium over a matte floor and ball and a point
+    light, path depth 5 (bench_families.py:98-109)."""
+    b = SceneBuilder()
+    b.set_medium(sigma_a=(0.01,) * 3, sigma_s=(0.02,) * 3, g=0.0)
+    b.disk(geom.rotate_x(-90.0), 60.0, b.matte(kd=(0.6, 0.6, 0.6)))
+    b.sphere(geom.translate([0.0, 1.0, 0.0]), 1.0, b.matte(kd=(0.7, 0.3, 0.2)))
+    b.point_light(p=(3.0, 5.0, 3.0), intensity=(80.0,) * 3)
+    return (b.build(accelerator="none", device=device),
+            _family_camera((0, 2.4, 6.5), (0, 1.0, 0), width, height, device),
+            _family_settings(width, height, 5))
+
+
+def sss(width=960, height=544, device=None):
+    """A subsurface sphere (Burley BSSRDF) on a matte floor under a point
+    light, path depth 4 (bench_families.py:112-121)."""
+    b = SceneBuilder()
+    m = b.subsurface(rho=(0.9, 0.6, 0.3), mfp=(0.3,) * 3, eta=1.33)
+    b.sphere(geom.translate([0.0, 1.0, 0.0]), 1.0, m)
+    b.disk(geom.rotate_x(-90.0), 20.0, b.matte(kd=(0.4, 0.4, 0.4)))
+    b.point_light(p=(3.0, 4.0, 3.0), intensity=(60.0,) * 3)
+    return (b.build(accelerator="none", device=device),
+            _family_camera((0, 1.5, 4.5), (0, 0.8, 0), width, height, device),
+            _family_settings(width, height, 4))
+
+
+FAMILIES = {
+    "bounded_media": bounded_media,
+    "global_fog": global_fog,
+    "sss": sss,
+}
 
 
 CONFIGS = {

@@ -1,12 +1,19 @@
 """Wavefront integrators: path tracing and direct lighting.
 
-Counterpart of ``gopbrt_tpu/models/integrators.py`` for static surface
-scenes (no media, subsurface, null materials, bump or animation):
-``PathConfig``, the intersection dispatch
+Counterpart of ``gopbrt_tpu/models/integrators.py`` for static scenes (no
+animation): ``PathConfig``, the intersection dispatch
 (``_scene_intersect`` / ``_scene_intersect_p``), the global light pick,
-``_material_at``, the shading frame, ``_estimate_direct`` (NEE with MIS),
-``PathState``, ``_bounce_once``, the wavefront loop ``_li_wavefront`` (the
-JAX package's ``_li_jnp``), ``li_direct`` and the dispatch ``li``.
+bump mapping (``_apply_bump``), ``_material_at``, the BSSRDF's probe
+transport (``_subsurface_transport``), the shading frame,
+``_estimate_direct`` (NEE with MIS, the phase function at medium vertices
+and the shadow ray's transmittance), the shadow walk across null
+boundaries (``_intersect_tr``), ``PathState``, ``_bounce_once`` (the
+segment walk through null boundaries, medium distance sampling, medium
+vertices and HG sampling), the wavefront loop ``_li_wavefront`` (the JAX
+package's ``_li_jnp``), ``li_direct`` and the dispatch ``li``.  As in the
+reference, what a scene lacks (media, null materials, interfaces, bump,
+subsurface) is left out in Python: such a scene runs the ops it ran before
+these features.
 
 The whole batch of rays advances bounce by bounce as SoA tensors with an
 alive mask, as in the JAX chain, and draws the same counter-based random
@@ -23,11 +30,13 @@ cutoff the mesh megakernel (``ops/mesh_megakernel.mesh_li_fused``).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from gopbrt_tpu_torch.ops import brute_intersect, megakernel, mesh_megakernel, rng, sampling
+from gopbrt_tpu_torch.ops import bssrdf as sss_ops
+from gopbrt_tpu_torch.ops import media as media_ops
 from gopbrt_tpu_torch.ops import bvh as bvh_ops
 from gopbrt_tpu_torch.ops import bsdf as bsdf_ops
 from gopbrt_tpu_torch.ops import geom
@@ -64,6 +73,12 @@ class PathConfig(NamedTuple):
     rr_start_depth: int = 3  # RR after 3 bounces (path.go:143-153)
     # stop the bounce loop once every lane is dead
     early_exit: bool = False
+
+
+# the null-boundary crossings a bounce, or a shadow ray, walks through
+# (path.go:72-78; the reference's PathConfig.null_passes, which nothing
+# sets); only scenes with a null material walk
+NULL_PASSES = 2
 
 
 class _Sampler:
@@ -126,6 +141,37 @@ def _light_pick_pmf(scene, light_idx):
                                  light_idx.long())
 
 
+def _apply_bump(scene, si: isect.SurfaceInteraction) -> isect.SurfaceInteraction:
+    """The shading normal perturbed by the material's bump texture
+    (integrators.py:247-278): the height's finite differences along dpdu /
+    dpdv; the reference's Material.Bump computes its offset point and then
+    discards it (material.go:18-34), as this does."""
+    mats = scene.materials
+    if mats.bump_tex is None:
+        return si
+    mid = scene.prims.material_id[si.prim_idx.long()].long()
+    bt = mats.bump_tex[mid]
+    bscale = gather_rows(mats.bump_scale, mid)
+    tex_id = torch.clamp(bt, min=0)
+    du = 5e-3
+
+    def height(p, uv):
+        return torch.mean(tex_ops.eval_spectrum(scene.textures, tex_id, p, uv), dim=-1)
+
+    h0 = height(si.p, si.uv)
+    zero = torch.zeros_like(h0)
+    step = torch.full_like(h0, du)
+    hu = height(si.p + si.dpdu * du, si.uv + torch.stack([step, zero], dim=-1))
+    hv = height(si.p + si.dpdv * du, si.uv + torch.stack([zero, step], dim=-1))
+    dhdu = (hu - h0) / du * bscale
+    dhdv = (hv - h0) / du * bscale
+    ns_b = normalize(geom.cross(si.dpdu + dhdu[..., None] * si.ns,
+                                si.dpdv + dhdv[..., None] * si.ns), eps=1e-20)
+    # the orientation of the unperturbed shading normal
+    ns_b = torch.where(dot(ns_b, si.ns)[..., None] < 0.0, -ns_b, ns_b)
+    return si._replace(ns=torch.where((bt >= 0)[..., None], ns_b, si.ns))
+
+
 def _material_at(scene, si: isect.SurfaceInteraction, fw=None) -> bsdf_ops.MaterialParams:
     """Material parameters at the hits, textures evaluated
     (ComputeScatteringFunctions; integrators.py:281-320).  The one-hot
@@ -144,7 +190,68 @@ def _material_at(scene, si: isect.SurfaceInteraction, fw=None) -> bsdf_ops.Mater
         eta=gather_rows(mats.eta, mid),
         roughness=gather_rows(mats.roughness, mid),
         info=mats.info,
+        sss_cbar=None if mats.sss_cbar is None else gather_rows(mats.sss_cbar, mid),
     )
+
+
+def _where_si(mask, a: isect.SurfaceInteraction, b: isect.SurfaceInteraction):
+    """Lane-select between two SurfaceInteractions (integrators.py:323-332)."""
+    return isect.SurfaceInteraction(*(
+        torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())), x, y)
+        for x, y in zip(a, b)))
+
+
+def _subsurface_transport(scene, si, mp, beta, alive, sampler: "_Sampler", dim_base: int):
+    """The BSSRDF at subsurface entry hits (integrators.py:335-425), S =
+    (1 - Fr(theta_o)) Sp Sw: with probability Fr a lane becomes a unit
+    mirror; otherwise a probe disk point (axis, channel, Burley radius,
+    azimuth) and a closest hit along its chord find the exit on the same
+    material, beta takes Sp / pdf_Sp and the lane's hit moves to the exit,
+    whose lobe is Sw.  As in the reference: the probe keeps the chord's
+    first hit only, and a failed probe kills its lane (quirks, ROADMAP
+    section 3).  -> (si, mp, beta, alive)."""
+    sss = alive & (mp.mat_type == bsdf_ops.SUBSURFACE)
+    fr = bsdf_ops.fr_dielectric(dot(si.wo, si.ns), 1.0, mp.eta)
+    reflect = sss & (sampler.u1(dim_base + D_SSS) < fr)
+    transmit = sss & ~reflect
+    # reflected lanes: the Fresnel weight cancels the choice: a unit mirror
+    mp = mp._replace(mat_type=torch.where(reflect, bsdf_ops.MIRROR, mp.mat_type),
+                     kr=torch.where(reflect[..., None], 1.0, mp.kr))
+
+    # the probe's disk point in the entry frame
+    ss_f, ts_f, ns_f = _shading_frame(si)
+    vx, vy, vz, _ = sss_ops.sample_axis_frame(sampler.u1(dim_base + D_SSS + 1),
+                                              ss_f, ts_f, ns_f)
+    u_chr = sampler.u1(dim_base + D_SSS + 2)
+    ch = torch.clamp((u_chr * 3.0).to(torch.int32), max=2)
+    u_r = u_chr * 3.0 - ch.to(torch.float32)
+    mid = scene.prims.material_id[si.prim_idx.long()]
+    d_rgb = gather_rows(scene.materials.sss_d, mid.long())  # [N,3]
+    d_ch = torch.gather(d_rgb, -1, ch.long()[..., None])[..., 0]
+    r = sss_ops.burley_sample_r(u_r, d_ch)
+    r_max = sss_ops.burley_sample_r(torch.full_like(u_r, 0.999), d_ch)
+    ok_r = r < r_max
+    chord = 2.0 * torch.sqrt(torch.clamp(r_max * r_max - r * r, min=1e-12))
+    phi = 2.0 * geom.PI * sampler.u1(dim_base + D_SSS + 3)
+    base = si.p + r[..., None] * (torch.cos(phi)[..., None] * vx
+                                  + torch.sin(phi)[..., None] * vy)
+    p0 = base + (0.5 * chord)[..., None] * vz
+    probe_d = -vz
+    # lanes that probe nothing carry a 1e-5 chord
+    t_probe = torch.where(transmit & ok_r, chord, 1e-5)
+    hit_p, t_p, prim_p = _scene_intersect(scene, p0, probe_d, t_probe)
+    t_p, prim_p = t_p.detach(), prim_p.detach()
+    ok = transmit & ok_r & hit_p & (scene.prims.material_id[prim_p.long()] == mid)
+    si_exit = isect.surface_interaction(scene.prims, ok, t_p, prim_p, p0, probe_d)
+    # Sw lives on the outward hemisphere: the frame of the geometric normal
+    si_exit = si_exit._replace(ns=si_exit.n, wo=si_exit.n)
+
+    # Sp at the actual radius over the axis- and channel-MIS pdf
+    r_act = torch.sqrt(geom.length_sq(si_exit.p - si.p))
+    pdf = sss_ops.pdf_sp(si.p, ss_f, ts_f, ns_f, si_exit.p, si_exit.n, d_rgb)
+    w_sp = sss_ops.sp(mp.kd, r_act, d_rgb) / torch.clamp(pdf, min=1e-12)[..., None]
+    beta = torch.where(ok[..., None], beta * w_sp, beta)
+    return _where_si(ok, si_exit, si), mp, beta, alive & ~(transmit & ~ok)
 
 
 def _shading_frame(si: isect.SurfaceInteraction):
@@ -167,15 +274,23 @@ def _to_world(ss, ts, ns, v):
 
 
 def _estimate_direct(scene, si, mp, ss, ts, ns, active, sampler: _Sampler,
-                     dim_base: int, fixed_light=None):
+                     dim_base: int, fixed_light=None, medium_scatter=None, phase_g=None,
+                     medium_ids=None, null_passes: int = 0):
     """One-light NEE with MIS (UniformSampleOneLight + EstimateDirect,
     integrator.go:48-77, 79-195) over the wavefront -> rgb f32[N,3], already
-    divided by the pick pmf.
+    divided by the pick pmf (integrators.py:451-573).
 
     fixed_light: a light index for the sample-all-lights strategy
     (UniformSampleAllLights, integrator.go:23-46): no pick pmf, and each
     light draws from a disjoint dimension region.  The BSDF branch of the
     MIS pair is the emitter hit of the next segment.
+
+    medium_scatter: bool[N] lanes at a medium vertex, whose "BSDF" is the HG
+    phase function (g: ``phase_g`` per lane with bounded media, else the
+    global medium's) and whose shadow ray starts at the vertex itself.
+    The shadow ray's transmittance: walked across null boundaries by
+    ``_intersect_tr`` where ``null_passes`` > 0; else in the lane's medium
+    ``medium_ids`` (bounded media) or the global medium.
     """
     n_lights = scene.n_lights
     if n_lights == 0:
@@ -196,21 +311,94 @@ def _estimate_direct(scene, si, mp, ss, ts, ns, active, sampler: _Sampler,
     wi_l = _to_local(ss, ts, ns, ls.wi)
     f = bsdf_ops.bsdf_f(mp, wo_l, wi_l) * geom.absdot(ls.wi, ns)[..., None]
     b_pdf = bsdf_ops.bsdf_pdf(mp, wo_l, wi_l)
+    if medium_scatter is not None:
+        # the phase function in place of f cos; its pdf is its value
+        ph = media_ops.hg_phase(dot(si.wo, ls.wi),
+                                phase_g if phase_g is not None else scene.medium.g)
+        f = torch.where(medium_scatter[..., None], ph[..., None], f)
+        b_pdf = torch.where(medium_scatter, ph, b_pdf)
     contributes = (active & (ls.pdf > 0.0) & (torch.amax(ls.li, dim=-1) > 0.0)
                    & (torch.amax(f, dim=-1) > 0.0))
 
     # shadow ray (VisibilityTester.Unoccluded, light.go:46-48), short of the
     # light; lanes that do not contribute get a zero-length ray
     o_sh = isect.spawn_ray(si, ls.wi)
+    if medium_scatter is not None:
+        # a medium vertex has no surface to offset from
+        o_sh = torch.where(medium_scatter[..., None], si.p, o_sh)
     t_sh = ls.dist * (1.0 - geom.SHADOW_EPSILON) - 1e-3
     t_sh = torch.where(contributes, torch.clamp(t_sh, min=1e-4), 1e-4)
-    vis = contributes & ~_scene_intersect_p(scene, o_sh, ls.wi, t_sh)
+    tr = None
+    if null_passes > 0:
+        # closest hits stepping through null boundaries (Scene.IntersectTr)
+        occluded, tr = _intersect_tr(scene, o_sh, ls.wi, t_sh, medium_ids, contributes,
+                                     null_passes)
+    else:
+        occluded = _scene_intersect_p(scene, o_sh, ls.wi, t_sh)
+    vis = contributes & ~occluded
 
     # delta lights unweighted, area lights by the power heuristic
     weight = torch.where(ls.is_delta, 1.0,
                          sampling.power_heuristic(1, ls.pdf, 1, b_pdf))
     gain = weight / torch.clamp(ls.pdf, min=1e-20) / torch.clamp(pick_pmf, min=1e-20)
-    return torch.where(vis[..., None], f * ls.li * gain[..., None], 0.0)
+    contrib = f * ls.li * gain[..., None]
+    if tr is None and medium_ids is not None:
+        # bounded media, no null boundary: the segment stays in the
+        # vertex's medium (a boundary would occlude)
+        sig_t, _, _ = media_ops.table_lookup(scene.media, medium_ids)
+        tr = torch.exp(-sig_t * torch.clamp(ls.dist, min=0.0)[..., None])
+    elif tr is None and scene.medium is not None:
+        # VisibilityTester.Tr along the unoccluded shadow ray
+        tr = media_ops.transmittance(scene.medium, ls.dist)
+    if tr is not None:
+        contrib = contrib * tr
+    return torch.where(vis[..., None], contrib, 0.0)
+
+
+def _intersect_tr(scene, o, d, dist, medium0, active, null_passes: int):
+    """A shadow ray walked across up to ``null_passes`` null boundaries,
+    each segment's Beer-Lambert transmittance in the lane's current medium
+    (Scene.IntersectTr, scene.go:58-77; integrators.py:576-626) ->
+    (occluded bool[N], Tr f32[N,3]).  Any other surface occludes; a lane
+    still walking after the budget counts as occluded (the reference's
+    truncation)."""
+    n = o.shape[0]
+    prims = scene.prims
+    tr = torch.ones((n, 3), dtype=_F32, device=o.device)
+    occl = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    o_w, rem, walk = o, dist, active
+    mid_w = (medium0 if medium0 is not None
+             else torch.full((n,), -1, dtype=torch.int32, device=o.device))
+    for _ in range(null_passes + 1):
+        t_lim = torch.where(walk, torch.clamp(rem, min=1e-4), 1e-4)
+        hit_k, t_k, prim_k = _scene_intersect(scene, o_w, d, t_lim)
+        hit_k = hit_k & walk
+        t_k = t_k.detach()
+        if scene.media is not None:
+            seg = torch.where(hit_k, t_k, torch.clamp(rem, min=0.0))
+            sig_t, _, _ = media_ops.table_lookup(scene.media, mid_w)
+            tr = torch.where(walk[..., None], tr * torch.exp(-sig_t * seg[..., None]), tr)
+        mat_k = prims.material_id[prim_k.long()].long()
+        is_null = hit_k & (scene.materials.mat_type[mat_k] == bsdf_ops.NULLMAT)
+        occl = occl | (hit_k & ~is_null)
+        # step through the boundary, switching the medium per the interface
+        si_b = isect.surface_interaction(prims, is_null, t_k, prim_k, o_w, d)
+        o_next = geom.offset_ray_origin(si_b.p, si_b.p_err + 1e-4, si_b.n, d)
+        o_w = torch.where(is_null[..., None], o_next, o_w)
+        rem = torch.where(is_null, rem - t_k, rem)
+        if prims.medium_inside is not None:
+            mid_w = _cross_interface(prims, prim_k, dot(d, si_b.n) < 0.0, is_null, mid_w)
+        walk = is_null & (rem > 1e-4)
+    return occl | walk, tr
+
+
+def _cross_interface(prims, prim_idx, going_in, crossing, mid):
+    """The lanes' medium after ``crossing`` the interface of ``prim_idx``:
+    the inside medium going in, the outside one going out; -2 (no
+    interface) keeps the medium."""
+    idx = prim_idx.long()
+    iv = torch.where(going_in, prims.medium_inside[idx], prims.medium_outside[idx])
+    return torch.where(crossing & (iv > -2), iv, mid)
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +418,13 @@ class PathState(NamedTuple):
     specular: torch.Tensor  # bool[N] the last bounce was specular
     prev_bsdf_pdf: torch.Tensor  # f32[N] pdf of the ray's BSDF sample (MIS)
     cone_w: torch.Tensor  # f32[N] ray-cone footprint width at the origin
+    # int32[N] the lanes' current medium, a row of Scene.media or -1 (the
+    # ray's Medium pointer); None where the scene has neither bounded media
+    # nor medium interfaces
+    medium: Optional[torch.Tensor] = None
 
 
-def _initial_state(o, d, cone) -> PathState:
+def _initial_state(o, d, cone, medium=None) -> PathState:
     n = o.shape[0]
     dev = o.device
     return PathState(
@@ -244,17 +436,20 @@ def _initial_state(o, d, cone) -> PathState:
         specular=torch.ones((n,), dtype=torch.bool, device=dev),  # camera rays
         prev_bsdf_pdf=torch.zeros((n,), dtype=_F32, device=dev),
         cone_w=torch.full((n,), 0.0 if cone is None else cone[0], dtype=_F32, device=dev),
+        medium=(None if medium is None
+                else torch.full((n,), medium, dtype=torch.int32, device=dev)),
     )
 
 
-def _start(o, d, pixel, sample, seed, cone):
+def _start(o, d, pixel, sample, seed, cone, medium=None):
     """The counter streams of the lanes, the cone spread and the camera
-    rays' state -> (sampler, spread or None, PathState)."""
+    rays' state, their medium ``medium`` (None: not tracked) -> (sampler,
+    spread or None, PathState)."""
     n = o.shape[0]
     pixel = torch.broadcast_to(rng.as_u32(pixel, o.device), (n,))
     sample = torch.broadcast_to(rng.as_u32(sample, o.device), (n,))
     return (_Sampler(seed, pixel, sample), None if cone is None else cone[1],
-            _initial_state(o, d, cone))
+            _initial_state(o, d, cone, medium))
 
 
 def _emitted_mis(scene, st: PathState, hit, prim_idx, si, beta, all_lights=False):
@@ -303,39 +498,196 @@ def _scatter(bs, wi_w, ns, beta, pdf):
     return ok, beta
 
 
+class _Features(NamedTuple):
+    """What of media and null boundaries a scene has (integrators.py:662-676);
+    each feature it lacks is left out of the bounce."""
+
+    medium: object  # the global medium, or None
+    use_tab: bool  # bounded media
+    has_null: bool  # a null material
+    has_iface: bool  # medium interfaces on prims
+
+    @property
+    def any_medium(self) -> bool:
+        return self.medium is not None or self.use_tab
+
+
+def _features(scene) -> _Features:
+    info = scene.materials.info
+    return _Features(scene.medium, scene.media is not None,
+                     info is not None and bsdf_ops.NULLMAT in info.mat_types,
+                     scene.prims.medium_inside is not None)
+
+
+def _segments(scene, feat: _Features, sampler: _Sampler, dim_base: int, st: PathState):
+    """The hit search of a bounce with media or null boundaries
+    (integrators.py:678-776): up to 1 + NULL_PASSES closest-hit
+    segments, stepping through null boundaries (switching the medium per
+    the interface), each with a sampled scattering distance in the lane's
+    medium and the per-channel MIS throughput.  -> (hit, scatter, t,
+    prim_idx, o_eff (the finishing segment's origin), beta, p_med (the
+    scattering point), the lanes' medium)."""
+    n = st.o.shape[0]
+    dev = st.o.device
+    prims = scene.prims
+    n_seg = 1 + (NULL_PASSES if feat.has_null else 0)
+    o_cur, d_ray, mid_cur, walking, beta = st.o, st.d, st.medium, st.alive, st.beta
+    hit = torch.zeros((n,), dtype=torch.bool, device=dev)
+    scatter = torch.zeros((n,), dtype=torch.bool, device=dev)
+    t = torch.full((n,), 1e30, dtype=_F32, device=dev)
+    prim_idx = torch.zeros((n,), dtype=torch.int32, device=dev)
+    o_eff = p_med = st.o
+    for k in range(n_seg):
+        t_lim = torch.where(walking, 1e30, 1e-4)
+        hit_k, t_k, prim_k = _scene_intersect(scene, o_cur, d_ray, t_lim)
+        hit_k = hit_k & walking
+        t_k, prim_k = t_k.detach(), prim_k.detach()
+        scat_k = torch.zeros_like(hit_k)
+        if feat.any_medium:
+            # distance sampling on one channel, spectral MIS over the three
+            # (HomogeneousMedium.Sample); vacuum lanes have sigma 0
+            if feat.use_tab:
+                sig_t, sig_s, _ = media_ops.table_lookup(scene.media, mid_cur)
+            else:
+                sig_t = torch.broadcast_to(feat.medium.sigma_t, (n, 3))
+                sig_s = torch.broadcast_to(feat.medium.sigma_s, (n, 3))
+            # later segments draw from a disjoint dimension region
+            u_mc = sampler.u2(dim_base + D_MEDIUM if k == 0
+                              else DIM_ALL_LIGHT_BASE // 2 + dim_base * 64 + 2 * k)
+            ch = torch.clamp((u_mc[..., 0] * 3.0).to(torch.int32), max=2)
+            st_ch = torch.gather(sig_t, -1, ch.long()[..., None])[..., 0]
+            t_m = (-torch.log(torch.clamp(1.0 - u_mc[..., 1], min=1e-7))
+                   / torch.clamp(st_ch, min=1e-20)).detach()
+            seg = torch.where(hit_k, t_k, 1e8)
+            scat_k = walking & (t_m < seg)
+            tr = torch.exp(-sig_t * torch.minimum(t_m, seg)[..., None])
+            pdf_scat = torch.mean(sig_t * tr, dim=-1)
+            pdf_surf = torch.mean(tr, dim=-1)
+            w_med = torch.where(scat_k[..., None],
+                                tr * sig_s / torch.clamp(pdf_scat, min=1e-20)[..., None],
+                                tr / torch.clamp(pdf_surf, min=1e-20)[..., None])
+            beta = torch.where(walking[..., None], beta * w_med, beta)
+            p_med = torch.where(scat_k[..., None], o_cur + d_ray * t_m[..., None], p_med)
+        finish_k = walking
+        if feat.has_null:
+            mat_k = prims.material_id[prim_k.long()].long()
+            is_null_k = (hit_k & ~scat_k
+                         & (scene.materials.mat_type[mat_k] == bsdf_ops.NULLMAT))
+            finish_k = walking & ~is_null_k
+        hit = torch.where(finish_k, hit_k & ~scat_k, hit)
+        scatter = torch.where(finish_k, scat_k, scatter)
+        t = torch.where(finish_k, t_k, t)
+        prim_idx = torch.where(finish_k, prim_k, prim_idx)
+        o_eff = torch.where(finish_k[..., None], o_cur, o_eff)
+        if not feat.has_null:
+            break
+        if k + 1 < n_seg:
+            # step just past the boundary and switch the medium
+            # (medium.go:15-25)
+            si_b = isect.surface_interaction(prims, is_null_k, t_k, prim_k, o_cur, d_ray)
+            o_next = geom.offset_ray_origin(si_b.p, si_b.p_err + 1e-4, si_b.n, d_ray)
+            o_cur = torch.where(is_null_k[..., None], o_next, o_cur)
+            if feat.has_iface:
+                mid_cur = _cross_interface(prims, prim_k, dot(d_ray, si_b.n) < 0.0,
+                                           is_null_k, mid_cur)
+        walking = walking & is_null_k
+    return hit, scatter, t, prim_idx, o_eff, beta, p_med, mid_cur
+
+
 def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
                  st: PathState, cone_spread=None) -> PathState:
-    """One path-tracing bounce over the wavefront (integrators.py:654-957),
-    surface scenes only: one segment, no medium, subsurface or bump.
+    """One path-tracing bounce over the wavefront (integrators.py:654-957).
+
+    A scene without media or null materials intersects one segment; with
+    them ``_segments`` walks through null boundaries and samples medium
+    vertices, which are spliced into the wavefront (their lobe the HG
+    phase function, their next direction HG-sampled).  Bump mapping and
+    the BSSRDF's probe transport run where the scene has them; a
+    refraction through an interface switches the lane's medium.
 
     The detached-sampling estimator of the reference: the hit search, the
-    sampled direction, its pdf in the throughput and in the next MIS
-    weight, and the roulette's survival scale carry no gradient
-    (integrators.py:696-697, 883, 889, 939, 951); the shading at the hit is
-    derived again from (t, prim) and keeps its gradient."""
+    sampled distance, the sampled direction, its pdf in the throughput and
+    in the next MIS weight, and the roulette's survival scale carry no
+    gradient (integrators.py:696-697, 721, 883, 889, 904, 939, 951); the
+    shading at the hit is derived again from (t, prim) and keeps its
+    gradient."""
     dim_base = DIM_BOUNCE_BASE + bounce_idx * DIMS_PER_BOUNCE
-    t_lim = torch.where(st.alive, 1e30, 1e-4)
-    hit_k, t_k, prim_k = _scene_intersect(scene, st.o, st.d, t_lim)
-    t_k, prim_k = t_k.detach(), prim_k.detach()
-    hit = hit_k & st.alive
-    t = torch.where(st.alive, t_k, 1e30)
-    prim_idx = torch.where(st.alive, prim_k, 0)
-    si = isect.surface_interaction(scene.prims, hit, t, prim_idx, st.o, st.d)
+    feat = _features(scene)
+    scatter = None
+    mid_cur = st.medium
+    if feat.has_null or feat.any_medium:
+        hit, scatter, t, prim_idx, o_eff, beta_in, p_med, mid_cur = _segments(
+            scene, feat, sampler, dim_base, st)
+        if not feat.any_medium:
+            scatter = None
+        alive = st.alive & (hit if scatter is None else hit | scatter)
+    else:
+        t_lim = torch.where(st.alive, 1e30, 1e-4)
+        hit_k, t_k, prim_k = _scene_intersect(scene, st.o, st.d, t_lim)
+        t_k, prim_k = t_k.detach(), prim_k.detach()
+        hit = hit_k & st.alive
+        t = torch.where(st.alive, t_k, 1e30)
+        prim_idx = torch.where(st.alive, prim_k, 0)
+        o_eff, beta_in = st.o, st.beta
+        # escaped rays find no light: the scene has no infinite lights
+        alive = st.alive & hit
+    si = isect.surface_interaction(scene.prims, hit, t, prim_idx, o_eff, st.d)
+    # per-lane phase asymmetry with bounded media
+    phase_g = media_ops.table_lookup(scene.media, mid_cur)[2] if feat.use_tab else None
 
-    L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, st.beta)
-    # escaped rays find no light: the scene has no infinite lights
-    alive = st.alive & hit
+    # a medium vertex is no emitter hit: ``hit`` excludes it
+    L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, beta_in)
 
+    si = _apply_bump(scene, si)
     fw_hit, fw_surf = _footprint(st, cone_spread, t, si)
     mp = _material_at(scene, si, fw=fw_surf)
+    if scatter is not None:
+        # splice medium vertices in: at the scattering point, the frame
+        # facing back along the ray (MediumInteraction, interaction.go:
+        # 299-307), the gathered material neutralized to MATTE
+        back = -st.d
+        zero = torch.zeros_like(si.p)
+        si = _where_si(scatter, si._replace(p=p_med, p_err=zero, n=back, ns=back, wo=back,
+                                            dpdu=zero, dpdv=zero), si)
+        mp = mp._replace(mat_type=torch.where(scatter, bsdf_ops.MATTE, mp.mat_type))
+    beta0 = beta_in
+    if scene.materials.sss_d is not None:
+        si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive, sampler,
+                                                     dim_base)
     ss, ts, ns = _shading_frame(si)
-    L = L + st.beta * _estimate_direct(scene, si, mp, ss, ts, ns, alive, sampler, dim_base)
+    L = L + beta0 * _estimate_direct(
+        scene, si, mp, ss, ts, ns, alive, sampler, dim_base, medium_scatter=scatter,
+        phase_g=phase_g, medium_ids=mid_cur if feat.use_tab else None,
+        null_passes=NULL_PASSES if feat.has_null else 0)
 
     bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
     wi_w = wi_w.detach()
-    ok, beta = _scatter(bs, wi_w, ns, st.beta, bs.pdf.detach())
+    ok, beta = _scatter(bs, wi_w, ns, beta0, bs.pdf.detach())
+    next_pdf, next_specular = bs.pdf, bs.is_specular
+    if scatter is not None:
+        # medium vertices go on along an HG-sampled direction: f == pdf, a
+        # throughput factor of exactly 1
+        wi_m, ph_pdf = media_ops.sample_phase(
+            si.wo, sampler.u2(dim_base + D_PHASE),
+            phase_g if feat.use_tab else feat.medium.g)
+        wi_w = torch.where(scatter[..., None], wi_m.detach(), wi_w)
+        ok = ok | scatter
+        beta = torch.where(scatter[..., None], beta0, beta)
+        next_pdf = torch.where(scatter, ph_pdf, next_pdf)
+        next_specular = next_specular & ~scatter
     eta_scale = st.eta_scale * bs.eta_scale
     alive = alive & ok & (torch.amax(beta, dim=-1) > 0.0)
+    o_new = isect.spawn_ray(si, wi_w)
+    if scatter is not None:
+        o_new = torch.where(scatter[..., None], si.p, o_new)
+    if feat.has_iface and feat.use_tab:
+        # a refraction through an interface (a glass shell) carries the ray
+        # into the other medium; medium vertices and reflections keep theirs
+        crossed = alive & bs.is_transmission
+        if scatter is not None:
+            crossed = crossed & ~scatter
+        mid_cur = _cross_interface(scene.prims, si.prim_idx, dot(wi_w, si.n) < 0.0, crossed,
+                                   mid_cur)
 
     # Russian roulette (path.go:143-153)
     rr_beta_max = torch.amax(beta * eta_scale[..., None], dim=-1)
@@ -345,9 +697,9 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     beta = beta * torch.where(do_rr & ~killed, 1.0 / (1.0 - q), 1.0).detach()[..., None]
 
     return PathState(
-        o=isect.spawn_ray(si, wi_w), d=wi_w, beta=beta, L=L, eta_scale=eta_scale,
-        alive=alive & ~killed, specular=bs.is_specular, prev_bsdf_pdf=bs.pdf.detach(),
-        cone_w=st.cone_w if cone_spread is None else fw_hit,
+        o=o_new, d=wi_w, beta=beta, L=L, eta_scale=eta_scale,
+        alive=alive & ~killed, specular=next_specular, prev_bsdf_pdf=next_pdf.detach(),
+        cone_w=st.cone_w if cone_spread is None else fw_hit, medium=mid_cur,
     )
 
 
@@ -366,9 +718,15 @@ def _li_wavefront(scene, o, d, pixel, sample, seed, cfg: PathConfig = PathConfig
 
     cone: optional (width0, spread) ray-cone floats enabling filtered
     texture lookups.  cfg.early_exit stops once every lane is dead (one
-    host sync per bounce).
+    host sync per bounce).  The camera rays start in the scene's camera
+    medium where it has bounded media (integrators.py:1106-1110).
     """
-    sampler, cone_spread, state = _start(o, d, pixel, sample, seed, cone)
+    medium = None
+    if scene.media is not None:
+        medium = scene.camera_medium
+    elif scene.prims.medium_inside is not None:
+        medium = -1
+    sampler, cone_spread, state = _start(o, d, pixel, sample, seed, cone, medium)
     for i in range(cfg.max_depth):
         if cfg.early_exit and not bool(state.alive.any()):
             break
@@ -391,7 +749,10 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
     every vertex, no pick pmf.  Diffuse vertices scatter one more segment
     whose only job is the emitter hit with the power-heuristic complement
     (the BSDF branch of EstimateDirect), then die; a final closest-hit pass
-    after the bounces reads those segments' emitters.
+    after the bounces reads those segments' emitters.  A global medium
+    attenuates every segment by its transmittance, with no in-scattering
+    (direct lighting ignores multiple scattering); bump mapping and the
+    BSSRDF's probe transport run as in the path integrator.
     """
     if light_strategy not in ("one", "all"):
         raise ValueError(f"light_strategy must be 'one' or 'all', got {light_strategy!r}")
@@ -399,32 +760,42 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
     sampler, cone_spread, st = _start(o, d, pixel, sample, seed, cone)
 
     def closest(st):
+        """The lanes' closest hits, their record, and the state with the
+        global medium's transmittance up to the hit."""
         t_max = torch.where(st.alive, 1e30, 1e-4)
         hit, t, prim_idx = _scene_intersect(scene, st.o, st.d, t_max)
         hit = hit & st.alive
-        return hit, t, prim_idx, isect.surface_interaction(scene.prims, hit, t,
-                                                           prim_idx, st.o, st.d)
+        si = isect.surface_interaction(scene.prims, hit, t, prim_idx, st.o, st.d)
+        if scene.medium is not None:
+            st = st._replace(beta=st.beta * media_ops.transmittance(
+                scene.medium, torch.where(hit, t, 0.0)))
+        return st, hit, t, prim_idx, si
 
     for bounce_idx in range(max_depth):
         dim_base = DIM_BOUNCE_BASE + bounce_idx * DIMS_PER_BOUNCE
-        hit, t, prim_idx, si = closest(st)
+        st, hit, t, prim_idx, si = closest(st)
         L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, st.beta, all_lights)
         # diffuse-continuation lanes existed only for the emitter check
         alive = st.alive & hit & st.specular
+        si = _apply_bump(scene, si)
         fw_hit, fw_surf = _footprint(st, cone_spread, t, si)
         mp = _material_at(scene, si, fw=fw_surf)
+        beta0 = st.beta
+        if scene.materials.sss_d is not None:
+            si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive,
+                                                         sampler, dim_base)
         ss, ts, ns = _shading_frame(si)
         if all_lights:
             for k in range(scene.n_lights):
-                L = L + st.beta * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
-                                                   sampler, dim_base, fixed_light=k)
+                L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
+                                                 sampler, dim_base, fixed_light=k)
         else:
-            L = L + st.beta * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
-                                               sampler, dim_base)
+            L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
+                                             sampler, dim_base)
         # specular lanes recurse (directlighting.go:97-101); diffuse lanes
         # get one MIS segment
         bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
-        ok, beta = _scatter(bs, wi_w, ns, st.beta, bs.pdf)
+        ok, beta = _scatter(bs, wi_w, ns, beta0, bs.pdf)
         st = PathState(
             o=isect.spawn_ray(si, wi_w), d=wi_w, beta=beta, L=L,
             eta_scale=st.eta_scale, alive=alive & ok, specular=bs.is_specular,
@@ -432,7 +803,7 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
         )
 
     # the emission-only pass: lanes whose last vertex scattered
-    hit, _, prim_idx, si = closest(st)
+    st, hit, _, prim_idx, si = closest(st)
     return _sanitize(st.L + _emitted_mis(scene, st, hit, prim_idx, si, st.beta,
                                          all_lights))
 

@@ -2,15 +2,17 @@
 
 Counterpart of ``gopbrt_tpu/models/scene.py``: ``Scene``, ``Materials`` and
 the subset of ``SceneBuilder`` that the port runs — spheres, disks and
-world-space triangles; matte (Lambert and Oren-Nayar), mirror, glass
-(smooth and rough), plastic and metal; constant, checkerboard (planar and
-uv mapping), uv and image textures (one atlas, the images stacked
-vertically); point, distant, and sphere- and disk-area lights under the
-uniform or the power light distribution; triangle meshes and the SAH BVH
-(``accelerator="bvh"``, built on the host by ``ops/bvh.build_from_bounds``).
-The builder runs in NumPy on the host and ``build`` ends in
-``torch.as_tensor(..., device=device)``.  Bump mapping, subsurface and null
-materials, media, animation and the spatial light grid raise
+world-space triangles; matte (Lambert and Oren-Nayar, with an optional bump
+texture), mirror, glass (smooth and rough), plastic, metal, subsurface (the
+Burley BSSRDF) and null materials; constant, checkerboard (planar and uv
+mapping), uv and image textures (one atlas, the images stacked vertically);
+point, distant, and sphere- and disk-area lights under the uniform or the
+power light distribution; a global homogeneous medium (``set_medium``) or
+bounded media (``add_medium``) with per-prim medium interfaces and the
+camera's medium; triangle meshes and the SAH BVH (``accelerator="bvh"``,
+built on the host by ``ops/bvh.build_from_bounds``).  The builder runs in
+NumPy on the host and ``build`` ends in ``torch.as_tensor(...,
+device=device)``.  Animation and the spatial light grid raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 ``scene_from_arrays`` carries a scene across from tables given as NumPy
@@ -37,8 +39,10 @@ from gopbrt_tpu_torch import resolve_device
 from gopbrt_tpu_torch.ops import bvh as bvh_ops
 from gopbrt_tpu_torch.ops import lights as lights_ops
 from gopbrt_tpu_torch.ops import brute_intersect, megakernel, mesh_megakernel, sampling
-from gopbrt_tpu_torch.ops.bsdf import GLASS, MATTE, METAL, MIRROR, NULLMAT, PLASTIC
+from gopbrt_tpu_torch.ops.bsdf import (GLASS, MATTE, METAL, MIRROR, NULLMAT, PLASTIC,
+                                       SUBSURFACE)
 from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
+from gopbrt_tpu_torch.ops.media import HomogeneousMedium, MediaTable
 from gopbrt_tpu_torch.ops.lights import (
     LIGHT_AREA,
     LIGHT_DISTANT,
@@ -71,6 +75,15 @@ class Materials(NamedTuple):
     eta: torch.Tensor  # f32[M]
     roughness: torch.Tensor  # f32[M] GGX alpha (remapped at build)
     info: Optional[MatInfo] = None
+    # bump mapping: a texture perturbing the shading normal, -1 none; None
+    # where no material has one
+    bump_tex: Optional[torch.Tensor] = None  # int32[M]
+    bump_scale: Optional[torch.Tensor] = None  # f32[M]
+    # subsurface (ops/bssrdf.py): each channel's diffusion radius d = mfp /
+    # s(rho), and the exit lobe's normalization c-bar; None where no
+    # material is subsurface
+    sss_d: Optional[torch.Tensor] = None  # f32[M,3]
+    sss_cbar: Optional[torch.Tensor] = None  # f32[M]
 
 
 class Scene(NamedTuple):
@@ -100,6 +113,13 @@ class Scene(NamedTuple):
     # rows made at build (as the reference's), lights read through
     # mesh_megakernel.tables_for
     mesh: Optional[mesh_megakernel.MeshTables] = None
+    # one global medium filling the scene (``set_medium``), or bounded media
+    # (``add_medium``, with the prims' medium interfaces); each None where
+    # the scene has none, and never both
+    medium: Optional[HomogeneousMedium] = None
+    media: Optional[MediaTable] = None
+    # the row of ``media`` holding the camera, -1 vacuum
+    camera_medium: int = -1
 
     @property
     def n_lights(self) -> int:
@@ -128,10 +148,17 @@ ARRAY_FIELDS = {
                "shape_kind", "o2w", "w2o", "params"),
     "": ("light_func", "light_cdf", "light_func_int", "world_center",
          "world_radius"),
-    # only where the scene has a BVH
+    # only where the scene has a BVH, a global medium, bounded media
     "bvh": bvh_ops.LinearBVH._fields,
+    "medium": HomogeneousMedium._fields,
+    "media": MediaTable._fields,
 }
-OPTIONAL_GROUPS = ("bvh",)
+OPTIONAL_GROUPS = ("bvh", "medium", "media")
+# fields of a table carried only where the table has them (not None)
+OPTIONAL_FIELDS = {
+    "prims": ("medium_inside", "medium_outside"),
+    "materials": ("bump_tex", "bump_scale", "sss_d", "sss_cbar"),
+}
 
 
 def _not_ported(what: str, item: str):
@@ -155,6 +182,10 @@ class SceneBuilder:
     _materials: list = field(default_factory=list)
     _textures: list = field(default_factory=list)
     _lights: list = field(default_factory=list)
+    _medium: Optional[tuple] = None  # (sigma_a, sigma_s, g)
+    _media: list = field(default_factory=list)  # bounded media rows
+    _camera_medium: int = -1
+    _medium_iface: dict = field(default_factory=dict)  # prim -> (inside, outside)
 
     # --- textures ---------------------------------------------------------
 
@@ -204,18 +235,19 @@ class SceneBuilder:
         row = dict(
             mat_type=MATTE, kd=(0.5, 0.5, 0.5), kd_tex=-1, sigma=0.0,
             kr=(1.0, 1.0, 1.0), kt=(1.0, 1.0, 1.0), eta=1.5, roughness=0.0,
+            bump_tex=-1, bump_scale=1.0, sss_d=(0.0, 0.0, 0.0),
         )
         row.update(kw)
         self._materials.append(row)
         return len(self._materials) - 1
 
     def matte(self, kd=(0.5, 0.5, 0.5), kd_tex: int = -1, sigma: float = 0.0,
-              bump_tex: int = -1) -> int:
-        """Matte: Lambertian (sigma=0) or Oren-Nayar (matte.go:21-37)."""
-        if bump_tex >= 0:
-            _not_ported("bump mapping", "open item 1.7")
+              bump_tex: int = -1, bump_scale: float = 1.0) -> int:
+        """Matte: Lambertian (sigma=0) or Oren-Nayar (matte.go:21-37);
+        ``bump_tex`` >= 0 perturbs the shading normal by that texture's
+        height times ``bump_scale`` (scene.py:232-236)."""
         return self._add_material(mat_type=MATTE, kd=_rgb(kd), kd_tex=kd_tex,
-                                  sigma=sigma)
+                                  sigma=sigma, bump_tex=bump_tex, bump_scale=bump_scale)
 
     def mirror(self, kr=(0.9, 0.9, 0.9)) -> int:
         """Perfect mirror (mirror.go:21-32)."""
@@ -241,11 +273,20 @@ class SceneBuilder:
         return self._add_material(mat_type=METAL, kr=_rgb(f0),
                                   roughness=max(alpha, 1e-3))
 
-    def subsurface(self, *args, **kwargs) -> int:
-        _not_ported("subsurface scattering", "open item 1.7")
+    def subsurface(self, rho=(0.8, 0.5, 0.3), mfp=(0.2, 0.2, 0.2), eta=1.33) -> int:
+        """Subsurface scattering: the Burley separable BSSRDF with diffuse
+        albedo ``rho``, each channel's mean free path ``mfp`` (world units)
+        and the interface's IOR ``eta`` (scene.py:265-280)."""
+        from gopbrt_tpu_torch.ops.bssrdf import burley_scaling
+
+        rho_t, mfp_t = _rgb(rho), _rgb(mfp)
+        d = tuple(max(m, 1e-5) / float(burley_scaling(a)) for a, m in zip(rho_t, mfp_t))
+        return self._add_material(mat_type=SUBSURFACE, kd=rho_t, eta=eta, sss_d=d)
 
     def null_material(self) -> int:
-        _not_ported("null materials / bounded media", "open item 1.7")
+        """No BSDF: a pure medium boundary that rays pass through without
+        a bounce (the reference's nil material, path.go:72-78)."""
+        return self._add_material(mat_type=NULLMAT, kd=(0.0, 0.0, 0.0))
 
     # --- primitives -------------------------------------------------------
 
@@ -298,11 +339,28 @@ class SceneBuilder:
     def animate(self, *args, **kwargs) -> None:
         _not_ported("animation", "open item 1.7")
 
-    def set_medium(self, *args, **kwargs) -> None:
-        _not_ported("participating media", "open item 1.7")
+    # --- media ------------------------------------------------------------
 
-    def add_medium(self, *args, **kwargs) -> int:
-        _not_ported("participating media", "open item 1.7")
+    def set_medium(self, sigma_a, sigma_s=(0.0, 0.0, 0.0), g: float = 0.0) -> None:
+        """A global homogeneous medium filling the scene (scene.py:355-363):
+        Beer-Lambert attenuation on every path and shadow segment, HG
+        in-scattering where sigma_s > 0."""
+        self._medium = (_rgb(sigma_a), _rgb(sigma_s), float(g))
+
+    def add_medium(self, sigma_a, sigma_s=(0.0, 0.0, 0.0), g: float = 0.0) -> int:
+        """A bounded homogeneous medium; its id goes to
+        ``set_medium_interface`` and ``set_camera_medium`` (scene.py:365-373)."""
+        self._media.append((_rgb(sigma_a), _rgb(sigma_s), float(g)))
+        return len(self._media) - 1
+
+    def set_camera_medium(self, medium_id: int) -> None:
+        """The medium holding the camera (-1 vacuum)."""
+        self._camera_medium = int(medium_id)
+
+    def set_medium_interface(self, prim_id: int, inside: int, outside: int = -1) -> None:
+        """The media inside and outside a prim (-1 vacuum): with a null
+        material a pure medium boundary, with glass a filled shell."""
+        self._medium_iface[prim_id] = (int(inside), int(outside))
 
     # --- lights -----------------------------------------------------------
 
@@ -416,8 +474,16 @@ class SceneBuilder:
         )
         glass_alphas = [m["roughness"] for m in self._materials
                         if m["mat_type"] == GLASS]
+        mat_types = set(m["mat_type"] for m in self._materials)
+        if SUBSURFACE in mat_types:
+            # the BSSRDF's entry turns Fresnel-reflected lanes into unit
+            # mirrors (integrators._subsurface_transport)
+            mat_types.add(MIRROR)
+        if self._medium is not None or self._media:
+            # medium vertices ride the wavefront as MATTE lanes
+            mat_types.add(MATTE)
         minfo = MatInfo(
-            mat_types=tuple(sorted(set(m["mat_type"] for m in self._materials))),
+            mat_types=tuple(sorted(mat_types)),
             any_rough_glass=any(a > 1e-4 for a in glass_alphas),
             any_smooth_glass=any(a <= 1e-4 for a in glass_alphas),
             any_oren_nayar=any(m["mat_type"] == MATTE and m["sigma"] > 0.0
@@ -469,6 +535,7 @@ class SceneBuilder:
             "lights.params": np.stack([r["params"] for r in lights]),
             "world_center": center,
             "world_radius": radius,
+            **self._feature_arrays(n),
         }
         # the light distribution (lightdistribution.go:3-9, 46-68)
         if self.light_strategy == "power" and self._lights:
@@ -481,18 +548,53 @@ class SceneBuilder:
         arrays.update(light_func=lf.numpy(), light_cdf=lcdf.numpy(),
                       light_func_int=lint.numpy())
         infos = dict(pinfo=asdict(pinfo), minfo=asdict(minfo),
-                     fastinfo=asdict(self._fast_path_info(o2w)))
+                     fastinfo=asdict(self._fast_path_info(o2w)),
+                     camera_medium=self._camera_medium)
         if accelerator == "bvh" and n > 4:
             tree, backend, ms = bvh_ops.build_timed(*bvh_ops._prim_bounds_np(self))
             arrays.update({f"bvh.{f}": getattr(tree, f).numpy() for f in tree._fields})
             infos["bvh_build"] = {"backend": backend, "build_ms": ms}
         return scene_from_arrays(arrays, infos, device)
 
+    def _feature_arrays(self, n: int) -> dict:
+        """The optional tables of bump mapping, subsurface materials, medium
+        interfaces and media (scene.py:535-555, 592-611, 624-641), keyed as
+        ``ARRAY_FIELDS`` / ``OPTIONAL_FIELDS``; only those the scene uses."""
+        mats, out = self._materials, {}
+        if any(m["bump_tex"] >= 0 for m in mats):
+            out["materials.bump_tex"] = [m["bump_tex"] for m in mats]
+            out["materials.bump_scale"] = [m["bump_scale"] for m in mats]
+        if any(m["mat_type"] == SUBSURFACE for m in mats):
+            from gopbrt_tpu_torch.ops.bssrdf import sw_normalization
+
+            out["materials.sss_d"] = [m["sss_d"] for m in mats]
+            out["materials.sss_cbar"] = sw_normalization(
+                torch.tensor([m["eta"] for m in mats], dtype=torch.float32)).numpy()
+        if self._medium_iface:
+            # -2: no transition (a prim without an interface keeps the ray's
+            # medium)
+            mi, mo = np.full((n,), -2, np.int32), np.full((n,), -2, np.int32)
+            for pid, (i_in, i_out) in self._medium_iface.items():
+                mi[pid], mo[pid] = i_in, i_out
+            out.update({"prims.medium_inside": mi, "prims.medium_outside": mo})
+        if self._media and self._medium is not None:
+            raise ValueError("bounded media (add_medium) and the global medium "
+                             "(set_medium) are mutually exclusive")
+        if self._medium is not None:
+            out.update({f"medium.{f}": np.asarray(v, np.float32)
+                        for f, v in zip(HomogeneousMedium._fields, self._medium)})
+        elif self._media:
+            out.update({f"media.{f}": np.asarray([r[k] for r in self._media], np.float32)
+                        for k, f in enumerate(MediaTable._fields)})
+        return out
+
     def _fast_path_info(self, o2w: np.ndarray) -> FastPathInfo:
         """Eligibility for the bounce megakernel (scene.py:749-830); see
         static_info.FastPathInfo for the closed feature set."""
         common = True
         for m in self._materials:
+            if m["bump_tex"] >= 0:
+                common = False
             if m["mat_type"] == MATTE and m["sigma"] != 0.0:
                 common = False
             t = m["kd_tex"]
@@ -507,9 +609,11 @@ class SceneBuilder:
         for r in self._lights:
             if r["type"] == LIGHT_AREA and r["shape"] != SHAPE_SPHERE:
                 common = False
-        if any(self._reverse):
+        if self._medium is not None or any(self._reverse):
             common = False
-        if any(m["mat_type"] == NULLMAT for m in self._materials):
+        # bounded media and null boundaries: the general chain only
+        if self._media or self._medium_iface or any(
+                m["mat_type"] == NULLMAT for m in self._materials):
             common = False
         lin = np.asarray(o2w, np.float64)[:, :3, :3]
         gram = np.einsum("pij,pkj->pik", lin, lin)
@@ -576,14 +680,16 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
     """Build a Scene from NumPy tables keyed as in ``ARRAY_FIELDS``.
 
     infos: {"pinfo": {...}, "minfo": {...}, "fastinfo": {...}} — the field
-    values of PrimInfo, MatInfo and FastPathInfo as plain dicts — and,
-    where the builder built the tree, "bvh_build": {"backend", "build_ms"}.
+    values of PrimInfo, MatInfo and FastPathInfo as plain dicts — the
+    camera's medium ("camera_medium", -1 where absent) and, where the
+    builder built the tree, "bvh_build": {"backend", "build_ms"}.
     """
     device = resolve_device(device)
 
     def group(name):
-        return {f: _as_table(arrays[f"{name}.{f}"], device)
-                for f in ARRAY_FIELDS[name]}
+        fields = ARRAY_FIELDS[name] + tuple(f for f in OPTIONAL_FIELDS.get(name, ())
+                                            if f"{name}.{f}" in arrays)
+        return {f: _as_table(arrays[f"{name}.{f}"], device) for f in fields}
 
     pinfo = PrimInfo(**{**infos["pinfo"], "types": tuple(infos["pinfo"]["types"])})
     minfo = MatInfo(**{**infos["minfo"],
@@ -596,6 +702,9 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
             arrays["textures.tex_type"]).tolist()),
         lights=Lights(**group("lights")),
         fastinfo=FastPathInfo(**infos["fastinfo"]),
+        medium=HomogeneousMedium(**group("medium")) if "medium.g" in arrays else None,
+        media=MediaTable(**group("media")) if "media.g" in arrays else None,
+        camera_medium=int(infos.get("camera_medium", -1)),
         **top,
     )
     scene = scene._replace(brute=brute_intersect.brute_table(scene.prims))
@@ -618,8 +727,10 @@ def scene_to_arrays(scene: Scene) -> dict:
         table = getattr(scene, name) if name else scene
         if table is None and name in OPTIONAL_GROUPS:
             continue
-        for f in fields:
-            out[f"{name}.{f}" if name else f] = getattr(table, f).cpu().numpy()
+        for f in fields + OPTIONAL_FIELDS.get(name, ()):
+            v = getattr(table, f)
+            if v is not None:
+                out[f"{name}.{f}" if name else f] = v.cpu().numpy()
     return out
 
 

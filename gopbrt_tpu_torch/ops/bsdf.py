@@ -5,10 +5,12 @@ Counterpart of ``gopbrt_tpu/ops/bsdf.py``: the material tags,
 Schlick), the Trowbridge-Reitz (GGX) helpers, the lobes (Lambert,
 Oren-Nayar, microfacet reflection and transmission) and the dispatchers
 ``bsdf_f``, ``bsdf_pdf`` and ``bsdf_sample`` over MATTE, MIRROR, GLASS
-(smooth and rough), PLASTIC and METAL.  Directions are in the shading frame
-(z = shading normal).  As in the JAX module, a scene's static ``MatInfo``
-narrows the dispatch to the lobes it has.  The SUBSURFACE exit lobe waits
-for the BSSRDF (ROADMAP open item 1.7) and raises.
+(smooth and rough), PLASTIC, METAL and the SUBSURFACE exit lobe (the
+BSSRDF's directional term Sw, ``ops/bssrdf.sw``, cosine-sampled).
+Directions are in the shading frame (z = shading normal).  As in the JAX
+module, a scene's static ``MatInfo`` narrows the dispatch to the lobes it
+has.  NULLMAT lanes never reach the lobes: the integrators pass through
+null boundaries before the dispatch.
 """
 
 from __future__ import annotations
@@ -41,15 +43,14 @@ class MaterialParams(NamedTuple):
     eta: torch.Tensor  # f32[N]    interior IOR
     roughness: torch.Tensor  # f32[N] GGX alpha (already remapped)
     info: Optional[MatInfo] = None
+    # the SUBSURFACE exit lobe's normalization c-bar per lane; None where
+    # the scene has no subsurface material
+    sss_cbar: Optional[torch.Tensor] = None  # f32[N]
 
 
 def _mtypes(mp: MaterialParams) -> tuple:
     if mp.info is None:
-        return (MATTE, MIRROR, GLASS, PLASTIC, METAL)
-    if SUBSURFACE in mp.info.mat_types:
-        raise NotImplementedError(
-            "the subsurface exit lobe is not ported to gopbrt_tpu_torch yet "
-            "(ROADMAP open item 1.7)")
+        return (MATTE, MIRROR, GLASS, PLASTIC, METAL, SUBSURFACE)
     return mp.info.mat_types
 
 
@@ -307,6 +308,16 @@ def _metal_f(mp: MaterialParams, wo, wi):
     return torch.where(same_hemisphere(wo, wi)[..., None], f, 0.0)
 
 
+def _sss_exit_f(mp: MaterialParams, wo, wi):
+    """The BSSRDF exit lobe Sw (bsdf.py:386-396): isotropic in azimuth,
+    Fresnel-shaped in theta, on the outward hemisphere (the integrator sets
+    wo = +ns at the exit)."""
+    from gopbrt_tpu_torch.ops.bssrdf import sw
+
+    f = sw(mp.eta, cos_theta(wi), c_bar=mp.sss_cbar)[..., None] * torch.ones_like(mp.kd)
+    return torch.where(same_hemisphere(wo, wi)[..., None], f, 0.0)
+
+
 def bsdf_f(mp: MaterialParams, wo, wi):
     """Non-delta f(wo, wi) (BSDF.F, reflection.go:169-186); delta lobes
     (mirror, smooth glass) give zero."""
@@ -322,6 +333,8 @@ def bsdf_f(mp: MaterialParams, wo, wi):
         branches.append((mp.mat_type == PLASTIC, _plastic_f(mp, wo, wi)))
     if METAL in types:
         branches.append((mp.mat_type == METAL, _metal_f(mp, wo, wi)))
+    if SUBSURFACE in types:
+        branches.append((mp.mat_type == SUBSURFACE, _sss_exit_f(mp, wo, wi)))
     f = torch.zeros_like(wo)
     for mask, val in branches:
         f = torch.where(mask[..., None], val, f)
@@ -332,7 +345,7 @@ def bsdf_pdf(mp: MaterialParams, wo, wi):
     """Solid-angle pdf of bsdf_sample (BSDF.Pdf, reflection.go:255-278)."""
     types = _mtypes(mp)
     may_rough, _ = _glass_split(mp)
-    need_cos = MATTE in types or PLASTIC in types
+    need_cos = MATTE in types or PLASTIC in types or SUBSURFACE in types
     need_mfr = (GLASS in types and may_rough) or PLASTIC in types or METAL in types
     same = same_hemisphere(wo, wi)
     if need_cos:
@@ -361,6 +374,9 @@ def bsdf_pdf(mp: MaterialParams, wo, wi):
                          torch.where(same, 0.5 * (cos_pdf + mf_pdf_r), 0.0)))
     if METAL in types:
         branches.append((mp.mat_type == METAL, torch.where(same, mf_pdf_r, 0.0)))
+    if SUBSURFACE in types:
+        # the exit lobe is cosine-sampled (see bsdf_sample)
+        branches.append((mp.mat_type == SUBSURFACE, torch.where(same, cos_pdf, 0.0)))
     pdf = torch.zeros_like(wo[..., 0])
     for mask, val in branches:
         pdf = torch.where(mask, val, pdf)
@@ -378,7 +394,7 @@ def bsdf_sample(mp: MaterialParams, wo, u2, uc) -> BsdfSample:
     may_rough, may_smooth = _glass_split(mp)
     has_rough_glass = GLASS in types and may_rough
     has_smooth_glass = GLASS in types and may_smooth
-    need_matte = MATTE in types or PLASTIC in types
+    need_matte = MATTE in types or PLASTIC in types or SUBSURFACE in types
     need_mfr = has_rough_glass or PLASTIC in types or METAL in types
 
     if need_matte:
@@ -468,6 +484,11 @@ def bsdf_sample(mp: MaterialParams, wo, u2, uc) -> BsdfSample:
         branches.append((mp.mat_type == PLASTIC, wi_plastic, f_plastic, pdf_plastic))
     if METAL in types:
         branches.append((mp.mat_type == METAL, wi_mfr, f_metal, pdf_metal))
+    if SUBSURFACE in types:
+        # the exit lobe, cosine-sampled (the entry transport is the
+        # integrator's _subsurface_transport, before the dispatch)
+        branches.append((mp.mat_type == SUBSURFACE, wi_matte, _sss_exit_f(mp, wo, wi_matte),
+                         pdf_matte))
     if not branches:
         raise ValueError("bsdf_sample: empty material set")
     _, wi, f, pdf = branches[-1]

@@ -42,6 +42,12 @@ class Primitives(NamedTuple):
     area_light_id: torch.Tensor  # int32[P], -1 = not an emitter
     reverse_orientation: torch.Tensor  # bool[P]
     pinfo: Optional[PrimInfo] = None
+    # the medium interface (MediumAccessor, medium.go:15-25): the medium id
+    # inside / outside each prim, -1 vacuum, -2 no transition (a prim
+    # without an interface leaves the ray's medium as it is); None where the
+    # scene declares no interface
+    medium_inside: Optional[torch.Tensor] = None  # int32[P]
+    medium_outside: Optional[torch.Tensor] = None  # int32[P]
 
     @property
     def count(self) -> int:

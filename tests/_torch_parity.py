@@ -13,25 +13,29 @@ import torch
 
 from gopbrt_tpu.models import camera as jcam
 from gopbrt_tpu.models import render as jrender
-from gopbrt_tpu_torch.models.scene import ARRAY_FIELDS, OPTIONAL_GROUPS, scene_from_arrays
+from gopbrt_tpu_torch.models.scene import (ARRAY_FIELDS, OPTIONAL_FIELDS, OPTIONAL_GROUPS,
+                                           scene_from_arrays)
 
 
 def jax_scene_arrays(scene) -> dict:
     """A JAX Scene's tables as NumPy arrays, keyed as ARRAY_FIELDS (the BVH
-    where the scene has one)."""
+    and the media where the scene has them) and OPTIONAL_FIELDS (where not
+    None)."""
     out = {}
     for name, fields in ARRAY_FIELDS.items():
         table = getattr(scene, name) if name else scene
         if table is None and name in OPTIONAL_GROUPS:
             continue
-        for f in fields:
-            out[f"{name}.{f}" if name else f] = np.asarray(getattr(table, f))
+        for f in fields + OPTIONAL_FIELDS.get(name, ()):
+            v = getattr(table, f)
+            if v is not None:
+                out[f"{name}.{f}" if name else f] = np.asarray(v)
     return out
 
 
 def jax_scene_infos(scene) -> dict:
     return dict(pinfo=asdict(scene.prims.pinfo), minfo=asdict(scene.materials.info),
-                fastinfo=asdict(scene.fastinfo))
+                fastinfo=asdict(scene.fastinfo), camera_medium=scene.camera_medium)
 
 
 def carry(scene):

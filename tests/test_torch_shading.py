@@ -188,13 +188,25 @@ def test_bsdf_f_pdf_sample(lobe):
 
 
 def test_subsurface_exit_lobe_raises():
-    _, tinfo = _mat_info(tbsdf.SUBSURFACE)
-    z = torch.zeros(4)
-    mp = tbsdf.MaterialParams(mat_type=torch.full((4,), tbsdf.SUBSURFACE), kd=torch.zeros(4, 3),
-                              sigma=z, kr=torch.zeros(4, 3), kt=torch.zeros(4, 3), eta=z,
-                              roughness=z, info=tinfo)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbsdf.bsdf_f(mp, torch.zeros(4, 3), torch.zeros(4, 3))
+    """The SUBSURFACE exit lobe no longer raises (it is ported): bsdf_f on
+    SUBSURFACE lanes is the reference's Sw lobe; tests/test_torch_bssrdf.py
+    holds f, pdf and sample in full."""
+    jinfo, tinfo = _mat_info(tbsdf.SUBSURFACE)
+    r = np.random.default_rng(4)
+    wo, wi = _unit(r, 4), _unit(r, 4)
+    wo[:, 2], wi[:, 2] = np.abs(wo[:, 2]), np.abs(wi[:, 2])
+    eta = np.full(4, 1.33, np.float32)
+    kd = np.full((4, 3), 0.5, np.float32)
+    z = np.zeros(4, np.float32)
+    jmp = jbsdf.MaterialParams(mat_type=jnp.full((4,), jbsdf.SUBSURFACE), kd=jnp.asarray(kd),
+                               sigma=jnp.asarray(z), kr=jnp.asarray(kd), kt=jnp.asarray(kd),
+                               eta=jnp.asarray(eta), roughness=jnp.asarray(z), info=jinfo)
+    tmp = tbsdf.MaterialParams(mat_type=torch.full((4,), tbsdf.SUBSURFACE), kd=torch.tensor(kd),
+                               sigma=torch.tensor(z), kr=torch.tensor(kd), kt=torch.tensor(kd),
+                               eta=torch.tensor(eta), roughness=torch.tensor(z), info=tinfo)
+    got = tbsdf.bsdf_f(tmp, *_t(wo, wi))
+    _close(got, jbsdf.bsdf_f(jmp, jnp.asarray(wo), jnp.asarray(wi)), err="f")
+    assert float(got.min()) > 0.0
 
 
 def test_lights_sample_pdf_and_emission(shapes):
