@@ -62,10 +62,29 @@ non-zero and never prints the last line:
      bench_mesh.py's workload): 4 mesh megakernel launches per pass;
    - the metal mesh, the general chain on the BVH, at 1920x1080, depth 5:
      BVH walk launches only;
-   - the media and subsurface families of benchmarks/bench_families.py at
-     their size, 960x544, 1 spp (one band): bounded media (a fog ball
-     behind a null boundary) depth 5, 30 closest-hit launches a pass;
-     global fog depth 5, 5 + 5; subsurface depth 4, 8 + 4;
+   - ``[options]`` on the demo at 1920x1080, 2 spp, depth 10 through
+     ``render``: the crop window (#1 on the crop's 518,400 lanes, the
+     scatter splat; its interior against the full render), the Halton
+     sampler, a Mitchell and a Lanczos filter (#1's launches a pass, the
+     splat's host ms), a checkpoint resumed to the uninterrupted image;
+   - the six families of benchmarks/bench_families.py at their size,
+     960x544, 1 spp (one band): smooth and rough glass depth 8 on #1 (one
+     launch a pass; #1 against its plain version); bounded media (a fog
+     ball behind a null boundary) depth 5, 30 closest-hit launches a pass;
+     global fog depth 5, 5 + 5; subsurface depth 4, 8 + 4; the spatial
+     light grid depth 3, 3 + 3;
+   - ``[compaction]``: ``PathConfig(compaction=True)`` against the
+     uncompacted chain on the demo (depth 10) and config 1's scene (path,
+     depth 3) on #2 / #3 and the metal mesh (depth 5) on #4: every launch
+     on compacted chunks against its plain version, every lane within
+     1e-5 at two chunk sizes, the live lanes a bounce, the host syncs, one
+     timed 1080p pass with and without (the compacted one through
+     ``render_pass``), and a profiled pass of each chain (device busy ms and
+     kernels);
+   - ``[motion]``: a moving sphere at 1920x1080 (brute force) and an
+     82-prim scene with 9 moving prims on the BVH at 512x512: no launch of
+     the port's kernels (an animated table takes the plain, time-aware
+     intersection), a band on the card against the same lanes on the CPU;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
    profiled passes.  The brute kernels are timed on every launch of the
@@ -556,19 +575,37 @@ def timed_passes(render, film_mod, scene, camera, settings, dev):
     return dt_ms, dict(_build.LAUNCHES), film
 
 
-def _trace(fn, ranges: tuple):
+# a device event of a trace: its name, start and duration in microseconds
+DeviceEvent = collections.namedtuple("DeviceEvent", "name start_us dur_us")
+
+
+def _trace(fn, ranges: tuple, host: bool = True):
     """Runs ``fn()`` under the profiler -> (host ms of each
     ``record_function`` range in ``ranges``, the device's kernels and
-    copies).  A range shows twice, as a host event and as an annotation on
-    the device's timeline; the device is busy for its kernels and copies."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    copies as DeviceEvents).  A range shows twice, as a host event and as
+    an annotation on the device's timeline; the device is busy for its
+    kernels and copies.  host=False traces the device only (no host ms).
+    The events are read from the profiler's kineto results as they are:
+    ``prof.events()`` builds a Python object for each event, over 10x
+    slower, seconds for a pass of tens of thousands of kernels."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    host = {k: sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.name == k and e.device_type == cpu) / 1e3 for k in ranges}
-    return host, [e for e in prof.events() if e.device_type == cuda and e.name not in ranges]
+    host_ms, work = dict.fromkeys(ranges, 0.0), []
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name, kind = e.name(), e.device_type()
+        if kind == cpu and name in host_ms:
+            host_ms[name] += e.duration_ns() / 1e6
+        elif kind == cuda and name not in ranges:
+            work.append(DeviceEvent(torch._C._demangle(name), e.start_ns() / 1e3,
+                                    e.duration_ns() / 1e3))
+    return host_ms, work
 
 
 def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
@@ -580,9 +617,8 @@ def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
         lambda: render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev),
         ("render.band_rays", "render.li", "render.splat"))
     host = {k.split(".")[1]: v for k, v in host.items()}
-    device_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
-    seq = {k: [e.time_range.elapsed_us() / 1e3
-               for e in sorted(work, key=lambda e: e.time_range.start) if k in e.name]
+    device_ms = sum(e.dur_us for e in work) / 1e3
+    seq = {k: [e.dur_us / 1e3 for e in sorted(work, key=lambda e: e.start_us) if k in e.name]
            for k in OWN_KERNELS}
     own = {k: sum(v) for k, v in seq.items() if v}
     busy = (f"device busy {device_ms:.3f} ms in {len(work)} kernels and copies, "
@@ -601,7 +637,7 @@ def profiled(fn, ranges: tuple = ()) -> str:
     host, work = _trace(fn, ranges)
     by_name = collections.Counter()
     for e in work:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name] += e.dur_us / 1e3
     top = ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in by_name.most_common(5))
     return ("host ms by range: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
             + f"; device busy {sum(by_name.values()):.3f} ms in {len(work)} kernels and "
@@ -819,13 +855,17 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
     return launches, launches_c, {**own_m, **own_c}
 
 
-# launches of #2 / #3 a pass of each family at one band (bench_families.py's
-# 960x544, 1 spp): bounded media 3 segments and a 3-step shadow walk of
-# closest hits a bounce (a null material: no any hit); global fog a hit and
-# a shadow ray a bounce; subsurface a hit, the probe's chord and a shadow ray
-FAMILY_LAUNCHES = {"bounded_media": {"intersect": 30},
+# launches a pass of each family at one band (bench_families.py's 960x544,
+# 1 spp): the glass families run the megakernel (#1) once; on #2 / #3,
+# bounded media 3 segments and a 3-step shadow walk of closest hits a
+# bounce (a null material: no any hit); global fog a hit and a shadow ray a
+# bounce; subsurface a hit, the probe's chord and a shadow ray; the spatial
+# lights a hit and a shadow ray a bounce
+FAMILY_LAUNCHES = {"smooth_glass": {"megakernel": 1}, "rough_glass": {"megakernel": 1},
+                   "bounded_media": {"intersect": 30},
                    "global_fog": {"intersect": 5, "intersect_any": 5},
-                   "sss": {"intersect": 8, "intersect_any": 4}}
+                   "sss": {"intersect": 8, "intersect_any": 4},
+                   "spatial_lights": {"intersect": 3, "intersect_any": 3}}
 FAM_GRAD_SIZE = 128
 
 
@@ -865,14 +905,48 @@ def chains_agree(what: str, run, bar: float) -> torch.Tensor:
     return got
 
 
-def family_checks(dev, render, film_mod, device_name: str, power_limit: str) -> dict:
-    """Media and subsurface on the card (the media and subsurface families
-    of bench_families.py at their own size, and a bump-mapped matte):
+def family_pass(name, render, film_mod, scene, camera, settings, dev, out: dict,
+                device_name: str, power_limit: str) -> None:
+    """``[main-path]`` of one family: 1 warm-up, N_PASSES timed passes with
+    the launch counts set to 0 just before and read just after
+    (``FAMILY_LAUNCHES`` a pass), one profiled; the counts go to
+    ``out["launches"]``."""
+    dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
+    want = {k: v * N_PASSES for k, v in FAMILY_LAUNCHES[name].items()}
+    if launches != want:
+        raise AssertionError(f"{name} main path launched {launches} in {N_PASSES} "
+                             f"passes, expected {want}")
+    img = film_mod.develop(film)
+    mean = float(img.mean())
+    if not (bool(torch.isfinite(img).all()) and mean > 0.01):
+        raise AssertionError(f"{name}: bad image (mean {mean})")
+    out["launches"][name] = launches
+    pixels = settings.width * settings.height
+    phase("main-path", f"{name}: {N_PASSES} passes of {settings.width}x{settings.height} "
+          f"1 spp path depth {settings.max_depth}: {dt:.2f} ms per pass "
+          f"({pixels / (dt / 1e3):.0f} camera rays/s), launches per pass "
+          f"{FAMILY_LAUNCHES[name]}, image mean {mean:.4f} ({device_name}, "
+          f"{power_limit})")
+    print(json.dumps({
+        "metric": f"family_{name}_camera_rays_per_s_{settings.width}x{settings.height}"
+                  f"_depth{settings.max_depth}", "value": pixels / (dt / 1e3), "unit": "rays/s",
+        "ms_per_pass": dt, "launches_per_pass": FAMILY_LAUNCHES[name],
+        "device": device_name, "power_limit": power_limit}), flush=True)
+    line, _, _ = profiled_pass(render, scene, camera, film, settings, dev, dt)
+    phase("main-path", f"{name}: " + line)
 
-    - ``[kernel-vs-plain]``: every #2 / #3 launch of ``_li_wavefront`` over
-      one band of each family against the plain versions (instance, dead
-      lanes and those off the plain answer, which must be none; > 0.999
-      agree; no closest-hit prim other than the plain one clear of ties);
+
+def family_checks(dev, render, film_mod, device_name: str, power_limit: str) -> dict:
+    """The six families of bench_families.py at their own size (glass,
+    media, subsurface, the spatial light grid) and a bump-mapped matte:
+
+    - ``[kernel-vs-plain]``: on the glass families (fast path), the
+      megakernel (#1) against ``path_li_plain`` on the band (> 0.99 of
+      lanes within 1e-3, mean difference < 2e-3); on the
+      others every #2 / #3 launch of ``_li_wavefront`` over one band
+      against the plain versions (instance, dead lanes and those off the
+      plain answer, which must be none; > 0.999 agree; no closest-hit prim
+      other than the plain one clear of ties);
     - ``[chain-vs-chain]``: each family's ``_li_wavefront`` on the kernels
       against the same chain on the plain intersection (> 0.98 of lanes
       within 1e-3); ``li_direct`` with the global fog, the BSSRDF and bump
@@ -888,15 +962,35 @@ def family_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
     {kind: (least agreement, max abs t error)}, "dead": [dead lanes, off]}."""
     from gopbrt_tpu_torch import _build
     from gopbrt_tpu_torch.models import gallery, integrators
+    from gopbrt_tpu_torch.ops import megakernel
 
-    out = {"launches": {}, "worst": {"intersect": (1.0, 0.0), "intersect_any": (1.0, 0.0)},
-           "dead": [0, 0]}
+    out = {"launches": {}, "worst": {"intersect": (1.0, 0.0), "intersect_any": (1.0, 0.0),
+                                     "megakernel": (1.0, 0.0)}, "dead": [0, 0]}
     for name, build in gallery.FAMILIES.items():
         scene, camera, settings = build(device=dev)
         cfg = render.path_config(settings)
         cone = render._cone(camera, settings)
         _, o, d, pix, smp = render.band_rays(camera, settings, 0, settings.height, 0)
         n = o.shape[0]
+        if "megakernel" in FAMILY_LAUNCHES[name]:
+            if not megakernel.fits(scene):
+                raise AssertionError(f"{name} should lie on the megakernel's fast path")
+            got = megakernel.path_li_fused(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+            ref = megakernel.path_li_plain(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+            frac, mean_rel, max_abs = agreement(got, ref)
+            phase("kernel-vs-plain", f"megakernel, {name} band {settings.width}x"
+                  f"{settings.height} ({n} lanes), depth {cfg.max_depth}, cone on: "
+                  f"{frac:.5f} of lanes within 1e-3 (bar 0.99), mean diff {mean_rel:.2e} "
+                  f"(bar 2e-3), max abs err {max_abs:.3e}, mean L {float(ref.mean()):.6f}")
+            if not (frac > 0.99 and mean_rel < 2e-3 and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{name}: the megakernel disagrees with its plain version")
+            w = out["worst"]["megakernel"]
+            out["worst"]["megakernel"] = (min(w[0], frac), max(w[1], max_abs))
+            family_pass(name, render, film_mod, scene, camera, settings, dev, out,
+                        device_name, power_limit)
+            continue
+        if name == "spatial_lights" and scene.light_grid is None:
+            raise AssertionError("the spatial-lights family has no light grid")
         calls = []
         with recording(calls):
             integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
@@ -927,34 +1021,12 @@ def family_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
         chains_agree(f"{name} _li_wavefront, one band, depth {cfg.max_depth}",
                      lambda: integrators._li_wavefront(scene, o, d, pix, smp, settings.seed,
                                                        cfg, cone=cone), 0.98)
-        if name in ("global_fog", "sss"):
+        if name in ("global_fog", "sss", "spatial_lights"):
             chains_agree(f"{name} li_direct, one band, depth 3",
                          lambda: integrators.li_direct(scene, o, d, pix, smp, settings.seed,
                                                        max_depth=3, cone=cone), 0.99)
-
-        dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
-        want = {k: v * N_PASSES for k, v in FAMILY_LAUNCHES[name].items()}
-        if launches != want:
-            raise AssertionError(f"{name} main path launched {launches} in {N_PASSES} "
-                                 f"passes, expected {want}")
-        img = film_mod.develop(film)
-        mean = float(img.mean())
-        if not (bool(torch.isfinite(img).all()) and mean > 0.01):
-            raise AssertionError(f"{name}: bad image (mean {mean})")
-        out["launches"][name] = launches
-        pixels = settings.width * settings.height
-        phase("main-path", f"{name}: {N_PASSES} passes of {settings.width}x{settings.height} "
-              f"1 spp path depth {cfg.max_depth}: {dt:.2f} ms per pass "
-              f"({pixels / (dt / 1e3):.0f} camera rays/s), launches per pass "
-              f"{FAMILY_LAUNCHES[name]}, image mean {mean:.4f} ({device_name}, "
-              f"{power_limit})")
-        print(json.dumps({
-            "metric": f"family_{name}_camera_rays_per_s_{settings.width}x{settings.height}"
-                      f"_depth{cfg.max_depth}", "value": pixels / (dt / 1e3), "unit": "rays/s",
-            "ms_per_pass": dt, "launches_per_pass": FAMILY_LAUNCHES[name],
-            "device": device_name, "power_limit": power_limit}), flush=True)
-        line, _, _ = profiled_pass(render, scene, camera, film, settings, dev, dt)
-        phase("main-path", f"{name}: " + line)
+        family_pass(name, render, film_mod, scene, camera, settings, dev, out, device_name,
+                    power_limit)
 
     bscene, bcam = bump_scene(dev)
     bset = render.RenderSettings(width=256, height=256, spp=1, max_depth=3, seed=5)
@@ -996,6 +1068,375 @@ def family_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
         if not (bool(torch.isfinite(g_k).all()) and rel < 1e-4 and float(g_k[0].abs().max()) > 0):
             raise AssertionError(f"[grad] {name}: the kernels change the gradient")
     return out
+
+
+# [options]: the demo at 1080p through render: spp, the crop window
+OPT_SPP = 2
+CROP = ((0.25, 0.25), (0.75, 0.75))
+
+
+def traced(fn, pass_ms: float) -> str:
+    """``fn()`` once under the profiler, the device only -> a line: device
+    busy ms, kernel count, the port's kernels' device ms and launches, the
+    idle share of a ``pass_ms`` pass."""
+    _, work = _trace(fn, (), host=False)
+    device_ms = sum(e.dur_us for e in work) / 1e3
+    own, count = {}, collections.Counter()
+    for e in work:
+        k = next((k for k in OWN_KERNELS if k in e.name), None)
+        if k:
+            own[k] = own.get(k, 0.0) + e.dur_us / 1e3
+            count[k] += 1
+    line = (f"device busy {device_ms:.3f} ms in {len(work)} kernels and copies, the "
+            f"port's kernels " + (", ".join(f"{k} {v:.4f} ms in {count[k]} launches"
+                                            for k, v in own.items()) or "none")
+            + f"; idle {1.0 - device_ms / pass_ms:.4f} of a {pass_ms:.2f} ms pass"
+            if device_ms > 0 else "device time not measured")
+    return line
+
+
+def options_checks(dev, render, film_mod, scene, camera, settings, device_name: str,
+                   power_limit: str) -> dict:
+    """``[options]`` on the demo at 1920x1080, path depth 10, through
+    ``render`` (the megakernel, #1):
+
+    - the uninterrupted render at OPT_SPP spp (``progress`` once a pass);
+    - the crop window CROP: one ``render_wave`` of its 518,400 lanes a
+      pass (the scatter splat, with atomics), its launches, #1 on the
+      crop's lanes against ``path_li_plain``, and its interior pixels (one
+      pixel in from the edge: every box tap inside the crop) against the
+      same region of the full render, each within 1e-5: both splats weigh
+      a tap from the same rounded film position (the row splat's jitter is
+      p_film - pixel), so only the order of the adds differs (the scatter
+      splat's atomics);
+    - the Halton sampler, a Mitchell and a Lanczos filter: N_PASSES timed
+      passes each, #1's launches a pass and the splat's host ms in a
+      profiled pass, a finite non-black image; #1 on a Halton band
+      against ``path_li_plain``;
+    - a checkpoint written after pass 1 of OPT_SPP and resumed: the image
+      of the uninterrupted render within 1e-6, ``progress`` called for the
+      remaining pass only.
+
+    -> {"launches": the launch counts of these renders, "worst": (least
+    agreement, max abs err) of #1}."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import camera as cam_mod
+    from gopbrt_tpu_torch.ops import filters, megakernel
+
+    out = {"launches": collections.Counter(), "worst": (1.0, 0.0)}
+    base = settings._replace(spp=OPT_SPP, samples_per_pass=1)
+    cfg = render.path_config(base)
+    cone = render._cone(camera, base)
+
+    def counted(fn):
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        out["launches"].update(launches)
+        return res, (time.perf_counter() - t0) * 1e3, launches
+
+    def kernel_vs_plain(what, o, d, pix, smp):
+        got = megakernel.path_li_fused(scene, o, d, pix, smp, base.seed, cfg, cone=cone)
+        ref = megakernel.path_li_plain(scene, o, d, pix, smp, base.seed, cfg, cone=cone)
+        frac, mean_rel, max_abs = agreement(got, ref)
+        phase("kernel-vs-plain", f"megakernel, {what} ({o.shape[0]} lanes), depth "
+              f"{cfg.max_depth}: {frac:.5f} of lanes within 1e-3, mean diff {mean_rel:.2e}, "
+              f"max abs err {max_abs:.3e}, mean L {float(ref.mean()):.6f}")
+        if not (frac > 0.99 and mean_rel < 2e-3 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{what}: the megakernel disagrees with its plain version")
+        out["worst"] = (min(out["worst"][0], frac), max(out["worst"][1], max_abs))
+
+    calls = []
+    full, full_ms, launches = counted(lambda: render.render(
+        scene, camera, base, progress=lambda p, n: calls.append((p, n)), device=dev))
+    if calls != [(p + 1, OPT_SPP) for p in range(OPT_SPP)]:
+        raise AssertionError(f"progress was called {calls}")
+    phase("options", f"demo {W}x{H} {OPT_SPP} spp depth {base.max_depth} through render: "
+          f"{full_ms:.2f} ms, launches {launches}, progress {calls}")
+
+    crop_set = base._replace(crop=CROP)
+    x0, x1, y0, y1 = render.crop_pixel_bounds(crop_set)
+    crop, crop_ms, launches = counted(lambda: render.render(scene, camera, crop_set,
+                                                            device=dev))
+    n_crop = (x1 - x0) * (y1 - y0)
+    if launches != {"megakernel": OPT_SPP} or tuple(crop.shape) != (y1 - y0, x1 - x0, 3):
+        raise AssertionError(f"crop render: launches {launches}, image {tuple(crop.shape)}")
+    diff = (crop[1:-1, 1:-1] - full[y0 + 1:y1 - 1, x0 + 1:x1 - 1]).abs().amax(dim=-1)
+    phase("options", f"crop {CROP}: pixels [{x0}, {x1}) x [{y0}, {y1}), {n_crop} lanes a pass, "
+          f"{crop_ms:.2f} ms for {OPT_SPP} passes, launches {launches}; interior against the "
+          f"full render: max diff {float(diff.max()):.3e} (bar 1e-5), "
+          f"{int((diff > 1e-6).sum())} of {diff.numel()} pixels over 1e-6; image mean "
+          f"{float(crop.mean()):.4f} against the region's {float(full[y0:y1, x0:x1].mean()):.4f}")
+    if not (float(diff.max()) <= 1e-5 and bool(torch.isfinite(crop).all())):
+        raise AssertionError("the crop's interior differs from the full render")
+    xs = torch.arange(x0, x1, device=dev)[None, :]
+    ys = torch.arange(y0, y1, device=dev)[:, None]
+    cpix = (ys * W + xs).reshape(-1)
+    csmp = torch.zeros_like(cpix)
+    p_film, u_lens = render.camera_samples(crop_set, cpix, csmp, base.seed)
+    kernel_vs_plain("the crop's lanes", *cam_mod.generate_rays(camera, p_film, u_lens), cpix,
+                    csmp)
+
+    for what, change in (("halton", dict(sampler="halton")),
+                         ("mitchell", dict(filter=filters.mitchell_filter(2.0))),
+                         ("lanczos", dict(filter=filters.lanczos_filter(4.0, 3.0)))):
+        opt = base._replace(**change)
+        dt, launches, film = timed_passes(render, film_mod, scene, camera, opt, dev)
+        out["launches"].update(launches)
+        img = film_mod.develop(film)
+        mean = float(img.mean())
+        if launches != {"megakernel": 4 * N_PASSES} or not (
+                bool(torch.isfinite(img).all()) and mean > 0.01):
+            raise AssertionError(f"{what}: launches {launches}, image mean {mean}")
+        line, _, _ = profiled_pass(render, scene, camera, film, opt, dev, dt)
+        phase("options", f"{what} ({W}x{H}, 1 spp a pass, filter radius {opt.filter.radius}): "
+              f"{N_PASSES} passes, {dt:.2f} ms per pass, launches per pass "
+              f"{{'megakernel': {launches['megakernel'] // N_PASSES}}}, image mean {mean:.4f} "
+              f"({device_name}, {power_limit}); {line}")
+        if what == "halton":
+            _, ho, hd, hpix, hsmp = render.band_rays(camera, opt, 0, 273, 1)
+            kernel_vs_plain("a Halton band of sample 1", ho, hd, hpix, hsmp)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "film.ckpt")
+        film = render.render_pass(scene, camera, film_mod.new_film(W, H, device=dev), base, 0,
+                                  device=dev)
+        render._save_checkpoint(ck, base, film, 1)
+        calls = []
+        resumed, _, launches = counted(lambda: render.render(
+            scene, camera, base, progress=lambda p, n: calls.append(p), checkpoint_path=ck,
+            device=dev))
+        diff = float((resumed - full).abs().max())
+        phase("options", f"checkpoint after pass 1 of {OPT_SPP}, resumed: progress {calls}, "
+              f"launches {launches}; max diff to the uninterrupted render {diff:.3e} (bar 1e-6)")
+        if not (calls == list(range(2, OPT_SPP + 1)) and diff <= 1e-6):
+            raise AssertionError("the resumed render differs from the uninterrupted one")
+    return out
+
+
+# [compaction]: the lanes' chunk size that divides no band (padding slots)
+ODD_CHUNK = 100_003
+
+
+def chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev, stats=None):
+    """A pass of the general chain on every band (``_li_wavefront`` with
+    ``cfg``, the row splat), in ``render_pass``'s ranges -> the film."""
+    film = film_mod.new_film(settings.width, settings.height, device=dev)
+    band_rows = settings.chunk_pixels // settings.width
+    cone = render._cone(camera, settings)
+    for r0 in range(0, settings.height, band_rows):
+        with record_function("render.band_rays"):
+            jitter, o, d, pix, smp = render.band_rays(camera, settings, r0, band_rows, 0)
+        with record_function("render.li"):
+            L = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg, cone=cone,
+                                          stats=stats)
+        with record_function("render.splat"):
+            film_mod.add_samples_rows(film, r0, jitter.reshape(band_rows, -1, 2),
+                                      L.reshape(band_rows, -1, 3), settings.filter)
+    return film
+
+
+def compaction_checks(dev, render, film_mod, runs, device_name: str, power_limit: str) -> dict:
+    """``[compaction]``: ``PathConfig(compaction=True)`` against the
+    uncompacted chain, for each of ``runs`` ((name, scene, camera,
+    settings, accel)): on one band, every kernel launch of the compacted
+    chain at the default chunk_size against its plain version (the
+    kernels' bars; a chunk's padding slots are there), then the compacted
+    radiance at the default and at ODD_CHUNK against the uncompacted
+    chain's (every lane within 1e-5; the lanes not bit-equal counted), the
+    live lanes a bounce and the host syncs; then one timed 1080p pass of
+    each (the band runs before warm them): the uncompacted chain through
+    ``chain_pass``, the compacted one through ``render_pass`` with
+    ``RenderSettings(compaction=True)``, the counts set to 0 just before
+    each and read just after; then one profiled ``chain_pass`` of each.  -> {"launches": launch counts,
+    "worst": {kind: (least agreement, max abs err)}}."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import integrators
+
+    out = {"launches": collections.Counter(), "worst": {}}
+    for name, scene, camera, settings, accel in runs:
+        t_start = time.perf_counter()
+        cfg = render.path_config(settings)
+        on = cfg._replace(compaction=True)
+        band_rows = settings.chunk_pixels // settings.width
+        cone = render._cone(camera, settings)
+        _, o, d, pix, smp = render.band_rays(camera, settings, band_rows, band_rows, 0)
+        n = o.shape[0]
+        calls, stats = [], {}
+        with recording(calls, accel):
+            got = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, on,
+                                            cone=cone, stats=stats)
+        kinds = collections.Counter(c[0] for c in calls)
+        want = {"brute": {"intersect", "intersect_any"},
+                "bvh": {"bvh_intersect", "bvh_intersect_any"}}[accel]
+        if set(kinds) != want:
+            raise AssertionError(f"{name}: the compacted chain launched {dict(kinds)}")
+        worst, dead_run = {}, [0, 0]
+        for i, call in enumerate(calls):
+            agree, err, ids, dead = check_intersect_call(*call)
+            check_agreement(f"{name} compacted {call[0]} launch {i}", agree, ids, dead)
+            w = worst.get(call[0], (1.0, 0.0))
+            worst[call[0]] = (min(w[0], agree), max(w[1], err))
+            if dead is not None:
+                dead_run = [dead_run[0] + dead[0], dead_run[1] + dead[1]]
+        for k, v in worst.items():
+            w = out["worst"].get(k, (1.0, 0.0))
+            out["worst"][k] = (min(w[0], v[0]), max(w[1], v[1]))
+        phase("kernel-vs-plain", f"compaction, {name}: {dict(kinds)} launches on chunks of "
+              f"{min(on.chunk_size, n)} lanes over one {settings.width}x{band_rows} band "
+              f"({n} lanes), each against its plain version: least agreement, max abs err "
+              + ", ".join(f"{k} {v[0]:.6f}, {v[1]:.3e}" for k, v in worst.items())
+              + (f"; {dead_run[0]} dead lanes, {dead_run[1]} of them off the plain answer"
+                 if accel == "brute" else ""))
+        ref = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+        odd = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed,
+                                        on._replace(chunk_size=ODD_CHUNK), cone=cone)
+        phase("compaction", f"{name}, one band: live lanes a bounce {stats['live']}, host "
+              f"syncs {stats['syncs']}")
+        for chunk, res in ((on.chunk_size, got), (ODD_CHUNK, odd)):
+            diff = (res - ref).abs().amax(dim=-1)
+            phase("compaction", f"{name}, chunk_size {chunk}: max abs diff to the uncompacted "
+                  f"chain {float(diff.max()):.3e} (bar 1e-5), {int((diff > 0).sum())} of {n} "
+                  f"lanes not bit-equal")
+            if not (float(diff.max()) <= 1e-5 and bool(torch.isfinite(res).all())):
+                raise AssertionError(f"{name}: the compacted chain differs from the uncompacted")
+
+        t_checks = time.perf_counter() - t_start
+        # one timed pass of each: the uncompacted chain through chain_pass
+        # (render_pass would take the megakernel on the demo), the compacted
+        # one through the user's entry point, render_pass with
+        # RenderSettings(compaction=True); then one profiled pass of each
+        # chain, which also counts the compacted chain's host syncs
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev)
+        torch.cuda.synchronize()
+        dt_u, launches_u = (time.perf_counter() - t0) * 1e3, dict(_build.LAUNCHES)
+        film = film_mod.new_film(settings.width, settings.height, device=dev)
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        render.render_pass(scene, camera, film, settings._replace(compaction=True), 0,
+                           device=dev)
+        torch.cuda.synchronize()
+        dt_c, launches_c = (time.perf_counter() - t0) * 1e3, dict(_build.LAUNCHES)
+        out["launches"].update(launches_u)
+        out["launches"].update(launches_c)
+        img = film_mod.develop(film)
+        if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01
+                and set(launches_c) == want):
+            raise AssertionError(f"{name}: compacted render_pass launched {launches_c}, "
+                                 f"image mean {float(img.mean())}")
+        pstats = {}
+        for mode, c, dt, launches, st in (("uncompacted chain", cfg, dt_u, launches_u, None),
+                                          ("compacted render_pass", on, dt_c, launches_c,
+                                           pstats)):
+            line = traced(lambda: chain_pass(render, integrators, film_mod, scene, camera,
+                                             settings, c, dev, stats=st), dt)
+            phase("compaction", f"{name}, {mode}: one timed pass of {settings.width}x"
+                  f"{settings.height} 1 spp depth {cfg.max_depth}: {dt:.2f} ms, launches "
+                  f"{launches}" + (f", host syncs {pstats['syncs']} a pass" if st is not None
+                                   else "")
+                  + f" ({device_name}, {power_limit}); one profiled pass of the chain: {line}")
+        phase("main-path", f"{name} through render_pass with compaction=True: image mean "
+              f"{float(img.mean()):.4f}; compacted / uncompacted pass {dt_c / dt_u:.3f}")
+        phase("time", f"[compaction] {name}: checks {t_checks:.1f} s, timed and profiled "
+              f"passes {time.perf_counter() - t_start - t_checks:.1f} s")
+    return out
+
+
+MOTION_BVH_SIZE = 512
+MOTION_BAND_ROWS = 16
+
+
+def motion_scene(device, n_fill: int):
+    """The moving sphere of tests/test_motion.py (a matte sphere of radius
+    0.5 sliding from x = -1 to 1 across the shutter, a frontal distant
+    light, depth 1) or, with ``n_fill`` > 0, above the brute-force cutoff:
+    the sphere, a floor, ``n_fill`` small spheres of which every tenth
+    moves up, a point light, on the BVH (depth 3) -> (scene, camera,
+    settings at 1920x1080 or MOTION_BVH_SIZE square)."""
+    from gopbrt_tpu_torch.models import camera as cam_mod
+    from gopbrt_tpu_torch.models.scene import SceneBuilder
+    from gopbrt_tpu_torch.ops import geom
+
+    b = SceneBuilder()
+    mat = b.matte(kd=(0.8, 0.8, 0.8))
+    pid = b.sphere(geom.translate([-1.0, 0.0, 0.0]), 0.5, mat)
+    b.animate(pid, geom.translate([1.0, 0.0, 0.0]))
+    b.distant_light(direction=(0.0, 0.0, 1.0), radiance=(3.0, 3.0, 3.0))
+    if not n_fill:
+        cam = cam_mod.perspective_camera(geom.look_at([0.0, 0.0, 6.0], [0.0, 0.0, 0.0],
+                                                      [0.0, 1.0, 0.0]), W, H, fov_deg=30.0,
+                                         device=device)
+        settings = render_settings(W, H, 1)
+        return b.build(accelerator="none", device=device), cam, settings
+    b.disk(geom.matmul(geom.translate([0.0, -1.0, 0.0]), geom.rotate_x(-90.0)), 20.0,
+           b.matte(kd=(0.5, 0.6, 0.7)))
+    small = b.matte(kd=(0.7, 0.4, 0.3))
+    for i in range(n_fill):
+        x, z = -3.0 + 0.6 * (i % 10), -3.0 - 0.6 * (i // 10)
+        k = b.sphere(geom.translate([x, -0.7, z]), 0.25, small)
+        if i % 10 == 0:
+            b.animate(k, geom.translate([x, 0.2, z]))
+    b.point_light(p=(2.0, 4.0, 3.0), intensity=(30.0,) * 3)
+    s = MOTION_BVH_SIZE
+    cam = cam_mod.perspective_camera(geom.look_at([0.0, 2.0, 6.0], [0.0, -0.5, -2.0],
+                                                  [0.0, 1.0, 0.0]), s, s, fov_deg=45.0,
+                                     device=device)
+    return b.build(accelerator="bvh", device=device), cam, render_settings(s, s, 3)
+
+
+def render_settings(width, height, depth):
+    from gopbrt_tpu_torch.models.render import RenderSettings
+
+    return RenderSettings(width=width, height=height, spp=1, max_depth=depth,
+                          samples_per_pass=1, seed=13)
+
+
+def motion_checks(dev, render, film_mod, device_name: str, power_limit: str) -> None:
+    """``[motion]``: an animated scene turns the kernels off (the reference
+    turns Pallas off for one, integrators.py:154-204).  For the moving
+    sphere at 1920x1080 (brute force) and a scene of 82 prims with 9 of
+    them moving at MOTION_BVH_SIZE square (the plain, time-aware BVH
+    walk): N_PASSES timed passes with the counts set to 0 just before (no
+    launch of the port's kernels), a finite, non-black image, and the
+    rows of a band (MOTION_BAND_ROWS rows, the shutter times drawn per
+    lane) on the card against the same lanes on the CPU (> 0.99 within
+    1e-3 relative)."""
+    from gopbrt_tpu_torch.models import integrators
+
+    for what, n_fill in (("moving sphere", 0), ("animated BVH scene", 80)):
+        scene, camera, settings = motion_scene(dev, n_fill)
+        if scene.prims.anim is None or (n_fill and scene.bvh is None):
+            raise AssertionError(f"{what}: not an animated scene")
+        dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
+        img = film_mod.develop(film)
+        mean = float(img.mean())
+        if launches or not (bool(torch.isfinite(img).all()) and mean > 0.01):
+            raise AssertionError(f"{what}: launches {launches}, image mean {mean}")
+        cfg = render.path_config(settings)
+        lanes = []
+        for sc, cam in ((scene, camera), motion_scene("cpu", n_fill)[:2]):
+            _, o, d, pix, smp = render.band_rays(cam, settings, settings.height // 2,
+                                                 MOTION_BAND_ROWS, 0)
+            time_ = render.camera_time(cam, pix, smp, settings.seed)
+            lanes.append(integrators.li(sc, o, d, pix, smp, settings.seed, cfg,
+                                        cone=render._cone(cam, settings), time=time_).cpu())
+        frac, mean_rel, max_abs = agreement(lanes[0], lanes[1])
+        phase("motion", f"{what} ({scene.prims.count} prims, "
+              f"{int(scene.prims.anim.animated.sum())} moving, "
+              f"{'the BVH walk' if n_fill else 'brute force'}), {settings.width}x"
+              f"{settings.height} 1 spp depth {settings.max_depth}: {N_PASSES} passes, "
+              f"{dt:.2f} ms per pass, launches {launches or 'none'}, image mean {mean:.4f} "
+              f"({device_name}, {power_limit}); {lanes[0].shape[0]} lanes of a band on the card "
+              f"against the CPU: {frac:.5f} within 1e-3 (bar 0.99), mean diff {mean_rel:.2e}, "
+              f"max abs err {max_abs:.3e}")
+        if not (frac > 0.99 and float(lanes[1].mean()) > 0.0):
+            raise AssertionError(f"{what}: the card disagrees with the CPU")
+
 
 
 def grad_check(what: str, scene, band, seed, kernel: str, replay_kernels: tuple,
@@ -1196,6 +1637,13 @@ def inverse_config5(dev, device_name: str, power_limit: str) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def stamp(what: str) -> None:
+        """A ``[time]`` line: the seconds since the last one."""
+        marks.append(time.perf_counter())
+        phase("time", f"{what}: {marks[-1] - marks[-2]:.1f} s")
+
     # ---- 1. device ----------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1392,8 +1840,10 @@ def main() -> int:
             and not torch.equal(m_k, direct_k)):
         raise AssertionError("li_direct on a replaced scene: not its own prims")
 
+    stamp("build and the demo / config-1 kernel checks")
     # the mesh scene: kernels #4 and #5, their checks, times and bounds
     mesh = mesh_checks(dev, band_rows)
+    stamp("the mesh checks")
 
     # gradients: the bounce kernels forward, the path replay backward
     grad_demo = grad_check("demo", scene, (o, d, pixel, sample, cfg, cone), settings.seed,
@@ -1436,6 +1886,7 @@ def main() -> int:
             p_ms = cuda_ms(lambda: plain[kind](*args), reps=5)
             timing[kind] = (k_ms, p_ms, b_new[0], b_new[1])
 
+    stamp("[grad] and the kernel times")
     # ---- 4. main paths --------------------------------------------------
     # the demo, path depth 10: the megakernel only
     dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
@@ -1473,6 +1924,8 @@ def main() -> int:
     phase("render", f"demo {W}x{H} 4 spp in {render_s:.3f} s "
           f"({_build.LAUNCHES['megakernel']} launches), image mean {img_mean:.4f}, "
           f"PNG {len(png)} bytes")
+
+    stamp("the demo's main path and render")
 
     # config 1: direct lighting depth 3, one light per vertex
     dt1, launches1, film1 = timed_passes(render, film_mod, scene1, camera1, set1, dev)
@@ -1544,11 +1997,35 @@ def main() -> int:
     # device ms per pass of each kernel, from the profiled passes
     per_pass = {**own_d, **own_1, **own_m}
 
-    # media and subsurface: the families on kernels #2 / #3
+    stamp("config 1, the feature scene and the mesh main paths")
+
+    # the render options on the demo: crop, Halton, filters, checkpoint
+    # (after the earlier main paths, which run as they ran before them)
+    opts = options_checks(dev, render, film_mod, scene, camera, settings, device_name,
+                          power_limit)
+    stamp("[options]")
+
+    # the six families: glass on #1, media, subsurface and the light grid
+    # on #2 / #3
     fam = family_checks(dev, render, film_mod, device_name, power_limit)
+    stamp("the families")
+
+    # compaction: the chain on compacted chunks, on #2 / #3 and on #4
+    comp = compaction_checks(dev, render, film_mod, (
+        ("demo", scene, camera, settings, "brute"),
+        ("config 1's scene, path depth 3", scene1, camera1,
+         set1._replace(integrator="path"), "brute"),
+        ("metal mesh", mesh["metal"], mesh["cam"], mesh["settings"], "bvh")),
+        device_name, power_limit)
+
+    # motion blur: the plain, time-aware intersection, no kernel
+    stamp("[compaction]")
+    motion_checks(dev, render, film_mod, device_name, power_limit)
+    stamp("[motion]")
 
     # config 5: the inverse-rendering trainer
     inverse = inverse_config5(dev, device_name, power_limit)
+    stamp("[inverse]")
     slice_launches = {}
     for counts in (grad_demo["launches"], grad_mesh["launches"], inverse["launches"]):
         for k, v in counts.items():
@@ -1575,15 +2052,18 @@ def main() -> int:
             "launches": launches1[kind] + sum(by_family.values()),
             "launches_per_pass": launches1[kind] // N_PASSES,
             "launches_families": by_family,
-            "max_abs_err": max(worst[kind][1], fam["worst"][kind][1]), "ms": k_ms,
+            "max_abs_err": max(worst[kind][1], fam["worst"][kind][1],
+                               comp["worst"].get(kind, (1.0, 0.0))[1]), "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "ms_per_pass": per_pass.get(fn),
         })
     for name, source, replaces, launches, err, fn in (
             ("bvh_intersect", "bvh_intersect.cu", "pallas_cluster.py:127", launches_c,
-             mesh["worst"]["bvh_intersect"][1], "bvh_closest_kernel"),
+             max(mesh["worst"]["bvh_intersect"][1],
+                 comp["worst"].get("bvh_intersect", (1.0, 0.0))[1]), "bvh_closest_kernel"),
             ("bvh_intersect_any", "bvh_intersect.cu", "pallas_cluster.py:127", launches_c,
-             mesh["worst"]["bvh_intersect_any"][1], "bvh_any_kernel"),
+             max(mesh["worst"]["bvh_intersect_any"][1],
+                 comp["worst"].get("bvh_intersect_any", (1.0, 0.0))[1]), "bvh_any_kernel"),
             ("mesh_megakernel", "mesh_megakernel.cu", "pallas_mesh_megakernel.py:357",
              launches_m, mesh["mesh_err"], "mesh_kernel")):
         k_ms, p_ms, b_ms, b_by = mesh["timing"][name]
@@ -1601,6 +2081,13 @@ def main() -> int:
         line.append(row)
     for row in line:  # the [grad] and [inverse] paths' launches of each kernel
         row["launches_grad_inverse"] = slice_launches.get(row["name"], 0)
+        # the [options] and [compaction] phases' launches (their main paths
+        # and timed passes; the comparisons with the plain versions apart)
+        row["launches_options"] = opts["launches"].get(row["name"], 0)
+        row["launches_compaction"] = comp["launches"].get(row["name"], 0)
+    line[0]["launches_families"] = {f: c.get("megakernel", 0) for f, c in fam["launches"].items()}
+    line[0]["max_abs_err"] = max(line[0]["max_abs_err"], opts["worst"][1],
+                                 fam["worst"]["megakernel"][1])
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

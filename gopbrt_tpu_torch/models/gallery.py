@@ -10,10 +10,13 @@ Counterpart of ``gopbrt_tpu/models/gallery.py``:
   5. inverse rendering: an image-textured sphere and one area light
      (``config5``, its ground truth ``config5_truth``), path depth 3;
 
-and the media and subsurface families of the reference's per-family
-ledger (``benchmarks/bench_families.py:77-121``, 960x544, 1 spp):
+and the six families of the reference's per-family ledger
+(``benchmarks/bench_families.py:49-136``, 960x544, 1 spp):
+``smooth_glass`` (config 4's scene, depth 8), ``rough_glass`` (depth 8),
 ``bounded_media`` (a fog ball behind a null boundary, depth 5),
-``global_fog`` (depth 5) and ``sss`` (a Burley BSSRDF sphere, depth 4).
+``global_fog`` (depth 5), ``sss`` (a Burley BSSRDF sphere, depth 4) and
+``spatial_lights`` (two point lights under the spatial light grid, depth
+3).
 
 Each builder returns (scene, camera, settings) with the tables on
 ``device`` (None = the card).  Configs 1, 2 and 4 and the families build
@@ -140,6 +143,31 @@ def _family_settings(width, height, depth):
                           integrator="path", samples_per_pass=1)
 
 
+def smooth_glass(width=960, height=544, device=None):
+    """Config 4's scene (area lights, MIS, a smooth-glass sphere) at path
+    depth 8 (bench_families.py:49-53)."""
+    scene, camera, _ = config4(width, height, device=device)
+    return scene, camera, _family_settings(width, height, 8)
+
+
+def rough_glass(width=960, height=544, device=None):
+    """A rough-glass sphere (GGX, roughness 0.15) on a checker floor beside
+    a matte ball under a sphere lamp, path depth 8 (bench_families.py:
+    56-74)."""
+    b = SceneBuilder()
+    checker = b.checkerboard_texture((0.8, 0.8, 0.8), (0.2, 0.2, 0.2),
+                                     vs=(0.7, 0.0, 0.0), vt=(0.0, 0.0, 0.7),
+                                     mapping="planar")
+    b.disk(geom.rotate_x(-90.0), 60.0, b.matte(kd=(1.0, 1.0, 1.0), kd_tex=checker))
+    b.sphere(geom.translate([0.0, 1.2, 0.0]), 1.2, b.glass(roughness=0.15))
+    b.sphere(geom.translate([2.4, 0.8, -1.4]), 0.8, b.matte(kd=(0.7, 0.3, 0.2)))
+    lamp = b.sphere(geom.translate([-2.5, 4.0, 2.0]), 0.5, b.matte(kd=(0.0, 0.0, 0.0)))
+    b.area_light(lamp, radiance=(30.0, 28.0, 24.0), two_sided=False)
+    return (b.build(accelerator="none", device=device),
+            _family_camera((0, 2.4, 6.5), (0, 1.0, 0), width, height, device),
+            _family_settings(width, height, 8))
+
+
 def bounded_media(width=960, height=544, device=None):
     """A fog ball (a bounded medium behind a null-material sphere), a
     matte floor and ball, a point light and a sphere lamp, path depth 5
@@ -184,10 +212,27 @@ def sss(width=960, height=544, device=None):
             _family_settings(width, height, 4))
 
 
+def spatial_lights(width=960, height=544, device=None):
+    """A matte floor and ball under a bright and a dim point light, lights
+    picked by the spatial light grid, path depth 3 (bench_families.py:
+    124-135)."""
+    b = SceneBuilder(light_strategy="spatial")
+    b.disk(geom.rotate_x(-90.0), 40.0, b.matte(kd=(0.6, 0.6, 0.6)))
+    b.sphere(geom.translate([0.0, 1.0, 0.0]), 1.0, b.matte(kd=(0.5, 0.5, 0.7)))
+    b.point_light(p=(10.0, 3.0, 0.0), intensity=(300.0,) * 3)
+    b.point_light(p=(-10.0, 3.0, 0.0), intensity=(3.0,) * 3)
+    return (b.build(accelerator="none", device=device),
+            _family_camera((0, 2.4, 8.0), (0, 1.0, 0), width, height, device),
+            _family_settings(width, height, 3))
+
+
 FAMILIES = {
+    "smooth_glass": smooth_glass,
+    "rough_glass": rough_glass,
     "bounded_media": bounded_media,
     "global_fog": global_fog,
     "sss": sss,
+    "spatial_lights": spatial_lights,
 }
 
 

@@ -1,19 +1,21 @@
 """Wavefront integrators: path tracing and direct lighting.
 
-Counterpart of ``gopbrt_tpu/models/integrators.py`` for static scenes (no
-animation): ``PathConfig``, the intersection dispatch
-(``_scene_intersect`` / ``_scene_intersect_p``), the global light pick,
-bump mapping (``_apply_bump``), ``_material_at``, the BSSRDF's probe
+Counterpart of ``gopbrt_tpu/models/integrators.py``: ``PathConfig``, the
+intersection dispatch (``_scene_intersect`` / ``_scene_intersect_p``, at
+each lane's time on animated scenes), the light pick (the global
+distribution, or the spatial grid's voxel at the shading point), bump
+mapping (``_apply_bump``), ``_material_at``, the BSSRDF's probe
 transport (``_subsurface_transport``), the shading frame,
 ``_estimate_direct`` (NEE with MIS, the phase function at medium vertices
 and the shadow ray's transmittance), the shadow walk across null
 boundaries (``_intersect_tr``), ``PathState``, ``_bounce_once`` (the
 segment walk through null boundaries, medium distance sampling, medium
 vertices and HG sampling), the wavefront loop ``_li_wavefront`` (the JAX
-package's ``_li_jnp``), ``li_direct`` and the dispatch ``li``.  As in the
-reference, what a scene lacks (media, null materials, interfaces, bump,
-subsurface) is left out in Python: such a scene runs the ops it ran before
-these features.
+package's ``_li_jnp``), its compacted mode (``_li_compacted``: live
+lanes sorted to the front and run in chunks), ``li_direct`` and the
+dispatch ``li``.  As in the reference, what a scene lacks (media, null
+materials, interfaces, bump, subsurface, motion, the light grid) is left
+out in Python: such a scene runs the ops it ran before these features.
 
 The whole batch of rays advances bounce by bounce as SoA tensors with an
 alive mask, as in the JAX chain, and draws the same counter-based random
@@ -23,7 +25,9 @@ intersections launch the kernels of ``csrc/bvh_intersect.cu``
 above BRUTE_FORCE_CUTOFF prims with a BVH, those of ``csrc/intersect.cu``
 (``ops/brute_intersect.intersect_brute_fused`` /
 ``intersect_p_brute_fused``) on the others; on CPU tensors they run the
-plain versions.  Under ``li``, fast-path scenes run the bounce megakernel
+plain versions.  An animated scene runs the plain, time-aware versions
+on either device, as the reference turns Pallas off for it
+(integrators.py:154-204).  Under ``li``, fast-path scenes run the bounce megakernel
 (``ops/megakernel.path_li_fused``) and mesh fast-path scenes above the
 cutoff the mesh megakernel (``ops/mesh_megakernel.mesh_li_fused``).
 """
@@ -32,9 +36,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import math
+
 import torch
 
-from gopbrt_tpu_torch.ops import brute_intersect, megakernel, mesh_megakernel, rng, sampling
+from gopbrt_tpu_torch.ops import brute_intersect, megakernel, mesh_megakernel, packed, rng
+from gopbrt_tpu_torch.ops import sampling
 from gopbrt_tpu_torch.ops import bssrdf as sss_ops
 from gopbrt_tpu_torch.ops import media as media_ops
 from gopbrt_tpu_torch.ops import bvh as bvh_ops
@@ -71,6 +78,11 @@ class PathConfig(NamedTuple):
     max_depth: int = 5
     rr_threshold: float = 1.0
     rr_start_depth: int = 3  # RR after 3 bounces (path.go:143-153)
+    # wavefront compaction: each bounce sorts the live lanes to the front
+    # and runs only ceil(live / chunk_size) chunks of chunk_size lanes
+    # (_li_compacted); one host sync a bounce; not differentiable
+    compaction: bool = False
+    chunk_size: int = 1 << 18
     # stop the bounce loop once every lane is dead
     early_exit: bool = False
 
@@ -91,6 +103,12 @@ class _Sampler:
         h = rng.hash_combine(rng.as_u32(seed, pixel.device), rng.as_u32(pixel))
         self.h = rng.hash_combine(h, sample)
 
+    def take(self, idx) -> "_Sampler":
+        """The streams of lanes ``idx`` (a compacted chunk)."""
+        out = _Sampler.__new__(_Sampler)
+        out.h = self.h[idx]
+        return out
+
     def u1(self, dim) -> torch.Tensor:
         return rng.u32_to_unit(rng.hash_combine(self.h, dim))
 
@@ -109,34 +127,79 @@ def _use_bvh(scene) -> bool:
     return scene.bvh_tables is not None and scene.prims.count > BRUTE_FORCE_CUTOFF
 
 
-def _scene_intersect(scene, o, d, t_max):
+def _scene_intersect(scene, o, d, t_max, time=None):
     """Closest hit -> (hit, t, prim_idx): the BVH walk or the brute sweep,
     as kernels on CUDA tensors and as plain versions on CPU tensors
-    (integrators.py:144-177)."""
+    (integrators.py:144-177).  An animated scene takes the plain versions,
+    its moving prims at the lanes' ``time`` where given."""
     args = (o.contiguous(), d.contiguous(), t_max.contiguous())
+    anim = scene.prims.anim
     if _use_bvh(scene):
+        if anim is not None:
+            return bvh_ops.bvh_intersect(scene.bvh_tables, *args,
+                                         anim=None if time is None else anim, time=time)
         return bvh_ops.bvh_intersect_fused(scene.bvh_tables, *args)
-    return brute_intersect.intersect_brute_fused(brute_intersect.scene_table(scene), *args)
+    table = brute_intersect.scene_table(scene)
+    if anim is not None:
+        return brute_intersect.intersect_brute(table, *args, moving=_moving(scene, time))
+    return brute_intersect.intersect_brute_fused(table, *args)
 
 
-def _scene_intersect_p(scene, o, d, t_max):
+def _scene_intersect_p(scene, o, d, t_max, time=None):
     """Any hit closer than t_max -> bool[N] (integrators.py:180-204)."""
     args = (o.contiguous(), d.contiguous(), t_max.contiguous())
+    anim = scene.prims.anim
     if _use_bvh(scene):
+        if anim is not None:
+            return bvh_ops.bvh_intersect_p(scene.bvh_tables, *args,
+                                           anim=None if time is None else anim, time=time)
         return bvh_ops.bvh_intersect_p_fused(scene.bvh_tables, *args)
-    return brute_intersect.intersect_p_brute_fused(brute_intersect.scene_table(scene),
-                                                   *args)
+    table = brute_intersect.scene_table(scene)
+    if anim is not None:
+        return brute_intersect.intersect_p_brute(table, *args, moving=_moving(scene, time))
+    return brute_intersect.intersect_p_brute_fused(table, *args)
 
 
-def _light_pick(scene, u):
-    """Pick a light for NEE from the global uniform / power distribution
-    (integrators.py:215-228; the spatial grid is not ported)."""
+def _moving(scene, time):
+    """The moving prims' per-lane transforms at ``time``, or None."""
+    return None if time is None else brute_intersect.moving_rows(scene.prims, time)
+
+
+def _voxel_flat(scene, p):
+    """Flat index of the light grid's voxel holding each point p
+    (integrators.py:207-212); a point outside the grid takes the nearest
+    voxel."""
+    g = scene.light_grid
+    dims_f = g.dims.to(_F32)
+    v = torch.floor((p - g.lo) * g.inv_extent * dims_f)
+    v = torch.minimum(torch.clamp(v, min=0.0), dims_f - 1.0).to(torch.int64)
+    v = torch.minimum(torch.clamp(v, min=0), g.dims - 1)  # NaN points
+    return (v[..., 0] * g.dims[1] + v[..., 1]) * g.dims[2] + v[..., 2]
+
+
+def _light_pick(scene, p, u):
+    """Pick a light for NEE at the shading points p: from the light grid's
+    distribution of p's voxel where the scene has one (the Spatial
+    strategy), else from the global uniform / power distribution
+    (integrators.py:215-228).  A discrete decision: no gradient reaches p
+    through the voxel index."""
+    g = scene.light_grid
+    if g is not None:
+        flat = _voxel_flat(scene, p)
+        return sampling.sample_discrete_rows(gather_rows(g.func, flat), gather_rows(g.cdf, flat),
+                                             gather_rows(g.func_int, flat), u)
     return sampling.sample_discrete(scene.light_func, scene.light_cdf,
                                     scene.light_func_int, u)
 
 
-def _light_pick_pmf(scene, light_idx):
-    """pmf that _light_pick chooses light_idx (the MIS denominator)."""
+def _light_pick_pmf(scene, p, light_idx):
+    """pmf that _light_pick at p chooses light_idx (the MIS denominator,
+    integrators.py:231-245)."""
+    g = scene.light_grid
+    if g is not None:
+        flat = _voxel_flat(scene, p)
+        return sampling.pmf_rows(gather_rows(g.func, flat), gather_rows(g.func_int, flat),
+                                 light_idx)
     return sampling.discrete_pmf(scene.light_func, scene.light_func_int,
                                  light_idx.long())
 
@@ -201,7 +264,8 @@ def _where_si(mask, a: isect.SurfaceInteraction, b: isect.SurfaceInteraction):
         for x, y in zip(a, b)))
 
 
-def _subsurface_transport(scene, si, mp, beta, alive, sampler: "_Sampler", dim_base: int):
+def _subsurface_transport(scene, si, mp, beta, alive, sampler: "_Sampler", dim_base: int,
+                          time=None):
     """The BSSRDF at subsurface entry hits (integrators.py:335-425), S =
     (1 - Fr(theta_o)) Sp Sw: with probability Fr a lane becomes a unit
     mirror; otherwise a probe disk point (axis, channel, Burley radius,
@@ -239,10 +303,10 @@ def _subsurface_transport(scene, si, mp, beta, alive, sampler: "_Sampler", dim_b
     probe_d = -vz
     # lanes that probe nothing carry a 1e-5 chord
     t_probe = torch.where(transmit & ok_r, chord, 1e-5)
-    hit_p, t_p, prim_p = _scene_intersect(scene, p0, probe_d, t_probe)
+    hit_p, t_p, prim_p = _scene_intersect(scene, p0, probe_d, t_probe, time)
     t_p, prim_p = t_p.detach(), prim_p.detach()
     ok = transmit & ok_r & hit_p & (scene.prims.material_id[prim_p.long()] == mid)
-    si_exit = isect.surface_interaction(scene.prims, ok, t_p, prim_p, p0, probe_d)
+    si_exit = isect.surface_interaction(scene.prims, ok, t_p, prim_p, p0, probe_d, time)
     # Sw lives on the outward hemisphere: the frame of the geometric normal
     si_exit = si_exit._replace(ns=si_exit.n, wo=si_exit.n)
 
@@ -275,7 +339,7 @@ def _to_world(ss, ts, ns, v):
 
 def _estimate_direct(scene, si, mp, ss, ts, ns, active, sampler: _Sampler,
                      dim_base: int, fixed_light=None, medium_scatter=None, phase_g=None,
-                     medium_ids=None, null_passes: int = 0):
+                     medium_ids=None, null_passes: int = 0, time=None):
     """One-light NEE with MIS (UniformSampleOneLight + EstimateDirect,
     integrator.go:48-77, 79-195) over the wavefront -> rgb f32[N,3], already
     divided by the pick pmf (integrators.py:451-573).
@@ -290,14 +354,15 @@ def _estimate_direct(scene, si, mp, ss, ts, ns, active, sampler: _Sampler,
     global medium's) and whose shadow ray starts at the vertex itself.
     The shadow ray's transmittance: walked across null boundaries by
     ``_intersect_tr`` where ``null_passes`` > 0; else in the lane's medium
-    ``medium_ids`` (bounded media) or the global medium.
+    ``medium_ids`` (bounded media) or the global medium.  time: the lanes'
+    shutter times on an animated scene.
     """
     n_lights = scene.n_lights
     if n_lights == 0:
         return torch.zeros_like(si.p)
     if fixed_light is None:
         # a discrete decision: the index carries no gradient (integrators.py:482-484)
-        light_idx, pick_pmf = _light_pick(scene, sampler.u1(dim_base + D_LIGHT_PICK))
+        light_idx, pick_pmf = _light_pick(scene, si.p, sampler.u1(dim_base + D_LIGHT_PICK))
         uv_dim = dim_base + D_LIGHT_UV
     else:
         light_idx = torch.full_like(si.prim_idx, fixed_light)
@@ -332,9 +397,9 @@ def _estimate_direct(scene, si, mp, ss, ts, ns, active, sampler: _Sampler,
     if null_passes > 0:
         # closest hits stepping through null boundaries (Scene.IntersectTr)
         occluded, tr = _intersect_tr(scene, o_sh, ls.wi, t_sh, medium_ids, contributes,
-                                     null_passes)
+                                     null_passes, time)
     else:
-        occluded = _scene_intersect_p(scene, o_sh, ls.wi, t_sh)
+        occluded = _scene_intersect_p(scene, o_sh, ls.wi, t_sh, time)
     vis = contributes & ~occluded
 
     # delta lights unweighted, area lights by the power heuristic
@@ -355,7 +420,7 @@ def _estimate_direct(scene, si, mp, ss, ts, ns, active, sampler: _Sampler,
     return torch.where(vis[..., None], contrib, 0.0)
 
 
-def _intersect_tr(scene, o, d, dist, medium0, active, null_passes: int):
+def _intersect_tr(scene, o, d, dist, medium0, active, null_passes: int, time=None):
     """A shadow ray walked across up to ``null_passes`` null boundaries,
     each segment's Beer-Lambert transmittance in the lane's current medium
     (Scene.IntersectTr, scene.go:58-77; integrators.py:576-626) ->
@@ -371,7 +436,7 @@ def _intersect_tr(scene, o, d, dist, medium0, active, null_passes: int):
              else torch.full((n,), -1, dtype=torch.int32, device=o.device))
     for _ in range(null_passes + 1):
         t_lim = torch.where(walk, torch.clamp(rem, min=1e-4), 1e-4)
-        hit_k, t_k, prim_k = _scene_intersect(scene, o_w, d, t_lim)
+        hit_k, t_k, prim_k = _scene_intersect(scene, o_w, d, t_lim, time)
         hit_k = hit_k & walk
         t_k = t_k.detach()
         if scene.media is not None:
@@ -382,7 +447,7 @@ def _intersect_tr(scene, o, d, dist, medium0, active, null_passes: int):
         is_null = hit_k & (scene.materials.mat_type[mat_k] == bsdf_ops.NULLMAT)
         occl = occl | (hit_k & ~is_null)
         # step through the boundary, switching the medium per the interface
-        si_b = isect.surface_interaction(prims, is_null, t_k, prim_k, o_w, d)
+        si_b = isect.surface_interaction(prims, is_null, t_k, prim_k, o_w, d, time)
         o_next = geom.offset_ray_origin(si_b.p, si_b.p_err + 1e-4, si_b.n, d)
         o_w = torch.where(is_null[..., None], o_next, o_w)
         rem = torch.where(is_null, rem - t_k, rem)
@@ -422,9 +487,12 @@ class PathState(NamedTuple):
     # ray's Medium pointer); None where the scene has neither bounded media
     # nor medium interfaces
     medium: Optional[torch.Tensor] = None
+    # f32[N] shutter times (CameraSample.Time -> Ray.Time); None where the
+    # scene has no moving prim
+    time: Optional[torch.Tensor] = None
 
 
-def _initial_state(o, d, cone, medium=None) -> PathState:
+def _initial_state(o, d, cone, medium=None, time=None) -> PathState:
     n = o.shape[0]
     dev = o.device
     return PathState(
@@ -438,18 +506,26 @@ def _initial_state(o, d, cone, medium=None) -> PathState:
         cone_w=torch.full((n,), 0.0 if cone is None else cone[0], dtype=_F32, device=dev),
         medium=(None if medium is None
                 else torch.full((n,), medium, dtype=torch.int32, device=dev)),
+        time=(None if time is None
+              else torch.broadcast_to(torch.as_tensor(time, dtype=_F32, device=dev), (n,))),
     )
 
 
-def _start(o, d, pixel, sample, seed, cone, medium=None):
+def _start(o, d, pixel, sample, seed, cone, medium=None, time=None):
     """The counter streams of the lanes, the cone spread and the camera
-    rays' state, their medium ``medium`` (None: not tracked) -> (sampler,
-    spread or None, PathState)."""
+    rays' state, their medium ``medium`` (None: not tracked) and shutter
+    times ``time`` (None: a static scene) -> (sampler, spread or None,
+    PathState)."""
     n = o.shape[0]
     pixel = torch.broadcast_to(rng.as_u32(pixel, o.device), (n,))
     sample = torch.broadcast_to(rng.as_u32(sample, o.device), (n,))
     return (_Sampler(seed, pixel, sample), None if cone is None else cone[1],
-            _initial_state(o, d, cone, medium))
+            _initial_state(o, d, cone, medium, time))
+
+
+def _scene_time(scene, time):
+    """The lanes' shutter times where the scene moves, else None."""
+    return time if scene.prims.anim is not None else None
 
 
 def _emitted_mis(scene, st: PathState, hit, prim_idx, si, beta, all_lights=False):
@@ -462,7 +538,8 @@ def _emitted_mis(scene, st: PathState, hit, prim_idx, si, beta, all_lights=False
     if scene.n_lights > 0:
         lid = torch.clamp(hit_light, min=0)
         l_pdf = light_ops.pdf_li(scene.lights, lid, st.o, st.d)
-        pick_pmf = torch.ones_like(l_pdf) if all_lights else _light_pick_pmf(scene, lid)
+        pick_pmf = (torch.ones_like(l_pdf) if all_lights
+                    else _light_pick_pmf(scene, st.o, lid))
         w = torch.where(st.specular, 1.0, sampling.power_heuristic(
             1, st.prev_bsdf_pdf, 1, l_pdf * pick_pmf))
     else:
@@ -539,7 +616,7 @@ def _segments(scene, feat: _Features, sampler: _Sampler, dim_base: int, st: Path
     o_eff = p_med = st.o
     for k in range(n_seg):
         t_lim = torch.where(walking, 1e30, 1e-4)
-        hit_k, t_k, prim_k = _scene_intersect(scene, o_cur, d_ray, t_lim)
+        hit_k, t_k, prim_k = _scene_intersect(scene, o_cur, d_ray, t_lim, st.time)
         hit_k = hit_k & walking
         t_k, prim_k = t_k.detach(), prim_k.detach()
         scat_k = torch.zeros_like(hit_k)
@@ -584,7 +661,8 @@ def _segments(scene, feat: _Features, sampler: _Sampler, dim_base: int, st: Path
         if k + 1 < n_seg:
             # step just past the boundary and switch the medium
             # (medium.go:15-25)
-            si_b = isect.surface_interaction(prims, is_null_k, t_k, prim_k, o_cur, d_ray)
+            si_b = isect.surface_interaction(prims, is_null_k, t_k, prim_k, o_cur, d_ray,
+                                             st.time)
             o_next = geom.offset_ray_origin(si_b.p, si_b.p_err + 1e-4, si_b.n, d_ray)
             o_cur = torch.where(is_null_k[..., None], o_next, o_cur)
             if feat.has_iface:
@@ -623,7 +701,7 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
         alive = st.alive & (hit if scatter is None else hit | scatter)
     else:
         t_lim = torch.where(st.alive, 1e30, 1e-4)
-        hit_k, t_k, prim_k = _scene_intersect(scene, st.o, st.d, t_lim)
+        hit_k, t_k, prim_k = _scene_intersect(scene, st.o, st.d, t_lim, st.time)
         t_k, prim_k = t_k.detach(), prim_k.detach()
         hit = hit_k & st.alive
         t = torch.where(st.alive, t_k, 1e30)
@@ -631,7 +709,7 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
         o_eff, beta_in = st.o, st.beta
         # escaped rays find no light: the scene has no infinite lights
         alive = st.alive & hit
-    si = isect.surface_interaction(scene.prims, hit, t, prim_idx, o_eff, st.d)
+    si = isect.surface_interaction(scene.prims, hit, t, prim_idx, o_eff, st.d, st.time)
     # per-lane phase asymmetry with bounded media
     phase_g = media_ops.table_lookup(scene.media, mid_cur)[2] if feat.use_tab else None
 
@@ -653,12 +731,12 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     beta0 = beta_in
     if scene.materials.sss_d is not None:
         si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive, sampler,
-                                                     dim_base)
+                                                     dim_base, st.time)
     ss, ts, ns = _shading_frame(si)
     L = L + beta0 * _estimate_direct(
         scene, si, mp, ss, ts, ns, alive, sampler, dim_base, medium_scatter=scatter,
         phase_g=phase_g, medium_ids=mid_cur if feat.use_tab else None,
-        null_passes=NULL_PASSES if feat.has_null else 0)
+        null_passes=NULL_PASSES if feat.has_null else 0, time=st.time)
 
     bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
     wi_w = wi_w.detach()
@@ -699,8 +777,55 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     return PathState(
         o=o_new, d=wi_w, beta=beta, L=L, eta_scale=eta_scale,
         alive=alive & ~killed, specular=next_specular, prev_bsdf_pdf=next_pdf.detach(),
-        cone_w=st.cone_w if cone_spread is None else fw_hit, medium=mid_cur,
+        cone_w=st.cone_w if cone_spread is None else fw_hit, medium=mid_cur, time=st.time,
     )
+
+
+def _where_state(mask, a: PathState, b: PathState) -> PathState:
+    """Lane-select between two PathStates (integrators.py:960-967)."""
+    return PathState(*(None if x is None else torch.where(
+        mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())), x, y) for x, y in zip(a, b)))
+
+
+def _li_compacted(scene, cfg: PathConfig, sampler: _Sampler, st: PathState, cone_spread,
+                  stats=None) -> PathState:
+    """The compacted bounce loop (integrators.py:970-1032): each bounce
+    sorts the live lanes to the front (a stable argsort) and runs
+    ceil(live / C) chunks of C = min(chunk_size, N) lanes through
+    ``_bounce_once``, each chunk's state (its counter streams, medium and
+    time columns included) gathered and scattered back; the loop ends at
+    max_depth or when no lane lives.  Sizing the chunks reads the live
+    count on the host: one sync a bounce.  The last chunk's padding slots
+    past N gather lane N - 1 (the reference's clamped gather) and are left
+    out of the scatter (its dropped writes); slots past the live count run
+    dead and write their lanes back unchanged.  stats: an optional dict
+    that gets "live" (the live lanes of each bounce) and "syncs"."""
+    n = st.o.shape[0]
+    c = min(cfg.chunk_size, n)
+    # the state is written in place: the caller's o and d stay theirs
+    st = PathState(*(None if x is None else x.clone() for x in st))
+    slots = torch.arange(c, device=st.o.device)
+    for bounce_idx in range(cfg.max_depth):
+        m = int(st.alive.sum())
+        if stats is not None:
+            stats.setdefault("live", []).append(m)
+            stats["syncs"] = stats.get("syncs", 0) + 1
+        if m == 0:
+            break
+        order = torch.argsort((~st.alive).to(torch.int8), stable=True)
+        for k in range(math.ceil(m / c)):
+            pos = k * c + slots
+            idx = order[torch.clamp(pos, max=n - 1)]
+            sub = PathState(*(None if x is None else x[idx] for x in st))
+            active = pos < m
+            out = _bounce_once(scene, cfg, sampler.take(idx), bounce_idx,
+                               sub._replace(alive=sub.alive & active), cone_spread)
+            out = _where_state(active, out, sub)
+            real = min(c, n - k * c)  # the slots that are not padding
+            for x, y in zip(st, out):
+                if x is not None:
+                    x.index_copy_(0, idx[:real], y[:real])
+    return st
 
 
 def _sanitize(L: torch.Tensor) -> torch.Tensor:
@@ -712,21 +837,33 @@ def _sanitize(L: torch.Tensor) -> torch.Tensor:
 
 
 def _li_wavefront(scene, o, d, pixel, sample, seed, cfg: PathConfig = PathConfig(),
-                  cone=None) -> torch.Tensor:
+                  cone=None, time=None, stats=None) -> torch.Tensor:
     """The general wavefront bounce loop (``_li_jnp``,
     integrators.py:1072-1140): radiance f32[N,3] of rays (o, d).
 
     cone: optional (width0, spread) ray-cone floats enabling filtered
-    texture lookups.  cfg.early_exit stops once every lane is dead (one
-    host sync per bounce).  The camera rays start in the scene's camera
-    medium where it has bounded media (integrators.py:1106-1110).
+    texture lookups.  time: the rays' shutter times f32[N] (read where the
+    scene moves).  cfg.early_exit stops once every lane is dead (one host
+    sync per bounce); cfg.compaction runs ``_li_compacted`` (stats: see
+    there), which raises where autograd would need a gradient through it,
+    as the reference's dynamic loops have none.  The camera rays start in
+    the scene's camera medium where it has bounded media
+    (integrators.py:1106-1110).
     """
     medium = None
     if scene.media is not None:
         medium = scene.camera_medium
     elif scene.prims.medium_inside is not None:
         medium = -1
-    sampler, cone_spread, state = _start(o, d, pixel, sample, seed, cone, medium)
+    sampler, cone_spread, state = _start(o, d, pixel, sample, seed, cone, medium,
+                                         _scene_time(scene, time))
+    if cfg.compaction:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in [o, d] + [v for _, v in packed.float_sources(scene)]):
+            raise RuntimeError("PathConfig(compaction=True) is not differentiable (its "
+                               "loops depend on the data, as the reference's do); render "
+                               "with compaction=False for gradients")
+        return _sanitize(_li_compacted(scene, cfg, sampler, state, cone_spread, stats).L)
     for i in range(cfg.max_depth):
         if cfg.early_exit and not bool(state.alive.any()):
             break
@@ -740,7 +877,7 @@ def _li_wavefront(scene, o, d, pixel, sample, seed, cfg: PathConfig = PathConfig
 
 
 def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
-              light_strategy: str = "one") -> torch.Tensor:
+              light_strategy: str = "one", time=None) -> torch.Tensor:
     """Direct-lighting integrator (directlighting.go:62-101;
     integrators.py:1143-1305): NEE at every vertex, recursion through
     specular surfaces only.
@@ -752,20 +889,22 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
     after the bounces reads those segments' emitters.  A global medium
     attenuates every segment by its transmittance, with no in-scattering
     (direct lighting ignores multiple scattering); bump mapping and the
-    BSSRDF's probe transport run as in the path integrator.
+    BSSRDF's probe transport run as in the path integrator.  time: the
+    rays' shutter times f32[N] (read where the scene moves).
     """
     if light_strategy not in ("one", "all"):
         raise ValueError(f"light_strategy must be 'one' or 'all', got {light_strategy!r}")
     all_lights = light_strategy == "all"
-    sampler, cone_spread, st = _start(o, d, pixel, sample, seed, cone)
+    sampler, cone_spread, st = _start(o, d, pixel, sample, seed, cone,
+                                      time=_scene_time(scene, time))
 
     def closest(st):
         """The lanes' closest hits, their record, and the state with the
         global medium's transmittance up to the hit."""
         t_max = torch.where(st.alive, 1e30, 1e-4)
-        hit, t, prim_idx = _scene_intersect(scene, st.o, st.d, t_max)
+        hit, t, prim_idx = _scene_intersect(scene, st.o, st.d, t_max, st.time)
         hit = hit & st.alive
-        si = isect.surface_interaction(scene.prims, hit, t, prim_idx, st.o, st.d)
+        si = isect.surface_interaction(scene.prims, hit, t, prim_idx, st.o, st.d, st.time)
         if scene.medium is not None:
             st = st._replace(beta=st.beta * media_ops.transmittance(
                 scene.medium, torch.where(hit, t, 0.0)))
@@ -783,15 +922,16 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
         beta0 = st.beta
         if scene.materials.sss_d is not None:
             si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive,
-                                                         sampler, dim_base)
+                                                         sampler, dim_base, st.time)
         ss, ts, ns = _shading_frame(si)
         if all_lights:
             for k in range(scene.n_lights):
                 L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
-                                                 sampler, dim_base, fixed_light=k)
+                                                 sampler, dim_base, fixed_light=k,
+                                                 time=st.time)
         else:
             L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
-                                             sampler, dim_base)
+                                             sampler, dim_base, time=st.time)
         # specular lanes recurse (directlighting.go:97-101); diffuse lanes
         # get one MIS segment
         bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
@@ -800,6 +940,7 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
             o=isect.spawn_ray(si, wi_w), d=wi_w, beta=beta, L=L,
             eta_scale=st.eta_scale, alive=alive & ok, specular=bs.is_specular,
             prev_bsdf_pdf=bs.pdf, cone_w=st.cone_w if cone_spread is None else fw_hit,
+            time=st.time,
         )
 
     # the emission-only pass: lanes whose last vertex scattered
@@ -814,23 +955,25 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
 
 
 def li(scene, o: torch.Tensor, d: torch.Tensor, pixel, sample, seed,
-       cfg: PathConfig = PathConfig(), cone=None) -> torch.Tensor:
+       cfg: PathConfig = PathConfig(), cone=None, time=None) -> torch.Tensor:
     """Path.Li (path.go:32-157): radiance f32[N,3] for rays (o, d)[N].
 
     pixel/sample: uint32 counters (int64 tensors) feeding the stateless
-    sampler; cone: optional (width0, spread) ray-cone floats.  Scenes inside
-    the fast-path set, up to the brute-force cutoff, run the bounce
-    megakernel (integrators.py:103-120); mesh fast-path scenes above it
-    with a BVH run the mesh megakernel (:123-141); every other scene, and
-    any ``early_exit`` run, runs the general wavefront loop
-    (integrators.py:1059-1069).
+    sampler; cone: optional (width0, spread) ray-cone floats; time: the
+    rays' shutter times f32[N] on an animated scene.  Scenes inside the
+    fast-path set, up to the brute-force cutoff, run the bounce megakernel
+    (integrators.py:103-120); mesh fast-path scenes above it with a BVH run
+    the mesh megakernel (:123-141); both need a static scene and neither
+    compaction nor ``early_exit``.  Every other run takes the
+    general wavefront loop (integrators.py:1059-1069).
     """
     fi = scene.fastinfo
-    if fi is not None and not cfg.early_exit:
+    if (fi is not None and scene.prims.anim is None
+            and not cfg.compaction and not cfg.early_exit):
         if fi.ok and scene.prims.count <= BRUTE_FORCE_CUTOFF:
             return megakernel.path_li_fused(scene, o, d, pixel, sample, seed, cfg,
                                             cone=cone)
         if mesh_megakernel.fits(scene):
             return mesh_megakernel.mesh_li_fused(scene, o, d, pixel, sample, seed, cfg,
                                                  cone=cone)
-    return _li_wavefront(scene, o, d, pixel, sample, seed, cfg, cone=cone)
+    return _li_wavefront(scene, o, d, pixel, sample, seed, cfg, cone=cone, time=time)

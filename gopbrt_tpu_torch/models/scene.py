@@ -7,13 +7,15 @@ texture), mirror, glass (smooth and rough), plastic, metal, subsurface (the
 Burley BSSRDF) and null materials; constant, checkerboard (planar and uv
 mapping), uv and image textures (one atlas, the images stacked vertically);
 point, distant, and sphere- and disk-area lights under the uniform or the
-power light distribution; a global homogeneous medium (``set_medium``) or
+power light distribution, or the spatial light grid (``LightGrid``, one
+distribution per voxel); a global homogeneous medium (``set_medium``) or
 bounded media (``add_medium``) with per-prim medium interfaces and the
-camera's medium; triangle meshes and the SAH BVH (``accelerator="bvh"``,
-built on the host by ``ops/bvh.build_from_bounds``).  The builder runs in
-NumPy on the host and ``build`` ends in ``torch.as_tensor(...,
-device=device)``.  Animation and the spatial light grid raise
-``NotImplementedError`` naming their ROADMAP item.
+camera's medium; two-keyframe motion of spheres and disks over the
+shutter (``animate``: the decomposed keyframes in ``Primitives.anim``, the
+BVH built over each moving prim's bounds across the shutter); triangle
+meshes and the SAH BVH (``accelerator="bvh"``, built on the host by
+``ops/bvh.build_from_bounds``).  The builder runs in NumPy on the host and
+``build`` ends in ``torch.as_tensor(..., device=device)``.
 
 ``scene_from_arrays`` carries a scene across from tables given as NumPy
 arrays, the tree included, so the tests render identical tables in both
@@ -41,7 +43,7 @@ from gopbrt_tpu_torch.ops import lights as lights_ops
 from gopbrt_tpu_torch.ops import brute_intersect, megakernel, mesh_megakernel, sampling
 from gopbrt_tpu_torch.ops.bsdf import (GLASS, MATTE, METAL, MIRROR, NULLMAT, PLASTIC,
                                        SUBSURFACE)
-from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, Primitives
+from gopbrt_tpu_torch.ops.intersect import DISK, SPHERE, TRIANGLE, AnimPrims, Primitives
 from gopbrt_tpu_torch.ops.media import HomogeneousMedium, MediaTable
 from gopbrt_tpu_torch.ops.lights import (
     LIGHT_AREA,
@@ -86,6 +88,20 @@ class Materials(NamedTuple):
     sss_cbar: Optional[torch.Tensor] = None  # f32[M]
 
 
+class LightGrid(NamedTuple):
+    """The spatial light distribution (the reference's unimplemented
+    LightStrategy Spatial, lightdistribution.go:11-19; scene.py:75-86): a
+    voxel grid over the scene's bounds with one distribution over the
+    lights per voxel, estimated at build from distance-attenuated power."""
+
+    lo: torch.Tensor  # f32[3] the grid's origin
+    inv_extent: torch.Tensor  # f32[3] 1 / the world's extent
+    dims: torch.Tensor  # int32[3] resolution
+    func: torch.Tensor  # f32[V, L]
+    cdf: torch.Tensor  # f32[V, L+1]
+    func_int: torch.Tensor  # f32[V]
+
+
 class Scene(NamedTuple):
     """The whole scene: tables plus the global light distribution."""
 
@@ -120,6 +136,8 @@ class Scene(NamedTuple):
     media: Optional[MediaTable] = None
     # the row of ``media`` holding the camera, -1 vacuum
     camera_medium: int = -1
+    # the spatial light distribution (light_strategy="spatial"), else None
+    light_grid: Optional[LightGrid] = None
 
     @property
     def n_lights(self) -> int:
@@ -148,12 +166,15 @@ ARRAY_FIELDS = {
                "shape_kind", "o2w", "w2o", "params"),
     "": ("light_func", "light_cdf", "light_func_int", "world_center",
          "world_radius"),
-    # only where the scene has a BVH, a global medium, bounded media
+    # only where the scene has a BVH, a global medium, bounded media, moving
+    # prims, the spatial light grid
     "bvh": bvh_ops.LinearBVH._fields,
     "medium": HomogeneousMedium._fields,
     "media": MediaTable._fields,
+    "prims.anim": AnimPrims._fields,
+    "light_grid": LightGrid._fields,
 }
-OPTIONAL_GROUPS = ("bvh", "medium", "media")
+OPTIONAL_GROUPS = ("bvh", "medium", "media", "prims.anim", "light_grid")
 # fields of a table carried only where the table has them (not None)
 OPTIONAL_FIELDS = {
     "prims": ("medium_inside", "medium_outside"),
@@ -161,17 +182,23 @@ OPTIONAL_FIELDS = {
 }
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to gopbrt_tpu_torch yet (ROADMAP {item})"
-    )
+def table_of(scene, name: str):
+    """The table ``name`` of ARRAY_FIELDS ("" the scene, "prims.anim" a
+    table's table), or None."""
+    table = scene
+    for part in filter(None, name.split(".")):
+        table = None if table is None else getattr(table, part)
+    return table
 
 
 @dataclass
 class SceneBuilder:
     """Accumulates primitives / materials / textures / lights, then builds."""
 
-    light_strategy: str = "uniform"  # or "power" (lightdistribution.go:3-9)
+    # "uniform", "power" (lightdistribution.go:3-9) or "spatial" (the
+    # voxel grid, ``spatial_resolution`` voxels a side)
+    light_strategy: str = "uniform"
+    spatial_resolution: int = 8
 
     _prim_type: list = field(default_factory=list)
     _o2w: list = field(default_factory=list)
@@ -186,6 +213,7 @@ class SceneBuilder:
     _media: list = field(default_factory=list)  # bounded media rows
     _camera_medium: int = -1
     _medium_iface: dict = field(default_factory=dict)  # prim -> (inside, outside)
+    _o2w_end: dict = field(default_factory=dict)  # prim -> its end keyframe
 
     # --- textures ---------------------------------------------------------
 
@@ -336,8 +364,16 @@ class SceneBuilder:
                               reverse_orientation)
                 for a, b, c in np.asarray(indices, np.int64).reshape(-1, 3)]
 
-    def animate(self, *args, **kwargs) -> None:
-        _not_ported("animation", "open item 1.7")
+    def animate(self, prim_id: int, o2w_end) -> None:
+        """Two-keyframe motion: the prim moves from its build transform to
+        ``o2w_end`` across the shutter ([0, 1] ray time; scene.py:340-350,
+        primitive.go:82-129).  Camera rays get per-sample times
+        (``render.camera_time``), and every intersection interpolates this
+        prim's transform at its lane's time.  Spheres and disks only: a
+        triangle's vertices are stored in world space."""
+        if self._prim_type[prim_id] not in (SPHERE, DISK):
+            raise ValueError("animated triangles are not supported (world-space vertices)")
+        self._o2w_end[prim_id] = np.asarray(o2w_end, np.float32)
 
     # --- media ------------------------------------------------------------
 
@@ -403,7 +439,17 @@ class SceneBuilder:
     # --- world bounds (host) ---------------------------------------------
 
     def _prim_world_bounds(self, i) -> tuple[np.ndarray, np.ndarray]:
-        """World bounds of prim i (static prims: ``animate`` raises)."""
+        """World bounds of prim i; of a moving prim, the union of its bounds
+        at 9 shutter times padded by 5% (scene.py:436-450, the role of
+        AnimatedTransform.MotionBounds)."""
+        if i in self._o2w_end:
+            from gopbrt_tpu_torch.ops import quaternion as quat
+
+            at = quat.animated_transform(self._o2w[i], self._o2w_end[i])
+            los, his = zip(*[self._prim_world_bounds_static(i, quat.interpolate(at, t).numpy())
+                             for t in np.linspace(0.0, 1.0, 9)])
+            pad = 0.05 * (np.max(his, axis=0) - np.min(los, axis=0))
+            return np.min(los, axis=0) - pad, np.max(his, axis=0) + pad
         return self._prim_world_bounds_static(i, self._o2w[i])
 
     def _prim_world_bounds_static(self, i, m) -> tuple[np.ndarray, np.ndarray]:
@@ -445,9 +491,8 @@ class SceneBuilder:
         n = len(self._prim_type)
         if n == 0:
             raise ValueError("empty scene")
-        if self.light_strategy not in ("uniform", "power"):
-            _not_ported(f"the {self.light_strategy!r} light distribution",
-                        "open item 1.6")
+        if self.light_strategy not in ("uniform", "power", "spatial"):
+            raise ValueError(f"unknown light strategy {self.light_strategy!r}")
         if not self._materials:
             self.matte()
         if not self._textures:
@@ -547,6 +592,10 @@ class SceneBuilder:
         lf, lcdf, lint = sampling.distribution_1d(weights)
         arrays.update(light_func=lf.numpy(), light_cdf=lcdf.numpy(),
                       light_func_int=lint.numpy())
+        if self.light_strategy == "spatial" and self._lights:
+            arrays.update(self._light_grid_arrays(lo, hi))
+        if self._o2w_end:
+            arrays.update(self._anim_arrays(o2w))
         infos = dict(pinfo=asdict(pinfo), minfo=asdict(minfo),
                      fastinfo=asdict(self._fast_path_info(o2w)),
                      camera_medium=self._camera_medium)
@@ -555,6 +604,60 @@ class SceneBuilder:
             arrays.update({f"bvh.{f}": getattr(tree, f).numpy() for f in tree._fields})
             infos["bvh_build"] = {"backend": backend, "build_ms": ms}
         return scene_from_arrays(arrays, infos, device)
+
+    def _light_grid_arrays(self, wlo: np.ndarray, whi: np.ndarray) -> dict:
+        """The spatial light grid (scene.py:836-890): per voxel v and light l
+        the weight lum(power_l) / max(d(v, l)^2, r_v^2), distant lights
+        independent of distance, floored at 0.1% of the voxel's largest so
+        every light stays sampleable; keyed ``light_grid.*``."""
+        g = int(self.spatial_resolution)
+        extent = np.maximum(whi - wlo, 1e-6)
+        centers = np.stack(np.meshgrid(
+            *(wlo[k] + (np.arange(g) + 0.5) / g * extent[k] for k in range(3)),
+            indexing="ij"), axis=-1).reshape(-1, 3)
+        w = np.zeros((centers.shape[0], len(self._lights)), np.float32)
+        r_v2 = float(np.sum((0.5 * extent / g) ** 2))
+        for li, row in enumerate(self._lights):
+            inten = float(np.mean(row["intensity"]))
+            if row["type"] == LIGHT_DISTANT:
+                w[:, li] = inten
+                continue
+            if row["type"] == LIGHT_AREA:
+                # the emitter's power, L * area * pi
+                pr = row["params"]
+                scale = float(np.linalg.norm(row["o2w"][:3, 0]))
+                if row["shape"] == SHAPE_DISK:
+                    area = pr[3] * 0.5 * (pr[1] ** 2 - pr[2] ** 2) * scale * scale
+                else:
+                    area = 4.0 * math.pi * (pr[0] * scale) ** 2
+                inten = inten * float(area) * math.pi
+            else:
+                inten = inten * 4.0 * math.pi
+            d2 = np.sum((centers - np.asarray(row["p"])) ** 2, axis=-1)
+            w[:, li] = inten / np.maximum(d2, r_v2)
+        w = np.maximum(w, 1e-3 * w.max(axis=-1, keepdims=True))
+        func, cdf, func_int = sampling.distribution_1d(torch.as_tensor(w))
+        return {"light_grid.lo": np.asarray(wlo, np.float32),
+                "light_grid.inv_extent": np.asarray(1.0 / extent, np.float32),
+                "light_grid.dims": np.asarray([g, g, g], np.int32),
+                "light_grid.func": func.numpy(), "light_grid.cdf": cdf.numpy(),
+                "light_grid.func_int": func_int.numpy()}
+
+    def _anim_arrays(self, o2w: np.ndarray) -> dict:
+        """The two-keyframe table (scene.py:511-535): each prim's keyframes
+        decomposed (static prims carry equal ones), the end rotation
+        sign-aligned to the start's; keyed ``prims.anim.*``."""
+        from gopbrt_tpu_torch.ops import quaternion as quat
+
+        n = o2w.shape[0]
+        end = np.stack([self._o2w_end.get(i, o2w[i]) for i in range(n)]).astype(np.float32)
+        t0, q0, s0 = quat.decompose(torch.as_tensor(o2w))
+        t1, q1, s1 = quat.decompose(torch.as_tensor(end))
+        q1 = torch.where((torch.sum(q0 * q1, dim=-1) < 0.0)[:, None], -q1, q1)
+        rows = dict(t0=t0, t1=t1, q0=q0, q1=q1, s0=s0, s1=s1)
+        out = {f"prims.anim.{k}": v.numpy() for k, v in rows.items()}
+        out["prims.anim.animated"] = np.any(np.abs(end - o2w) > 1e-7, axis=(1, 2))
+        return out
 
     def _feature_arrays(self, n: int) -> dict:
         """The optional tables of bump mapping, subsurface materials, medium
@@ -609,7 +712,7 @@ class SceneBuilder:
         for r in self._lights:
             if r["type"] == LIGHT_AREA and r["shape"] != SHAPE_SPHERE:
                 common = False
-        if self._medium is not None or any(self._reverse):
+        if self._medium is not None or any(self._reverse) or self._o2w_end:
             common = False
         # bounded media and null boundaries: the general chain only
         if self._media or self._medium_iface or any(
@@ -691,20 +794,24 @@ def scene_from_arrays(arrays: dict, infos: dict, device=None) -> Scene:
                                             if f"{name}.{f}" in arrays)
         return {f: _as_table(arrays[f"{name}.{f}"], device) for f in fields}
 
+    def optional(cls, name):
+        return cls(**group(name)) if f"{name}.{cls._fields[0]}" in arrays else None
+
     pinfo = PrimInfo(**{**infos["pinfo"], "types": tuple(infos["pinfo"]["types"])})
     minfo = MatInfo(**{**infos["minfo"],
                        "mat_types": tuple(infos["minfo"]["mat_types"])})
     top = {f: _as_table(arrays[f], device) for f in ARRAY_FIELDS[""]}
     scene = Scene(
-        prims=Primitives(**group("prims"), pinfo=pinfo),
+        prims=Primitives(**group("prims"), pinfo=pinfo, anim=optional(AnimPrims, "prims.anim")),
         materials=Materials(**group("materials"), info=minfo),
         textures=Textures(**group("textures"), has_image=TEX_IMAGE in np.asarray(
             arrays["textures.tex_type"]).tolist()),
         lights=Lights(**group("lights")),
         fastinfo=FastPathInfo(**infos["fastinfo"]),
-        medium=HomogeneousMedium(**group("medium")) if "medium.g" in arrays else None,
-        media=MediaTable(**group("media")) if "media.g" in arrays else None,
+        medium=optional(HomogeneousMedium, "medium"),
+        media=optional(MediaTable, "media"),
         camera_medium=int(infos.get("camera_medium", -1)),
+        light_grid=optional(LightGrid, "light_grid"),
         **top,
     )
     scene = scene._replace(brute=brute_intersect.brute_table(scene.prims))
@@ -724,7 +831,7 @@ def scene_to_arrays(scene: Scene) -> dict:
     optional group only where the scene has it."""
     out = {}
     for name, fields in ARRAY_FIELDS.items():
-        table = getattr(scene, name) if name else scene
+        table = table_of(scene, name)
         if table is None and name in OPTIONAL_GROUPS:
             continue
         for f in fields + OPTIONAL_FIELDS.get(name, ()):

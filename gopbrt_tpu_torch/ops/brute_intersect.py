@@ -15,7 +15,10 @@ builder once per scene (``Scene.brute``), ``scene_table`` again for a scene
 whose prims are no longer the ones it was packed from.  The kernels take
 two compile-time instances (``BruteTable.instance``), read the rows
 ``BruteTable.rec`` from device memory, and answer a dead lane without a
-test where ``dead_d2`` proves that no prim can take it.
+test where ``dead_d2`` proves that no prim can take it.  A table of an
+animated scene bakes no lane's transform of its moving prims: the kernels
+refuse it, and the plain versions test those prims per lane at the lanes'
+times (``moving_rows``), as the reference's time-aware brute test does.
 
 One primitive is tested against a batch of rays: the primitive's entries
 are Python floats holding float32 values (a table row read on the host),
@@ -256,6 +259,8 @@ class BruteTable:
     full_disk: bool
     types: tuple  # the prim kinds the table may hold
     key: tuple
+    # packed from an animated table (Primitives.anim): the kernels refuse it
+    animated: bool = False
 
     @property
     def count(self) -> int:
@@ -303,7 +308,7 @@ def brute_table(prims: Primitives) -> BruteTable:
         pinfo is not None and pinfo.all_full_spheres,
         pinfo is not None and pinfo.all_full_disks,
         tuple(pinfo.types) if pinfo is not None else (SPHERE, DISK, TRIANGLE),
-        (packed.key(_sources(prims)), pinfo))
+        (packed.key(_sources(prims)), pinfo), prims.anim is not None)
 
 
 def scene_table(scene) -> BruteTable:
@@ -311,19 +316,38 @@ def scene_table(scene) -> BruteTable:
     them, else packed now."""
     t = scene.brute
     prims = scene.prims
-    if t is not None and t.key[1] == prims.pinfo and packed.holds(t.key[0], _sources(prims)):
+    if (t is not None and t.key[1] == prims.pinfo and t.animated == (prims.anim is not None)
+            and packed.holds(t.key[0], _sources(prims))):
         return t
     return brute_table(prims)
 
 
+def moving_rows(prims: Primitives, time: torch.Tensor) -> dict:
+    """{row: its world->object at each lane's time, 12 f32[N] entries} of
+    the animated primitives (intersect.py:290-345's per-lane transforms),
+    for the plain sweeps' ``moving``."""
+    from gopbrt_tpu_torch.ops.intersect import _prim_xforms_at
+
+    out = {}
+    for p in torch.nonzero(prims.anim.animated).flatten().tolist():
+        _, w2o = _prim_xforms_at(prims, torch.full(time.shape, p, dtype=torch.int64,
+                                                  device=time.device), time)
+        out[p] = w2o[:, :3, :].reshape(-1, 12).unbind(-1)
+    return out
+
+
 def closest_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
-                active=None):
+                active=None, moving=None):
     """Brute closest hit over the table rows -> (t_best, idx_best), idx -1
     on a miss (the megakernel's ``closest_hit``, pallas_megakernel.py:290).
-    tally / active: see ``prim_test``; every active lane tests every row."""
+    tally / active: see ``prim_test``; every active lane tests every row.
+    moving: ``moving_rows``, the per-lane transforms of animated rows; the
+    first row of the least t wins, as the reference's argmin."""
     t_best = t_limit
     idx_best = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
     for p, (ptype, m, pr) in enumerate(table.rows):
+        if moving and p in moving:
+            m = moving[p]
         tp = prim_test(ptype, m, pr, ox, oy, oz, dx, dy, dz, t_best,
                        full_sph=table.full_sph, full_disk=table.full_disk,
                        tally=tally, active=active)
@@ -334,7 +358,7 @@ def closest_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
 
 
 def first_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
-              active=None):
+              active=None, moving=None):
     """Index of the first row (in table order) hit closer than ``t_limit``,
     -1 where none is: the any-hit loop of csrc/megakernel.cu ``occluded``,
     which stops at that row.  Some row is hit exactly where the closest
@@ -342,6 +366,8 @@ def first_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
     stops counting after its first hit."""
     first = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
     for p, (ptype, m, pr) in enumerate(table.rows):
+        if moving and p in moving:
+            m = moving[p]
         testing = None if tally is None else active & (first < 0)
         tp = prim_test(ptype, m, pr, ox, oy, oz, dx, dy, dz, t_limit,
                        full_sph=table.full_sph, full_disk=table.full_disk,
@@ -351,21 +377,22 @@ def first_hit(table: BruteTable, ox, oy, oz, dx, dy, dz, t_limit, tally=None,
 
 
 def intersect_brute(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
-                    t_max: torch.Tensor):
+                    t_max: torch.Tensor, moving=None):
     """Closest hit (hit[N], t[N], prim_idx[N]) over the whole table — the
-    plain counterpart of ``intersect_brute_pallas``."""
+    plain counterpart of ``intersect_brute_pallas``; ``moving``: see
+    ``closest_hit``."""
     t, idx = closest_hit(table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                         d[:, 2], t_max)
+                         d[:, 2], t_max, moving=moving)
     hit = idx >= 0
     return hit, torch.where(hit, t, t_max), torch.clamp(idx, min=0)
 
 
 def intersect_p_brute(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
-                      t_max: torch.Tensor) -> torch.Tensor:
+                      t_max: torch.Tensor, moving=None) -> torch.Tensor:
     """Any hit closer than t_max (bool[N]) — the plain counterpart of
     ``intersect_p_brute_pallas``: some row is hit in range."""
     return first_hit(table, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
-                     t_max) >= 0
+                     t_max, moving=moving) >= 0
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +401,9 @@ def intersect_p_brute(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
 
 
 def _check_rays(table: BruteTable, o, d, t_max):
+    if table.animated:
+        raise ValueError("the brute intersection kernels take no animated table: its moving "
+                         "prims need each lane's transform (intersect_brute with moving_rows)")
     if o.dtype != torch.float32 or d.dtype != torch.float32 or t_max.dtype != torch.float32:
         raise TypeError("o, d and t_max must be float32")
     n = o.shape[0]

@@ -224,6 +224,9 @@ class BVHTable(NamedTuple):
     # which builder made the tree and in how many ms (None: carried across)
     backend: Optional[str] = None
     build_ms: Optional[float] = None
+    # packed from an animated table (its nodes bound the shutter's motion):
+    # the walk kernels refuse it; the plain walk tests moving prims per lane
+    animated: bool = False
 
     @property
     def flags(self) -> int:
@@ -311,7 +314,8 @@ def bvh_table(bvh: LinearBVH, prims: Primitives, backend: Optional[str] = None,
     pinfo = prims.pinfo
     return BVHTable(bvh, nodes, records.contiguous(),
                     pinfo is not None and pinfo.all_full_spheres,
-                    pinfo is not None and pinfo.all_full_disks, backend, build_ms)
+                    pinfo is not None and pinfo.all_full_disks, backend, build_ms,
+                    prims.anim is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +378,7 @@ def _inv_dir(d):
 
 def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
          any_hit: bool = False, tally=None, steps: Optional[torch.Tensor] = None,
-         plane: bool = False):
+         plane: bool = False, anim=None, time: Optional[torch.Tensor] = None):
     """The lockstep walk (bvh.py:212-312) -> (t f32[N], slot int64[N]):
     the nearest hit closer than t_max and its record row (-1 and t_max
     where none is).  any_hit: a lane stops at its first accepted leaf hit,
@@ -405,6 +409,7 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
     lane = torch.nonzero(t_max > DEAD_T_MAX if any_hit else
                          torch.ones((n,), dtype=torch.bool, device=dev)).flatten()
     o, d, t_best = o[lane], d[lane], t_max[lane]
+    tm = None if anim is None else time[lane]
     inv_d = _inv_dir(d)
     m = lane.numel()
     slot = torch.full((m,), -1, dtype=torch.int64, device=dev)
@@ -432,7 +437,10 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
             first = bvh.node_first[node[li]].long()
             pl, pk = torch.nonzero(k_slots[None, :] < cnt[li][:, None], as_tuple=True)
             lanes_p = li[pl]
-            tp = prim_test_records(table.records[first[pl] + pk], o[lanes_p], d[lanes_p],
+            rec = table.records[first[pl] + pk]
+            if anim is not None:
+                rec = _moving_records(table, anim, first[pl] + pk, tm[lanes_p], rec)
+            tp = prim_test_records(rec, o[lanes_p], d[lanes_p],
                                    t_best[lanes_p], table.full_sph, table.full_disk, tally,
                                    plane)
             tmat = torch.full((li.numel(), MAX_LEAF), float("inf"), device=dev)
@@ -482,32 +490,55 @@ def walk(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
             keep = torch.nonzero(~done).flatten()
             lane, o, d, inv_d, t_best, slot, node, sp, stack = (
                 x[keep] for x in (lane, o, d, inv_d, t_best, slot, node, sp, stack))
+            if tm is not None:
+                tm = tm[keep]
             if tally is not None:
                 pushed = pushed[keep]
             m = lane.numel()
     return t_out, slot_out
 
 
+def _moving_records(table: BVHTable, anim, slots, time, rec):
+    """The records ``rec`` of ``slots`` with each animated prim's
+    world->object at its lane's ``time``."""
+    from gopbrt_tpu_torch.ops.intersect import anim_o2w
+
+    pid = table.bvh.prim_order[slots].long()
+    sel = torch.nonzero(anim.animated[pid]).flatten()
+    if sel.numel() == 0:
+        return rec
+    w2o = torch.linalg.inv(anim_o2w(anim, pid[sel], time[sel]))
+    rec = rec.clone()
+    rec[sel, REC_W2O:REC_W2O + 12] = w2o[:, :3, :].reshape(-1, 12)
+    return rec
+
+
 def bvh_intersect(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
-                  tally=None):
+                  tally=None, anim=None, time=None):
     """Closest hit (bvh.go:659-712) -> (hit bool[N], t f32[N], prim int32[N]);
-    t_max and prim 0 on a miss."""
-    t, slot = walk(table, o, d, t_max, tally=tally)
+    t_max and prim 0 on a miss.  anim / time: see ``walk``."""
+    t, slot = walk(table, o, d, t_max, tally=tally, anim=anim, time=time)
     hit = slot >= 0
     prim = table.bvh.prim_order[torch.clamp(slot, min=0)]
     return hit, torch.where(hit, t, t_max), torch.where(hit, prim, 0).to(torch.int32)
 
 
 def bvh_intersect_p(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: torch.Tensor,
-                    tally=None) -> torch.Tensor:
+                    tally=None, anim=None, time=None) -> torch.Tensor:
     """Any hit closer than t_max (bvh.go:713-765) -> bool[N]; lanes with
-    t_max <= DEAD_T_MAX are unoccluded."""
-    return walk(table, o, d, t_max, any_hit=True, tally=tally)[1] >= 0
+    t_max <= DEAD_T_MAX are unoccluded.  anim / time: see ``walk``."""
+    return walk(table, o, d, t_max, any_hit=True, tally=tally, anim=anim, time=time)[1] >= 0
 
 
 # ---------------------------------------------------------------------------
 # The wrappers of csrc/bvh_intersect.cu
 # ---------------------------------------------------------------------------
+
+
+def _refuse_animated(table: BVHTable):
+    if table.animated:
+        raise ValueError("the BVH walk kernels take no animated table: its moving prims "
+                         "need each lane's transform (bvh_intersect with anim and time)")
 
 
 def _kernel_args(table: BVHTable, o, d, t_max):
@@ -536,6 +567,7 @@ def bvh_intersect_fused(table: BVHTable, o: torch.Tensor, d: torch.Tensor,
     """Closest hit (hit bool[N], t f32[N], prim int32[N]).  CUDA tensors
     launch ``gopbrt_bvh_intersect`` of csrc/bvh_intersect.cu on the current
     stream; CPU tensors run ``bvh_intersect``."""
+    _refuse_animated(table)
     if o.device.type == "cpu":
         return bvh_intersect(table, o, d, t_max)
     args = _kernel_args(table, o, d, t_max)
@@ -559,6 +591,7 @@ def bvh_intersect_p_fused(table: BVHTable, o: torch.Tensor, d: torch.Tensor,
     """Any hit closer than t_max (bool[N]).  CUDA tensors launch
     ``gopbrt_bvh_intersect_any`` of csrc/bvh_intersect.cu on the current
     stream; CPU tensors run ``bvh_intersect_p``."""
+    _refuse_animated(table)
     if o.device.type == "cpu":
         return bvh_intersect_p(table, o, d, t_max)
     args = _kernel_args(table, o, d, t_max)

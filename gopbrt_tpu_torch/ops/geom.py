@@ -1,7 +1,8 @@
 """Vector and transform math on float32 tensors.
 
-Counterpart of ``gopbrt_tpu/ops/geom.py``: the constants, the vector ops the
-slice needs, and the 4x4 transforms the camera and the scene builder use.
+Counterpart of ``gopbrt_tpu/ops/geom.py``: the constants, the vector ops,
+the 4x4 transforms of the cameras and the scene builder, rays and the
+axis-aligned bounds helpers.
 
 Conventions, as in the JAX module: points / vectors / normals are
 ``f32[..., 3]``; matrices ``f32[..., 4, 4]`` row-major with row 3 = (0,0,0,1).
@@ -20,6 +21,7 @@ PI = math.pi
 INV_PI = 1.0 / math.pi
 ONE_MINUS_EPSILON = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 SHADOW_EPSILON = 1e-4  # pkg/math/math.go:19
+MAX_F32 = float(np.finfo(np.float32).max)
 # f32 machine epsilon / 2, the intended pkg/math/math.go:17 (geom.py:53)
 MACHINE_EPSILON = float(np.finfo(np.float32).eps) / 2.0
 
@@ -70,6 +72,15 @@ def spherical_direction_xyz(sin_theta, cos_theta, phi, x, y, z) -> torch.Tensor:
             + z * cos_theta[..., None])
 
 
+def distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return length(b - a)
+
+
+def lerp(t, a, b):
+    """Linear interpolation (pkg/math/math.go Lerp)."""
+    return (1.0 - t) * a + t * b
+
+
 def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """Normalize; with ``eps`` > 0 guards the zero vector (returns ~0)."""
     n2 = length_sq(v)[..., None]
@@ -95,6 +106,14 @@ def coordinate_system(v1: torch.Tensor):
 
 def _as_f32(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def identity() -> torch.Tensor:
+    return torch.eye(4, dtype=_F32)
+
+
+def transpose(m: torch.Tensor) -> torch.Tensor:
+    return torch.swapaxes(m, -1, -2)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -136,6 +155,29 @@ def rotate_y(deg) -> torch.Tensor:
     return _rot(math.cos(t), math.sin(t), 1)
 
 
+def rotate_z(deg) -> torch.Tensor:
+    t = math.radians(deg)
+    return _rot(math.cos(t), math.sin(t), 2)
+
+
+def rotate(deg, axis) -> torch.Tensor:
+    """Rotation about an arbitrary axis (transform.go ``Rotate``)."""
+    a = _as_f32(axis)
+    x, y, z = a / torch.linalg.norm(a)
+    t = math.radians(float(deg))
+    s, c = math.sin(t), math.cos(t)
+    zero, one = torch.zeros((), dtype=_F32), torch.ones((), dtype=_F32)
+    return torch.stack([
+        torch.stack([c + x * x * (1 - c), x * y * (1 - c) - z * s, x * z * (1 - c) + y * s,
+                     zero]),
+        torch.stack([x * y * (1 - c) + z * s, c + y * y * (1 - c), y * z * (1 - c) - x * s,
+                     zero]),
+        torch.stack([x * z * (1 - c) - y * s, y * z * (1 - c) + x * s, c + z * z * (1 - c),
+                     zero]),
+        torch.stack([zero, zero, zero, one]),
+    ])
+
+
 def look_at(eye, look, up) -> torch.Tensor:
     """Camera-to-world matrix (transform.go ``LookAt``)."""
     eye, look, up = _as_f32(eye), _as_f32(look), _as_f32(up)
@@ -158,6 +200,11 @@ def perspective(fov_deg, near, far) -> torch.Tensor:
     )
     inv_tan = 1.0 / math.tan(math.radians(fov_deg) / 2.0)
     return matmul(scale(inv_tan, inv_tan, 1.0), persp)
+
+
+def orthographic(z_near, z_far) -> torch.Tensor:
+    """Orthographic projection (transform.go:501-502)."""
+    return matmul(scale(1.0, 1.0, 1.0 / (z_far - z_near)), translate([0.0, 0.0, -z_near]))
 
 
 def apply_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -206,6 +253,69 @@ def apply_point_error(m: torch.Tensor, p: torch.Tensor):
     err = gamma(3) * (_rows_dot(torch.abs(m[..., :3, :3]), torch.abs(p))
                       + torch.abs(m[..., :3, 3]))
     return lane_point(m, p), err
+
+
+def swaps_handedness(m: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.det(m[..., :3, :3]) < 0.0
+
+
+def ray_at(o: torch.Tensor, d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return o + d * t[..., None]
+
+
+def apply_ray(m: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """Transform a ray's origin and direction, the origin moved along the
+    direction past its rounding error (TransformRay, geom.py:355-366)."""
+    ot, o_err = apply_point_error(m, o)
+    dt = apply_vector(m, d)
+    len_sq = length_sq(dt)
+    t_off = torch.where(len_sq > 0, dot(torch.abs(dt), o_err) / torch.clamp(len_sq, min=1e-30),
+                        0.0)
+    return ot + dt * t_off[..., None], dt
+
+
+# ---------------------------------------------------------------------------
+# Bounds: an AABB as (lo [...,3], hi [...,3]) (pkg/pbrt/bounds.go)
+# ---------------------------------------------------------------------------
+
+
+def bounds_empty() -> tuple[torch.Tensor, torch.Tensor]:
+    return torch.full((3,), MAX_F32, dtype=_F32), torch.full((3,), -MAX_F32, dtype=_F32)
+
+
+def bounds_union(lo1, hi1, lo2, hi2):
+    return torch.minimum(lo1, lo2), torch.maximum(hi1, hi2)
+
+
+def bounds_union_point(lo, hi, p):
+    return torch.minimum(lo, p), torch.maximum(hi, p)
+
+
+def bounds_diagonal(lo, hi):
+    return hi - lo
+
+
+def bounds_surface_area(lo, hi):
+    d = hi - lo
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 0] * d[..., 2] + d[..., 1] * d[..., 2])
+
+
+def bounds_centroid(lo, hi):
+    return 0.5 * (lo + hi)
+
+
+def bounds_bounding_sphere(lo, hi):
+    c = bounds_centroid(lo, hi)
+    return c, torch.where(torch.all(hi >= lo, dim=-1), distance(c, hi), 0.0)
+
+
+def bounds_transform(m, lo, hi):
+    """An AABB through m: min / max over its 8 transformed corners
+    (transform.go TransformBounds)."""
+    corners = torch.stack([torch.stack([(hi if i & (1 << k) else lo)[k] for k in range(3)])
+                           for i in range(8)])
+    tc = apply_point_affine(m, corners)
+    return torch.amin(tc, dim=0), torch.amax(tc, dim=0)
 
 
 def bounds_intersect_p(lo, hi, o, d, t_max, inv_d=None) -> torch.Tensor:

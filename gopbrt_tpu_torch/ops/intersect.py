@@ -1,12 +1,14 @@
 """The primitive table, its shape tags, and the hit record.
 
 Counterpart of ``gopbrt_tpu/ops/intersect.py``: ``Primitives``,
-``SurfaceInteraction``, the per-shape hit geometry (``_sphere_geometry``,
-``_disk_geometry``, ``_triangle_geometry``; the rows through
-``geom.gather_rows``), ``surface_interaction`` (phase 2: the full hit record of a known winner)
+``SurfaceInteraction``, the two-keyframe animation table (``AnimPrims``,
+``anim_o2w``, ``_prim_xforms_at``), the per-shape hit geometry
+(``_sphere_geometry``, ``_disk_geometry``, ``_triangle_geometry``; the rows
+through ``geom.gather_rows``), ``surface_interaction`` (phase 2: the full
+hit record of a known winner, at each lane's time on an animated scene)
 and ``spawn_ray``.  The t-only shape tests (phase 1) live in
 ``ops/brute_intersect.py`` (plain PyTorch) and ``csrc/prim_test.cuh``
-(CUDA).  Animated primitives (``AnimPrims``) are not ported.
+(CUDA).
 """
 
 from __future__ import annotations
@@ -23,6 +25,47 @@ from gopbrt_tpu_torch.ops.static_info import PrimInfo
 SPHERE = 0
 DISK = 1
 TRIANGLE = 2
+
+
+class AnimPrims(NamedTuple):
+    """Two-keyframe motion of each primitive over the camera shutter (the
+    working TransformedPrimitive + AnimatedTransform, primitive.go:82-129,
+    transform.go:512-631): decomposed keyframes (``ops/quaternion``), so a
+    lane's transform is a lerp and a slerp at its time."""
+
+    t0: torch.Tensor  # f32[P,3] translation keyframes
+    t1: torch.Tensor
+    q0: torch.Tensor  # f32[P,4] rotation keyframes (x, y, z, w)
+    q1: torch.Tensor  # sign-aligned to q0 (the shortest path)
+    s0: torch.Tensor  # f32[P,4,4] scale / shear remainders
+    s1: torch.Tensor
+    animated: torch.Tensor  # bool[P]; False rows keep the static transform
+
+
+def anim_o2w(anim: AnimPrims, i, time) -> torch.Tensor:
+    """Object->world of primitives ``i`` (int64[N]) at ``time`` in [0, 1]
+    (f32[N]) (AnimatedTransform.Interpolate, transform.go:564-631)."""
+    from gopbrt_tpu_torch.ops import quaternion as quat
+
+    dt = torch.clamp(time.to(torch.float32), 0.0, 1.0)
+    t = geom.lerp(dt[..., None], anim.t0[i], anim.t1[i])
+    q = quat.slerp(dt, anim.q0[i], anim.q1[i])
+    s = geom.lerp(dt[..., None, None], anim.s0[i], anim.s1[i])
+    m = quat.quat_to_matrix(q) @ s
+    m[..., :3, 3] += t
+    return m
+
+
+def _prim_xforms_at(prims: "Primitives", i, time):
+    """(o2w, w2o) f32[N,4,4] of primitives ``i`` (int64[N]) at the lanes'
+    times; static primitives keep their build transforms exactly."""
+    if prims.anim is None or time is None:
+        return prims.obj_to_world[i], prims.world_to_obj[i]
+    o2w_a = anim_o2w(prims.anim, i, time)
+    w2o_a = torch.linalg.inv(o2w_a)
+    is_anim = prims.anim.animated[i][..., None, None]
+    return (torch.where(is_anim, o2w_a, prims.obj_to_world[i]),
+            torch.where(is_anim, w2o_a, prims.world_to_obj[i]))
 
 
 class Primitives(NamedTuple):
@@ -48,6 +91,8 @@ class Primitives(NamedTuple):
     # scene declares no interface
     medium_inside: Optional[torch.Tensor] = None  # int32[P]
     medium_outside: Optional[torch.Tensor] = None  # int32[P]
+    # the two-keyframe animation table; None where no primitive moves
+    anim: Optional[AnimPrims] = None
 
     @property
     def count(self) -> int:
@@ -157,9 +202,14 @@ def _det3(m: torch.Tensor) -> torch.Tensor:
             + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]))
 
 
-def surface_interaction(prims: Primitives, hit, t, prim_idx, o, d) -> SurfaceInteraction:
+def surface_interaction(prims: Primitives, hit, t, prim_idx, o, d,
+                        time=None) -> SurfaceInteraction:
     """Phase 2: the world-space hit record of each lane's winner
-    (sphere.go:172-187 and interaction.go's orientation rules)."""
+    (sphere.go:172-187 and interaction.go's orientation rules).  With
+    ``time`` (f32[N]) on an animated table, each winner's transforms are
+    interpolated at its lane's time (TransformedPrimitive.Intersect,
+    primitive.go:103-110)."""
+    timed = prims.anim is not None and time is not None
     types = prims.types
     has_xf = SPHERE in types or DISK in types  # shapes stored in object space
     idx = prim_idx.long()
@@ -167,8 +217,11 @@ def surface_interaction(prims: Primitives, hit, t, prim_idx, o, d) -> SurfaceInt
     params = geom.gather_rows(prims.params, idx)
     rev = prims.reverse_orientation[idx]
     if has_xf:
-        o2w = geom.gather_rows(prims.obj_to_world, idx)
-        w2o = geom.gather_rows(prims.world_to_obj, idx)
+        if timed:
+            o2w, w2o = _prim_xforms_at(prims, idx, time)
+        else:
+            o2w = geom.gather_rows(prims.obj_to_world, idx)
+            w2o = geom.gather_rows(prims.world_to_obj, idx)
         oo = geom.lane_point(w2o, o)
         od = geom.lane_vector(w2o, d)
 
@@ -205,8 +258,9 @@ def surface_interaction(prims: Primitives, hit, t, prim_idx, o, d) -> SurfaceInt
             dpdv = torch.where(m_tri, dpdv_l, dpdv_w)
         else:
             p, p_err, n, dpdu, dpdv = p_w, perr_w, n_w, dpdu_w, dpdv_w
-        # handedness per primitive, read per lane
-        swap = (_det3(prims.obj_to_world) < 0.0)[idx]
+        # handedness per primitive, read per lane (of the lane's transform
+        # where it moves)
+        swap = _det3(o2w) < 0.0 if timed else (_det3(prims.obj_to_world) < 0.0)[idx]
         flip = rev ^ (swap & ~is_tri)
     else:
         p, p_err, n, dpdu, dpdv = p_l, perr_l, n_l, dpdu_l, dpdv_l

@@ -3,7 +3,8 @@
 Counterpart of ``gopbrt_tpu/ops/lights.py``: the table and its tags,
 ``LiSample``, ``sample_li`` (point, distant, sphere- and disk-area lights),
 ``pdf_li`` (the MIS denominator of a BSDF ray that hits an emitter),
-``le_emitted`` and ``power`` (the power light distribution).
+``le_emitted``, ``sample_le`` (emitted rays, Light.SampleLe) and ``power``
+(the power light distribution).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from gopbrt_tpu_torch.ops import geom
 from gopbrt_tpu_torch.ops.geom import PI, dot, gather_rows, length, length_sq, normalize
 from gopbrt_tpu_torch.ops.sampling import (
     concentric_sample_disk,
+    cosine_sample_hemisphere,
     uniform_cone_pdf,
     uniform_sample_sphere,
 )
@@ -244,6 +246,86 @@ def le_emitted(lights: Lights, prims_area_light_id, prim_idx, n, wo):
     out = torch.where((lights.two_sided[safe] | facing)[..., None],
                       gather_rows(lights.intensity, safe), 0.0)
     return torch.where((lid >= 0)[..., None], out, 0.0), lid
+
+
+class LeSample(NamedTuple):
+    """An emitted ray sampled from a light (Light.SampleLe)."""
+
+    o: torch.Tensor  # f32[N,3] origin on / at the light
+    d: torch.Tensor  # f32[N,3] emission direction
+    n_light: torch.Tensor  # f32[N,3] the light's normal at o (d for delta lights)
+    le: torch.Tensor  # f32[N,3] emitted radiance / intensity
+    pdf_pos: torch.Tensor  # f32[N] area pdf of the origin
+    pdf_dir: torch.Tensor  # f32[N] solid-angle pdf of the direction
+
+
+def sample_le(lights: Lights, idx, u1, u2, world_center, world_radius) -> LeSample:
+    """An emitted ray of light ``idx`` (lights.py:329-433): Point (uniform
+    sphere, point.go:63-66), Distant (a disk outside the world,
+    distant.go:58-68), DiffuseArea (a uniform shape point and a cosine
+    hemisphere, diffuse.go:65-92); u1 picks the position, u2 the
+    direction."""
+    lt, lp, intensity, two_sided, o2w, w2o, params, shape_kind = _rows(lights, idx)
+
+    # point: from p, a uniform direction
+    d_pt = uniform_sample_sphere(u2)
+    o_pt = torch.broadcast_to(lp, d_pt.shape)
+    ones = torch.ones(d_pt.shape[:-1], dtype=torch.float32, device=d_pt.device)
+
+    # distant: a concentric disk on the world's bounding sphere, shooting
+    # along -w (p points toward the light)
+    w = normalize(lp, eps=1e-20)
+    v1, v2 = geom.coordinate_system(w)
+    cd = concentric_sample_disk(u1)
+    p_disk = world_center + world_radius * (cd[..., 0:1] * v1 + cd[..., 1:2] * v2)
+    o_di = p_disk + world_radius * w
+    pdf_pos_di = torch.broadcast_to(
+        torch.as_tensor(1.0 / (PI * world_radius * world_radius), dtype=torch.float32,
+                        device=d_pt.device), ones.shape)
+
+    # area: a uniform point of the shape, a cosine hemisphere about n
+    center, radius = _area_sphere_geom(o2w, params)
+    n_sph = uniform_sample_sphere(u1)
+    p_sph = center + radius[..., None] * n_sph
+    area_sph = 4.0 * PI * radius * radius
+    height, radius_d, inner, phi_max = params.unbind(-1)[:4]
+    pd = concentric_sample_disk(u1) * radius_d[..., None]
+    p_obj = torch.stack([pd[..., 0], pd[..., 1], height], dim=-1)
+    p_dsk = geom.lane_point(o2w, p_obj)
+    n_dsk = _z_normal(w2o, p_obj)
+    scale = length(o2w[..., :3, 0])
+    area_dsk = phi_max * 0.5 * (radius_d * radius_d - inner * inner) * scale * scale
+    is_disk = shape_kind == SHAPE_DISK
+    p_ar = torch.where(is_disk[..., None], p_dsk, p_sph)
+    n_ar = torch.where(is_disk[..., None], n_dsk, n_sph)
+    area = torch.where(is_disk, area_dsk, area_sph)
+    # two-sided lights pick a side by u2.x (diffuse.go:72-88)
+    u2x = u2[..., 0]
+    flip = two_sided & (u2x > 0.5)
+    u2_remap = torch.stack([
+        torch.where(two_sided, torch.clamp(torch.where(flip, 2.0 * (u2x - 0.5), 2.0 * u2x),
+                                           max=0.99999994), u2x),
+        u2[..., 1]], dim=-1)
+    w_local = cosine_sample_hemisphere(u2_remap)
+    n_eff = torch.where(flip[..., None], -n_ar, n_ar)
+    t1, t2 = geom.coordinate_system(n_eff)
+    d_ar = t1 * w_local[..., 0:1] + t2 * w_local[..., 1:2] + n_eff * w_local[..., 2:3]
+    pdf_pos_ar = 1.0 / torch.clamp(area, min=1e-20)
+    pdf_dir_ar = torch.abs(w_local[..., 2]) / PI * torch.where(two_sided, 0.5, 1.0)
+
+    is_pt = lt == LIGHT_POINT
+    is_di = lt == LIGHT_DISTANT
+    pt3, di3 = is_pt[..., None], is_di[..., None]
+    o = torch.where(pt3, o_pt, torch.where(di3, o_di, p_ar))
+    d = torch.where(pt3, d_pt, torch.where(di3, -w, d_ar))
+    n_l = torch.where(pt3 | di3, d, n_eff)
+    pdf_pos = torch.where(is_pt, ones, torch.where(is_di, pdf_pos_di, pdf_pos_ar))
+    pdf_dir = torch.where(is_pt, torch.full_like(ones, 1.0 / (4.0 * PI)),
+                          torch.where(is_di, ones, pdf_dir_ar))
+    le = torch.broadcast_to(intensity, o.shape)
+    # area origins leave the surface on the emitting side
+    o = torch.where(pt3 | di3, o, o + n_eff * 1e-4)
+    return LeSample(o=o, d=d, n_light=n_l, le=le, pdf_pos=pdf_pos, pdf_dir=pdf_dir)
 
 
 def power(lights: Lights, world_radius) -> torch.Tensor:

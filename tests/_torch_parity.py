@@ -14,16 +14,16 @@ import torch
 from gopbrt_tpu.models import camera as jcam
 from gopbrt_tpu.models import render as jrender
 from gopbrt_tpu_torch.models.scene import (ARRAY_FIELDS, OPTIONAL_FIELDS, OPTIONAL_GROUPS,
-                                           scene_from_arrays)
+                                           scene_from_arrays, table_of)
 
 
 def jax_scene_arrays(scene) -> dict:
-    """A JAX Scene's tables as NumPy arrays, keyed as ARRAY_FIELDS (the BVH
-    and the media where the scene has them) and OPTIONAL_FIELDS (where not
-    None)."""
+    """A JAX Scene's tables as NumPy arrays, keyed as ARRAY_FIELDS (the BVH,
+    the media, the animation table and the light grid where the scene has
+    them) and OPTIONAL_FIELDS (where not None)."""
     out = {}
     for name, fields in ARRAY_FIELDS.items():
-        table = getattr(scene, name) if name else scene
+        table = table_of(scene, name)
         if table is None and name in OPTIONAL_GROUPS:
             continue
         for f in fields + OPTIONAL_FIELDS.get(name, ()):

@@ -144,6 +144,7 @@ def test_distribution_and_discrete_sampling_match(weights):
 
 
 def test_box_filter_matches():
+    """The box filter at two radii, and the Gaussian."""
     r = np.random.default_rng(4)
     dx, dy = (r.random((2, 400)) * 3.0 - 1.5).astype(np.float32)
     for radius in (0.5, 1.0):
@@ -151,6 +152,7 @@ def test_box_filter_matches():
                                  torch.tensor(dy)),
                jfilters.evaluate(jfilters.box_filter(radius), jnp.asarray(dx),
                                  jnp.asarray(dy)))
-    with pytest.raises(NotImplementedError):
-        tfilters.evaluate(tfilters.Filter(tfilters.FILTER_GAUSSIAN, 2.0),
-                          torch.tensor(dx), torch.tensor(dy))
+    _close(tfilters.evaluate(tfilters.Filter(tfilters.FILTER_GAUSSIAN, 2.0),
+                             torch.tensor(dx), torch.tensor(dy)),
+           jfilters.evaluate(jfilters.Filter(jfilters.FILTER_GAUSSIAN, 2.0),
+                             jnp.asarray(dx), jnp.asarray(dy)))

@@ -64,7 +64,9 @@ def test_non_uniform_scale_leaves_the_fast_path():
     assert not b.build(device="cpu").fastinfo.ok
 
 
-_ANIMATE = lambda b: b.animate(b.sphere(np.eye(4), 1.0, b.matte()), np.eye(4))  # noqa: E731
+_ANIMATE = lambda b: b.animate(b.sphere(np.eye(4), 1.0, b.matte()),  # noqa: E731
+                               np.asarray([[1, 0, 0, 2.0], [0, 1, 0, 0], [0, 0, 1, 0],
+                                           [0, 0, 0, 1]], np.float32))
 
 
 @pytest.mark.parametrize("call", [
@@ -76,19 +78,27 @@ _ANIMATE = lambda b: b.animate(b.sphere(np.eye(4), 1.0, b.matte()), np.eye(4))  
     _ANIMATE,
 ])
 def test_builder_raises_outside_the_slice(call):
-    """Animation still raises with its ROADMAP label; media, subsurface,
-    bump and null materials are ported: the builder takes them, and the
-    scene builds outside the megakernel's fast path."""
-    b = SceneBuilder()
-    if call is _ANIMATE:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(b)
-        return
-    call(b)
-    b.sphere(np.eye(4), 1.0, b.matte())
-    b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
-    scene = b.build(device="cpu")
+    """Media, subsurface, bump, null materials and animation are ported:
+    the builder takes them, the scene builds outside the megakernel's fast
+    path, and an animated scene's tables, the animation table included,
+    are the JAX builder's (ints exact, floats within 1e-6: decompose's
+    float32 inverses are LAPACK's here, XLA's there)."""
+    def build(cls, **kw):
+        b = cls()
+        call(b)
+        b.sphere(np.eye(4), 1.0, b.matte())
+        b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
+        return b.build(**kw)
+
+    scene = build(SceneBuilder, device="cpu")
     assert not scene.fastinfo.ok and scene.kernel is None
+    if call is _ANIMATE:
+        want = build(JaxBuilder, accelerator="none")
+        got, wanted = scene_to_arrays(scene), jax_scene_arrays(want)
+        assert sorted(got) == sorted(wanted) and "prims.anim.q0" in got
+        for k, w in wanted.items():
+            np.testing.assert_allclose(got[k], w, rtol=1e-6, atol=1e-6, err_msg=k)
+        assert _port_infos(scene) == jax_scene_infos(want)
 
 
 def test_scenes_that_need_a_bvh_raise():
@@ -121,8 +131,8 @@ def test_scenes_that_need_a_bvh_raise():
 
 
 def test_power_light_strategy_raises():
-    """The power distribution builds the JAX builder's tables; the spatial
-    light grid still raises."""
+    """The power distribution and the spatial light grid build the JAX
+    builder's tables."""
     def build(cls, strategy, **kw):
         b = cls(light_strategy=strategy)
         b.sphere(np.eye(4), 1.0, b.matte())
@@ -130,8 +140,8 @@ def test_power_light_strategy_raises():
         b.distant_light(direction=(0.0, 1.0, 0.0), radiance=(0.2, 0.2, 0.2))
         return b.build(**kw)
 
-    want = build(JaxBuilder, "power", accelerator="none")
-    got = build(SceneBuilder, "power", device="cpu")
-    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(SceneBuilder, "spatial", device="cpu")
+    for strategy in ("power", "spatial"):
+        want = build(JaxBuilder, strategy, accelerator="none")
+        got = build(SceneBuilder, strategy, device="cpu")
+        assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
+        assert (got.light_grid is not None) == (strategy == "spatial")
