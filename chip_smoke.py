@@ -85,13 +85,30 @@ non-zero and never prints the last line:
      82-prim scene with 9 moving prims on the BVH at 512x512: no launch of
      the port's kernels (an animated table takes the plain, time-aware
      intersection), a band on the card against the same lanes on the CPU;
+   - ``[shard]`` (``parallel/shard.py``): the demo at 1920x1080, 4 spp,
+     depth 10 through ``render_sharded`` with the band film and with the
+     replicated film, against ``render`` (every pixel within 2e-5), on a
+     world-1 NCCL group and then on four ranks that share the card (data 2
+     x sample 2, spawned processes, gloo: NCCL refuses two ranks on one
+     device); #1's launches and the ms of each pass;
+   - ``[shard-train]``: ``make_train_step`` on BASELINE config 5 (64x64, 64
+     spp, depth 3), 10 Adam steps at world 1 and on the four ranks: the
+     first step's gradients against single-process autograd (1e-3 of the
+     largest entry), a falling loss, #2 / #3's launches, ms per step;
+   - ``[service]``: ``RenderService`` on the card through the wire codec,
+     the reference's empty request (1920x1080, 16 spp, depth 10; its PNG
+     equal to ``render``'s image) and cornell, mesh (#5) and glass at
+     1920x1080, 4 spp: seconds, launches, the PNG; over gRPC on a
+     localhost port where grpc is installed;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
    profiled passes.  The brute kernels are timed on every launch of the
    config-1 band, beside the device ms of that launch in the profiled
    pass and its bound by two methods: the work the function needs (the
    tests of the lanes that are not dead, the bytes every lane moves) and
-   every lane testing every prim.
+   every lane testing every prim.  ``launches_shard``,
+   ``launches_shard_train`` and ``launches_service`` count each kernel's
+   launches on the last three paths (all ranks).
 
 Beside the kernel times, ``[lane-slots]`` lines give the lane-slot
 efficiency of a launch of one thread per item on the redesigned kernels'
@@ -112,10 +129,12 @@ import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -1635,6 +1654,384 @@ def inverse_config5(dev, device_name: str, power_limit: str) -> dict:
     return out
 
 
+# ---- the multi-rank render, the train step and the service ----------------
+
+SHARD_SPP = 4  # [shard]: the demo at W x H, depth 10, through render_sharded
+SHARED = (2, 2)  # the four ranks that share the card: data x sample
+TRAIN_STEPS = 10  # [shard-train]: Adam steps of make_train_step on config 5
+SERVICE_SPP = 4  # [service]: cornell, mesh and glass at W x H
+RANKS_TIMEOUT_S = 600
+
+
+def read_png(path: str) -> np.ndarray:
+    """The pixels u8[H,W,3] of an 8-bit RGB PNG whose rows all take filter
+    0, as ``film.write_png`` writes them."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(b"\x89PNG\r\n\x1a\n"):
+        raise AssertionError(f"{path}: not a PNG")
+    i, idat, w, h = 8, [], 0, 0
+    while i < len(data):
+        (n,), tag = struct.unpack(">I", data[i:i + 4]), data[i + 4:i + 8]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", data[i + 8:i + 16])
+        elif tag == b"IDAT":
+            idat.append(data[i + 8:i + 8 + n])
+        i += 12 + n
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: a row takes a PNG filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def shard_renders(mesh, scene, camera, settings, ref) -> dict:
+    """``render_sharded`` with the band film and with the replicated film,
+    the launch counts set to 0 just before each and read after -> {mode:
+    its largest difference from ``ref``, finiteness, ms of each pass, s in
+    all, launches}."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.parallel import shard
+
+    out = {}
+    for mode, band_film in (("band", True), ("replicated", False)):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        _build.LAUNCHES.clear()
+        img = shard.render_sharded(mesh, scene, camera, settings, band_film=band_film,
+                                   progress=lambda done, total: marks.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        out[mode] = {"max_abs_err": float((img - ref).abs().max()),
+                     "finite": bool(torch.isfinite(img).all()),
+                     "pass_ms": [(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+                     "s": time.perf_counter() - marks[0], "launches": dict(_build.LAUNCHES)}
+    return out
+
+
+def config5_problem(dev, sample: int = 1):
+    """BASELINE config 5 at its published 64x64, 64 spp, depth 3 for
+    ``make_train_step``: (scene, camera, settings with a rank's share of the
+    64 samples in one pass, the target: the true scene's image from other
+    samples, as ``[inverse]`` makes it)."""
+    from gopbrt_tpu_torch.models import film as film_mod
+    from gopbrt_tpu_torch.models import gallery, render
+
+    true_atlas, true_rad = gallery.config5_truth()
+    scene, cam, settings = gallery.config5(true_atlas, true_rad, INV_SIZE, INV_SIZE,
+                                           device=dev)
+    n = INV_SIZE * INV_SIZE
+    with torch.no_grad():
+        film = render.render_wave(
+            scene, cam, film_mod.new_film(INV_SIZE, INV_SIZE, device=dev), settings,
+            torch.arange(n, device=dev).repeat(INV_SPP),
+            torch.arange(INV_SPP, device=dev).repeat_interleave(n) + (1 << 20))
+        target = film.rgb / torch.clamp(film.weight[..., None], min=1e-8)
+    return scene, cam, settings._replace(samples_per_pass=INV_SPP // sample), target
+
+
+def config5_params(dev):
+    """Fresh leaves: the atlas' logits (sigmoid 0.5) and the log radiance."""
+    return (torch.zeros((16, 16, 3), device=dev, requires_grad=True),
+            torch.full((3,), math.log(10.0), device=dev, requires_grad=True))
+
+
+def config5_scene(scene):
+    def to_scene(params):
+        logit, log_rad = params
+        return scene._replace(
+            textures=scene.textures._replace(atlas=torch.sigmoid(logit)),
+            lights=scene.lights._replace(intensity=torch.exp(log_rad)[None, :]))
+    return to_scene
+
+
+def train_run(mesh, scene, cam, settings, target) -> dict:
+    """TRAIN_STEPS steps of ``make_train_step`` (Adam at 3e-2, as
+    ``[inverse]``), the launch counts set to 0 just before the first and
+    read after the last -> {losses, the first step's averaged gradients,
+    ms of each step, launches}."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.parallel import shard
+
+    params = config5_params(mesh.device)
+    opt = torch.optim.Adam(params, lr=3e-2)
+    step = shard.make_train_step(mesh, cam, settings, config5_scene(scene), opt)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    losses, ms, grads = [], [], None
+    for k in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, target)))  # float() waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if k == 0:
+            grads = [p.grad.detach().cpu() for p in params]
+    return {"losses": losses, "grads": grads, "ms": ms, "launches": dict(_build.LAUNCHES)}
+
+
+def grad_off(got, ref) -> float:
+    """The largest difference over the largest entry, of the worst tensor."""
+    return max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
+
+
+def shared_rank(rank: int, world: int, tmp: str) -> None:
+    """One of the four ranks that share the card, over gloo (a process of
+    its own, started by ``shard_checks``): ``[shard]`` and ``[shard-train]``
+    on the rank's cell of the data 2 x sample 2 mesh; its results go to
+    ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from gopbrt_tpu_torch.models.demo import (build_demo_camera, build_demo_scene,
+                                              demo_settings)
+    from gopbrt_tpu_torch.parallel import shard
+
+    torch.set_num_threads(2)
+    shard.init_distributed(init_method=f"file://{tmp}/store4", rank=rank, world_size=world,
+                           backend="gloo")
+    mesh = shard.make_mesh(*SHARED)
+    dev = mesh.device
+    ref = torch.load(os.path.join(tmp, "demo_ref.pt"), map_location=dev)
+    out = {"device": str(dev), "backend": dist.get_backend(),
+           "shard": shard_renders(mesh, build_demo_scene(device=dev),
+                                  build_demo_camera(W, H, device=dev),
+                                  demo_settings(W, H, spp=SHARD_SPP, samples_per_pass=1), ref)}
+    scene, cam, settings, _ = config5_problem(dev, mesh.sample)
+    out["train"] = train_run(mesh, scene, cam, settings,
+                             torch.load(os.path.join(tmp, "target.pt"), map_location=dev))
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp: str) -> list:
+    """``fn(rank, world, tmp)`` in ``world`` processes -> their results; a
+    rank that fails fails the call, and every process is stopped."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, tmp), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"{world} ranks still running after {RANKS_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
+
+
+def _pass_line(r: dict) -> str:
+    return (f"max abs diff {r['max_abs_err']:.3e}, {r['s']:.3f} s, ms per pass "
+            + ", ".join(f"{t:.2f}" for t in r["pass_ms"]) + f"; launches {r['launches']}")
+
+
+def _sum_launches(counts) -> dict:
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(out)
+
+
+def shard_checks(dev, device_name: str, power_limit: str) -> dict:
+    """``[shard]`` and ``[shard-train]``: ``parallel/shard.py`` on the card.
+
+    World 1 on NCCL (a process group over a file store): the demo at
+    W x H, depth 10, SHARD_SPP spp through ``render_sharded`` with the
+    band film and the replicated film against ``render`` (every pixel
+    within 2e-5, the reference's bar, tests/test_sharding.py:59); then
+    ``make_train_step`` on config 5, its first step's gradients against
+    single-process autograd (1e-3 of the largest entry), the loss falling
+    over TRAIN_STEPS steps.  Then the same on four ranks that share the
+    card, data 2 x sample 2, over gloo: NCCL refuses two ranks on one
+    device.  -> the launches of each path by kernel."""
+    import torch.distributed as dist
+
+    from gopbrt_tpu_torch.models import film as film_mod
+    from gopbrt_tpu_torch.models import render
+    from gopbrt_tpu_torch.models.demo import (build_demo_camera, build_demo_scene,
+                                              demo_settings)
+    from gopbrt_tpu_torch.parallel import shard
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shard.init_distributed(init_method=f"file://{tmp}/store1", rank=0, world_size=1)
+        mesh = shard.make_mesh()
+        phase("shard", f"world 1 on {dist.get_backend()} over a file store, rank 0 on "
+              f"{mesh.device}; {device_name}, {power_limit}")
+        scene, camera = build_demo_scene(device=dev), build_demo_camera(W, H, device=dev)
+        settings = demo_settings(W, H, spp=SHARD_SPP, samples_per_pass=1)
+        t0 = time.perf_counter()
+        ref = render.render(scene, camera, settings, device=dev)
+        torch.cuda.synchronize()
+        phase("shard", f"render, the demo {W}x{H} {SHARD_SPP} spp depth {DEPTH}: "
+              f"{time.perf_counter() - t0:.3f} s")
+        one = shard_renders(mesh, scene, camera, settings, ref)
+        for mode, r in one.items():
+            phase("shard", f"world 1, {mode} film: " + _pass_line(r))
+        torch.save(ref, os.path.join(tmp, "demo_ref.pt"))
+
+        c5, cam5, set5, target = config5_problem(dev)
+        torch.save(target, os.path.join(tmp, "target.pt"))
+        # the single-process autograd step's gradients, on the same lanes
+        params = config5_params(dev)
+        n = INV_SIZE * INV_SIZE
+        film = render.render_wave(
+            config5_scene(c5)(params), cam5, film_mod.new_film(INV_SIZE, INV_SIZE, device=dev),
+            set5, torch.arange(n, device=dev).repeat(INV_SPP),
+            torch.arange(INV_SPP, device=dev).repeat_interleave(n))
+        loss = torch.mean((film.rgb / torch.clamp(film.weight[..., None], min=1e-8)
+                           - target) ** 2)
+        loss.backward()
+        loss_ref = float(loss.detach())
+        g_ref = [p.grad.detach().cpu() for p in params]
+        train1 = train_run(mesh, c5, cam5, set5, target)
+        off1 = grad_off(train1["grads"], g_ref)
+        phase("shard-train", f"world 1, config 5 {INV_SIZE}x{INV_SIZE} x {INV_SPP} spp depth 3, "
+              f"{TRAIN_STEPS} Adam steps: loss {train1['losses'][0]:.6f} -> "
+              f"{train1['losses'][-1]:.6f} (single-process autograd {loss_ref:.6f}); first "
+              f"step's gradients off autograd's by {off1:.3e} of the largest entry; ms per "
+              f"step {statistics.median(train1['ms'][1:]):.2f} (median; first "
+              f"{train1['ms'][0]:.2f}); launches {train1['launches']}; {device_name}, "
+              f"{power_limit}")
+        dist.destroy_process_group()
+
+        phase("shard", f"four ranks share the card, data {SHARED[0]} x sample {SHARED[1]}, "
+              "over gloo: NCCL refuses two ranks on one device ('Duplicate GPU detected'); "
+              "the films and the rendering stay on the card")
+        t0 = time.perf_counter()
+        ranks = run_ranks(shared_rank, SHARED[0] * SHARED[1], tmp)
+        phase("shard", f"four ranks: {time.perf_counter() - t0:.1f} s from spawn to join; "
+              f"backends {sorted({r['backend'] for r in ranks})}, devices "
+              f"{sorted({r['device'] for r in ranks})}")
+        for mode in ("band", "replicated"):
+            for k, r in enumerate(ranks):
+                phase("shard", f"four ranks, {mode} film, rank {k}: "
+                      + _pass_line(r["shard"][mode]))
+        off4 = [grad_off(r["train"]["grads"], g_ref) for r in ranks]
+        t = ranks[0]["train"]
+        phase("shard-train", f"four ranks: loss {t['losses'][0]:.6f} -> {t['losses'][-1]:.6f}; "
+              f"first step's gradients off autograd's by {max(off4):.3e} of the largest entry "
+              f"(worst rank); ms per step {statistics.median(t['ms'][1:]):.2f} (rank 0, median; "
+              f"first {t['ms'][0]:.2f}); launches "
+              f"{_sum_launches(r['train']['launches'] for r in ranks)} (all ranks); "
+              f"{device_name}, {power_limit}")
+
+    bad = []
+    for where, modes in [("world 1", one)] + [(f"rank {k}", r["shard"])
+                                              for k, r in enumerate(ranks)]:
+        for mode, r in modes.items():
+            if not (r["finite"] and r["max_abs_err"] <= 2e-5):
+                bad.append(f"{where} {mode}: {r['max_abs_err']:.3e}")
+    want = {"megakernel": 4 * SHARD_SPP}  # 4 bands of the image a sample
+    launches = {mode: _sum_launches([one[mode]["launches"]]
+                                    + [r["shard"][mode]["launches"] for r in ranks])
+                for mode in one}
+    for mode in one:
+        got = [one[mode]["launches"], _sum_launches(r["shard"][mode]["launches"] for r in ranks)]
+        if any(g != want for g in got):
+            bad.append(f"{mode} film launched {got}, expected {want} a render")
+    for where, t, off in [("world 1", train1, off1)] + [
+            (f"rank {k}", r["train"], o) for k, (r, o) in enumerate(zip(ranks, off4))]:
+        if not (all(math.isfinite(x) for x in t["losses"]) and t["losses"][-1] < t["losses"][0]
+                and off <= 1e-3):
+            bad.append(f"[shard-train] {where}: losses {t['losses']}, gradients off by {off:.3e}")
+        if not (t["launches"].get("intersect", 0) > 0 and t["launches"].get("intersect_any", 0) > 0
+                and "megakernel" not in t["launches"]):
+            bad.append(f"[shard-train] {where} launched {t['launches']}")
+    if len({tuple(r["train"]["losses"]) for r in ranks}) != 1:
+        bad.append("[shard-train] the four ranks' losses differ")
+    if bad:
+        raise AssertionError("[shard] " + "; ".join(bad))
+    return {"shard": _sum_launches(launches.values()),
+            "shard_train": _sum_launches([train1["launches"]]
+                                         + [r["train"]["launches"] for r in ranks])}
+
+
+def service_checks(dev, device_name: str, power_limit: str) -> dict:
+    """``[service]``: ``RenderService`` on the card through the wire codec:
+    each request's bytes -> ``RenderRequest.FromString`` -> ``render`` ->
+    the ``RenderResponse``'s bytes -> the PNG it names.  The reference's
+    empty request (1920x1080, 16 spp, depth 10) and cornell, mesh and glass
+    at W x H, SERVICE_SPP spp; the launch counts set to 0 just before each
+    request and read after.  Each PNG must be the request's image (the
+    handler's ``image`` once more: finite, not black); the demo's must be
+    ``render``'s of the same settings.  Where grpc is installed, one more
+    request goes through ``make_server`` on a localhost port.  -> the
+    requests' launches by kernel."""
+    import importlib.util
+
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import film as film_mod
+    from gopbrt_tpu_torch.models import render
+    from gopbrt_tpu_torch.service.proto import RenderRequest, RenderResponse
+    from gopbrt_tpu_torch.service.server import RenderService, make_server
+
+    requests = [("demo", RenderRequest()),
+                *((sid, RenderRequest(scene_id=sid, width=W, height=H, spp=SERVICE_SPP))
+                  for sid in ("cornell", "mesh", "glass"))]
+    kernel = {"demo": "megakernel", "cornell": "megakernel", "mesh": "mesh_megakernel",
+              "glass": "megakernel"}
+    total, bad = collections.Counter(), []
+    with tempfile.TemporaryDirectory() as out_dir:
+        svc = RenderService(device=dev, out_dir=out_dir)
+        t0 = time.perf_counter()
+        for sid, req in requests:  # the registry's scenes, built once per id
+            svc.job(req)
+        torch.cuda.synchronize()
+        phase("service", f"scenes {[sid for sid, _ in requests]} built on {svc.device} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for sid, req in requests:
+            wire = req.SerializeToString()
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            resp = svc.render(RenderRequest.FromString(wire), None).SerializeToString()
+            secs = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            total.update(launches)
+            path = RenderResponse.FromString(resp).path
+            px = read_png(path)
+            scene, camera, settings = svc.job(req)
+            img = (render.render(scene, camera, settings, device=dev) if sid == "demo"
+                   else svc.image(req))
+            finite = bool(torch.isfinite(img).all())
+            same = bool(np.array_equal(px, film_mod.to_uint8(img)))
+            mean = float(img.mean())
+            phase("service", f"{sid} ({len(wire)} request bytes; {settings.width}x"
+                  f"{settings.height}, {settings.spp} spp, depth {settings.max_depth}): "
+                  f"{secs:.3f} s, launches {launches}; PNG {path} {os.path.getsize(path)} "
+                  f"bytes, {px.shape[1]}x{px.shape[0]}, equal to "
+                  + ("render's" if sid == "demo" else "the handler's image once more")
+                  + f": {same}; image mean {mean:.4f}; {device_name}, {power_limit}")
+            want = {kernel[sid]: 4 * settings.spp}  # 4 bands of the image a sample
+            if not (finite and same and mean > 0.01 and launches == want
+                    and px.shape == (settings.height, settings.width, 3)):
+                bad.append(f"{sid}: finite {finite}, PNG equal {same}, mean {mean}, "
+                           f"launches {launches} (expected {want})")
+        if importlib.util.find_spec("grpc") is None:
+            phase("service", "the gRPC transport was not driven: grpc is not installed")
+        else:
+            import grpc
+
+            server = make_server(port=0, service=svc)
+            port = server.add_insecure_port("localhost:0")
+            server.start()
+            try:
+                with grpc.insecure_channel(f"localhost:{port}") as chan:
+                    stub = chan.unary_unary(
+                        "/render.Render/Render",
+                        request_serializer=RenderRequest.SerializeToString,
+                        response_deserializer=RenderResponse.FromString)
+                    t0 = time.perf_counter()
+                    path = stub(requests[1][1], timeout=300).path
+                phase("service", f"cornell over gRPC on localhost:{port}: "
+                      f"{time.perf_counter() - t0:.3f} s, PNG {read_png(path).shape}")
+            finally:
+                server.stop(grace=None)
+    if bad:
+        raise AssertionError("[service] " + "; ".join(bad))
+    return dict(total)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     marks = [t_start]
@@ -2026,6 +2423,13 @@ def main() -> int:
     # config 5: the inverse-rendering trainer
     inverse = inverse_config5(dev, device_name, power_limit)
     stamp("[inverse]")
+
+    # the last of the JAX package: the multi-rank render, the data-parallel
+    # train step and the render service, on #1, #2 / #3 and #5
+    sharded = shard_checks(dev, device_name, power_limit)
+    stamp("[shard] and [shard-train]")
+    served = service_checks(dev, device_name, power_limit)
+    stamp("[service]")
     slice_launches = {}
     for counts in (grad_demo["launches"], grad_mesh["launches"], inverse["launches"]):
         for k, v in counts.items():
@@ -2085,6 +2489,10 @@ def main() -> int:
         # and timed passes; the comparisons with the plain versions apart)
         row["launches_options"] = opts["launches"].get(row["name"], 0)
         row["launches_compaction"] = comp["launches"].get(row["name"], 0)
+        # the multi-rank render (all ranks), the train step, the service's requests
+        row["launches_shard"] = sharded["shard"].get(row["name"], 0)
+        row["launches_shard_train"] = sharded["shard_train"].get(row["name"], 0)
+        row["launches_service"] = served.get(row["name"], 0)
     line[0]["launches_families"] = {f: c.get("megakernel", 0) for f, c in fam["launches"].items()}
     line[0]["max_abs_err"] = max(line[0]["max_abs_err"], opts["worst"][1],
                                  fam["worst"]["megakernel"][1])

@@ -1,11 +1,12 @@
 """Film: filtered sample accumulation, development and PNG output.
 
 Counterpart of ``gopbrt_tpu/models/film.py`` (``Film``, ``new_film``,
-``add_samples``, ``add_samples_rows``, ``develop``, ``srgb_encode``,
-``to_uint8``, ``write_png``).  Unlike the JAX version, ``add_samples_rows``
-accumulates into the film's tensors in place (one 1080p film is 33 MB; a
-pass makes no copy of it) and returns the same film; autograd records the
-in-place fold, so the film carries a gradient to L where L has one.
+``add_samples``, ``add_samples_rows``, ``splat_band_halo``, ``merge``,
+``develop``, ``srgb_encode``, ``to_uint8``, ``write_png``).  Unlike the JAX
+version, ``add_samples_rows`` accumulates into the film's tensors in place
+(one 1080p film is 33 MB; a pass makes no copy of it) and returns the same
+film; autograd records the in-place fold, so the film carries a gradient to
+L where L has one.
 ``add_samples`` is out of place, as the reference's scatter.
 """
 
@@ -89,6 +90,29 @@ def add_samples_rows(film: Film, row0: int, jitter: torch.Tensor,
     h_img = film.weight.shape[0]
     if film.weight.shape[1] != w_img:
         raise ValueError("band width differs from the film width")
+    acc_rgb, acc_w = splat_band_halo(row0, jitter, L, h_img, filt)
+    # fold the halo-extended band (image rows row0-rr ...) into the film
+    rr = int(math.ceil(filt.radius))
+    y0 = row0 - rr
+    lo, hi = max(0, y0), min(h_img, y0 + rows + 2 * rr)
+    if hi > lo:
+        film.rgb[lo:hi] += acc_rgb[lo - y0:hi - y0]
+        film.weight[lo:hi] += acc_w[lo - y0:hi - y0]
+    return film
+
+
+def splat_band_halo(row0: int, jitter: torch.Tensor, L: torch.Tensor, h_img: int,
+                    filt: Filter = box_filter(1.0)):
+    """The filter taps of one sample per pixel of the band of image rows
+    from ``row0`` as halo-extended accumulators (film.py:131-161): (rgb
+    f32[rows+2rr, W, 3], w f32[rows+2rr, W]), rr = ceil(filter radius),
+    row i holding image row row0 - rr + i.  The first and last rr rows are
+    the taps that land on the neighbouring bands (parallel/shard.py
+    exchanges them).  Samples on rows at or past ``h_img`` are masked and
+    taps outside [0, W) dropped.  ``add_samples_rows`` folds the same
+    accumulators into a film.
+    """
+    rows, w_img = L.shape[0], L.shape[1]
     rr = int(math.ceil(filt.radius))
     jx, jy = jitter[..., 0], jitter[..., 1]
     row_valid = (row0 + torch.arange(rows, device=L.device)) < h_img
@@ -105,13 +129,13 @@ def add_samples_rows(film: Film, row0: int, jitter: torch.Tensor,
             xs = slice(ox + rr, ox + rr + w_img)
             acc_rgb[ys, xs] += fw[..., None] * L
             acc_w[ys, xs] += fw
-    # fold the halo-extended band (image rows row0-rr ...) into the film
-    y0 = row0 - rr
-    lo, hi = max(0, y0), min(h_img, y0 + rows + 2 * rr)
-    if hi > lo:
-        film.rgb[lo:hi] += acc_rgb[lo - y0:hi - y0, rr:rr + w_img]
-        film.weight[lo:hi] += acc_w[lo - y0:hi - y0, rr:rr + w_img]
-    return film
+    return acc_rgb[:, rr:rr + w_img], acc_w[:, rr:rr + w_img]
+
+
+def merge(a: Film, b: Film) -> Film:
+    """Two accumulations summed, out of place (MergeFilmTile, film.go:
+    115-132; film.py:164-168)."""
+    return Film(rgb=a.rgb + b.rgb, weight=a.weight + b.weight)
 
 
 def develop(film: Film, gamma: bool = True, compat_go: bool = False) -> torch.Tensor:

@@ -16,6 +16,10 @@ from gopbrt_tpu_torch.models import film as tfilm
 from gopbrt_tpu_torch.models import render as trender
 from gopbrt_tpu_torch.models.scene import SceneBuilder
 from gopbrt_tpu_torch.ops import megakernel
+from gopbrt_tpu_torch.parallel import dist as tdist
+from gopbrt_tpu_torch.parallel import shard as tshard
+from gopbrt_tpu_torch.service.proto import RenderRequest
+from gopbrt_tpu_torch.service.server import RenderService
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "gopbrt_tpu")
@@ -59,7 +63,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_the_card(no_cuda):
+def test_entry_points_default_to_the_card(no_cuda, tmp_path):
     b = SceneBuilder()
     b.sphere(np.eye(4), 1.0, b.matte())
     b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
@@ -68,6 +72,10 @@ def test_entry_points_default_to_the_card(no_cuda):
         lambda: tdemo.build_demo_scene(),
         lambda: tcam.perspective_camera(np.eye(4), 8, 8),
         lambda: tfilm.new_film(8, 8),
+        lambda: tshard.make_mesh(),
+        lambda: RenderService().render(RenderRequest(width=8, height=8), None),
+        lambda: tdist.init_distributed(init_method=(tmp_path / "store").as_uri(), rank=0,
+                                       world_size=1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
