@@ -8,9 +8,10 @@ non-zero and never prints the last line:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: compiles the CUDA sources of gopbrt_tpu_torch (first use), one
-   nvcc per source, all at once, and the host BVH builder (g++); prints
-   each kernel's registers and spill bytes (ptxas) and the local loads and
-   stores of its SASS (cuobjdump: spills and the walk's stack);
+   nvcc per source, all at once, the host BVH builder and the C++ tracer
+   (g++); prints each kernel's registers and spill bytes (ptxas) and the
+   local loads and stores of its SASS (cuobjdump: spills and the walk's
+   stack);
 3. kernel vs plain, each kernel against its plain PyTorch version on the
    same inputs:
    - the bounce megakernel on one 1920x273 band of the 1080p demo at depth
@@ -50,7 +51,9 @@ non-zero and never prints the last line:
 4. main paths, each through ``render_pass`` with the launch counts set to 0
    just before it and read just after; one warm-up pass, then 5 timed passes
    and one more under ``torch.profiler`` (host ms of each ``render.*`` range,
-   the device's busy time):
+   the device's busy time; a trace that holds fewer of the port's kernels
+   than ``_build.LAUNCHES`` counted in the pass dropped events, and the
+   pass is profiled again, at most twice, and never timed from it):
    - the demo at 1920x1080, 1 spp, path depth 10: 4 megakernel launches per
      pass; then ``render`` at 4 spp, ``develop`` and ``write_png``;
    - config 1 at 1920x1080, 1 spp, direct lighting depth 3, one light per
@@ -100,6 +103,17 @@ non-zero and never prints the last line:
      equal to ``render``'s image) and cornell, mesh (#5) and glass at
      1920x1080, 4 spp: seconds, launches, the PNG; over gRPC on a
      localhost port where grpc is installed;
+   - ``[cross-validate]`` (``native/baseline.py``): each golden config at its
+     published size (benchmarks/cross_validate.py's 480x270 or 480x480, 32
+     or 48 spp, a box filter of radius 0.5) rendered on the card and traced
+     by the independent C++ tracer (``native/cpu_baseline.cpp --scene``) on
+     every core of the host: the images' means and 3x3 region means within
+     the config's tolerances, config 1 on #2 / #3, configs 2 and 4 on #1,
+     config 3 on #5; the render's ms and launches, the tracer's rays/s on
+     the host's CPU;
+   - ``[baseline]``: the C++ tracer's demo mode at 1920x1080, 1 spp, depth
+     10, and its --scene mode on the 10,224-triangle mesh at 960x544, 1
+     spp, depth 5, on one thread and on every core: the host CPU's rays/s;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
    profiled passes.  The brute kernels are timed on every launch of the
@@ -107,8 +121,9 @@ non-zero and never prints the last line:
    pass and its bound by two methods: the work the function needs (the
    tests of the lanes that are not dead, the bytes every lane moves) and
    every lane testing every prim.  ``launches_shard``,
-   ``launches_shard_train`` and ``launches_service`` count each kernel's
-   launches on the last three paths (all ranks).
+   ``launches_shard_train``, ``launches_service`` and
+   ``launches_cross_validate`` count each kernel's launches on the last
+   four paths (all ranks).
 
 Beside the kernel times, ``[lane-slots]`` lines give the lane-slot
 efficiency of a launch of one thread per item on the redesigned kernels'
@@ -127,6 +142,7 @@ import contextlib
 import json
 import math
 import os
+import platform
 import re
 import statistics
 import struct
@@ -159,6 +175,12 @@ INV_SIZE, INV_SPP, INV_STEPS = 64, 64, 40
 # __global__ functions of csrc/*.cu, as the profiler names their launches
 OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel",
                "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel")
+# the _build.LAUNCHES name of each of OWN_KERNELS
+LAUNCH_KEY = {"mega_kernel": "megakernel", "closest_hit_kernel": "intersect",
+              "any_hit_kernel": "intersect_any", "bvh_closest_kernel": "bvh_intersect",
+              "bvh_any_kernel": "bvh_intersect_any", "mesh_kernel": "mesh_megakernel"}
+# profiled_pass: traces after the first one that dropped events
+PROFILE_RETRIES = 2
 # the compile-time instances of csrc/intersect.cu (brute_intersect.INSTANCE_*)
 INSTANCES = ("full spheres and disks", "general")
 # the kernels' wrappers by intersector: closest hit, any hit
@@ -631,10 +653,37 @@ def profiled_pass(render, scene, camera, film, settings, dev, pass_ms: float):
     """One more pass under the profiler, read by render_pass's stage ranges
     (host time) and the device's busy time -> (the line to print, device
     ms of the pass in each of the port's kernels, by OWN_KERNELS name, and
-    the device ms of each of their launches in start order)."""
-    host, work = _trace(
-        lambda: render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev),
-        ("render.band_rays", "render.li", "render.splat"))
+    the device ms of each of their launches in start order).
+
+    The trace must hold one event of the port's kernels for each launch
+    ``_build.LAUNCHES`` counted in the pass.  A trace that holds fewer has
+    dropped events: the pass is profiled again, at most PROFILE_RETRIES
+    times, and where every trace fell short nothing of it is reported
+    (the line says so; both dicts are empty)."""
+    from gopbrt_tpu_torch import _build
+
+    for attempt in range(1 + PROFILE_RETRIES):
+        before = collections.Counter(_build.LAUNCHES)
+        host, work = _trace(
+            lambda: render.render_pass(scene, camera, film, settings, N_PASSES + 1, device=dev),
+            ("render.band_rays", "render.li", "render.splat"))
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+        traced = {}
+        for e in work:
+            k = next((LAUNCH_KEY[k] for k in OWN_KERNELS if k in e.name), None)
+            if k:
+                traced[k] = traced.get(k, 0) + 1
+        if traced == launched:
+            break
+        if any(n > launched.get(k, 0) for k, n in traced.items()):
+            raise AssertionError(f"profiled pass: the trace holds {traced} of the port's "
+                                 f"kernels, more than the {launched} launched")
+        phase("profile", f"the trace dropped events: {traced} of the port's kernels against "
+              f"{launched} launched, {len(work)} device events; "
+              + ("profiling again" if attempt < PROFILE_RETRIES else "not measured"))
+    else:
+        return (f"one profiled pass: not measured, each of {1 + PROFILE_RETRIES} traces "
+                f"held fewer of the port's kernels than were launched"), {}, {}
     host = {k.split(".")[1]: v for k, v in host.items()}
     device_ms = sum(e.dur_us for e in work) / 1e3
     seq = {k: [e.dur_us / 1e3 for e in sorted(work, key=lambda e: e.start_us) if k in e.name]
@@ -2032,6 +2081,107 @@ def service_checks(dev, device_name: str, power_limit: str) -> dict:
     return dict(total)
 
 
+# [cross-validate]: the kernels each golden config's render must launch
+# (and no other): #2 / #3 for config 1's direct lighting, #1 for the brute
+# fast-path configs 2 and 4, #5 for the mesh of config 3
+VAL_KERNELS = {"config1_demo_direct": {"intersect", "intersect_any"},
+               "config2_cornell_mirror": {"megakernel"},
+               "config3_mesh_bvh": {"mesh_megakernel"},
+               "config4_arealights_glass": {"megakernel"}}
+# [baseline]: the mesh scene's size and depth in --scene mode
+# (benchmarks/cross_validate.py --mesh-baseline)
+MESH_BASE_W, MESH_BASE_H, MESH_BASE_DEPTH = 960, 544, 5
+
+
+def host_cpu():
+    """(the host CPU as the first processor of /proc/cpuinfo gives it: its
+    name where reported, vendor, family, model and MHz; the cores this
+    process may run on)."""
+    info = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for ln in f:
+            if not ln.strip():
+                break
+            key, _, value = ln.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    desc = (f"{info.get('vendor_id', platform.machine())} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}, "
+            f"{info.get('cpu MHz', '?')} MHz")
+    name = info.get("model name", "unknown")
+    return (desc if name == "unknown" else f"{name}, {desc}"), len(os.sched_getaffinity(0))
+
+
+def cross_validate_checks(dev, device_name: str, power_limit: str) -> dict:
+    """``[cross-validate]``: each of ``baseline.VAL_CONFIGS`` at its published
+    size rendered by the port on the card (``render_for_check``, the
+    launch counts set to 0 just before and read just after) and traced by
+    the independent C++ tracer on the host's cores; the two images'
+    means and 3x3 region means within the row's tolerances, and each
+    render on its kernels (VAL_KERNELS).  Every config runs; a failure
+    raises after the last -> the launches of all four renders."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.native import baseline
+
+    cpu, cores = host_cpu()
+    total, failed = collections.Counter(), []
+    for c in baseline.VAL_CONFIGS:
+        scene, camera, settings = baseline.check_config(c.name, device=dev)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        img = baseline.render_for_check(scene, camera, settings, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        total.update(launches)
+        port = img.cpu().numpy()
+        ref, stats = baseline.trace_scene(scene, camera, c.width, c.height, c.spp, c.depth,
+                                          cores, c.mode)
+        row = baseline.compare(port, ref, c.mean_tol, c.region_tol)
+        on_kernels = set(launches) == VAL_KERNELS[c.name]
+        finite = port.shape == (c.height, c.width, 3) and bool(np.isfinite(port).all())
+        phase("cross-validate", json.dumps({
+            "config": c.name, "size": f"{c.width}x{c.height}", "spp": c.spp,
+            "depth": c.depth, "mode": c.mode, **row, "port_ms": ms, "launches": launches,
+            "device": device_name, "power_limit": power_limit,
+            "cpp_seconds": stats["seconds"], "cpp_rays_per_s_host": stats["rays_per_s"],
+            "host_cpu": cpu, "host_cores": cores}))
+        if not (row["ok"] and on_kernels and finite):
+            failed.append(c.name)
+    if failed:
+        raise AssertionError(f"[cross-validate] failed for {failed}: outside the tolerances, "
+                             f"a non-finite image, or not on the kernels {VAL_KERNELS}")
+    return dict(total)
+
+
+def baseline_runs(mesh_scene) -> None:
+    """``[baseline]``: the C++ tracer's demo mode at W x H, 1 spp, depth
+    DEPTH (benchmarks/measure_baseline.py) and its --scene mode on the
+    10,224-triangle mesh at 960x544, 1 spp, depth 5 (cross_validate.py
+    --mesh-baseline), each on one thread and on every core of the host:
+    the host CPU's rays/s, not the card's."""
+    from gopbrt_tpu_torch.models.meshes import mesh_camera
+    from gopbrt_tpu_torch.native import baseline
+
+    cpu, cores = host_cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "mesh.txt")
+        baseline.export_scene(mesh_scene, mesh_camera(MESH_BASE_W, MESH_BASE_H, device="cpu"),
+                              dump)
+        for metric, run in (
+                (f"cpu_demo_rays_per_s_{W}x{H}_depth{DEPTH}",
+                 lambda n: baseline.trace_demo(W, H, 1, DEPTH, n)),
+                (f"cpu_mesh10k_rays_per_s_{MESH_BASE_W}x{MESH_BASE_H}_depth{MESH_BASE_DEPTH}",
+                 lambda n: baseline.trace_dump(dump, MESH_BASE_W, MESH_BASE_H, 1,
+                                               MESH_BASE_DEPTH, n)[1])):
+            one, every = run(1), run(cores)
+            phase("baseline", json.dumps({
+                "metric": metric, "per_core_rays_per_s": one["rays_per_s"],
+                "all_core_rays_per_s": every["rays_per_s"], "host_cores": cores,
+                "thread_scaling_efficiency": every["rays_per_s"] / (one["rays_per_s"] * cores),
+                "mean_luminance": one["mean_luminance"], "host_cpu": cpu}))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     marks = [t_start]
@@ -2051,6 +2201,7 @@ def main() -> int:
     from gopbrt_tpu_torch.models import gallery, integrators, render
     from gopbrt_tpu_torch.models.demo import (build_demo_camera, build_demo_scene,
                                               demo_settings)
+    from gopbrt_tpu_torch.native import baseline
     from gopbrt_tpu_torch.ops import brute_intersect as bi
     from gopbrt_tpu_torch.ops import megakernel
 
@@ -2082,8 +2233,10 @@ def main() -> int:
     t0 = time.perf_counter()
     if native.load() is None:
         raise AssertionError("the host BVH builder did not build (g++)")
-    phase("build", f"total {build_s:.1f} s; the host BVH builder (g++) "
-          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    tracer = baseline.build()
+    phase("build", f"total {build_s:.1f} s; the host BVH builder (g++) {t1 - t0:.1f} s; "
+          f"the C++ tracer (g++) {time.perf_counter() - t1:.1f} s, {tracer}")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     scene = build_demo_scene(device=dev)
@@ -2346,6 +2499,9 @@ def main() -> int:
     # the profiled pass's device ms of each launch of a band (the mean of
     # the 4 bands), beside that launch's single time and bounds
     for kind, fn in (("intersect", "closest_hit_kernel"), ("intersect_any", "any_hit_kernel")):
+        if not seq_1:
+            phase("kernel-time", "config-1 profiled pass: device ms of each launch not measured")
+            break
         mine = [b for b in band_launches if b[0] == kind]
         per = len(mine)
         if len(seq_1.get(fn, [])) != 4 * per:
@@ -2430,6 +2586,12 @@ def main() -> int:
     stamp("[shard] and [shard-train]")
     served = service_checks(dev, device_name, power_limit)
     stamp("[service]")
+    # the independent C++ tracer: every golden config's render on the card
+    # against it, then its host baselines
+    crossed = cross_validate_checks(dev, device_name, power_limit)
+    stamp("[cross-validate]")
+    baseline_runs(mesh["scene"])
+    stamp("[baseline]")
     slice_launches = {}
     for counts in (grad_demo["launches"], grad_mesh["launches"], inverse["launches"]):
         for k, v in counts.items():
@@ -2493,6 +2655,8 @@ def main() -> int:
         row["launches_shard"] = sharded["shard"].get(row["name"], 0)
         row["launches_shard_train"] = sharded["shard_train"].get(row["name"], 0)
         row["launches_service"] = served.get(row["name"], 0)
+        # the four golden configs' renders of [cross-validate]
+        row["launches_cross_validate"] = crossed.get(row["name"], 0)
     line[0]["launches_families"] = {f: c.get("megakernel", 0) for f, c in fam["launches"].items()}
     line[0]["max_abs_err"] = max(line[0]["max_abs_err"], opts["worst"][1],
                                  fam["worst"]["megakernel"][1])

@@ -42,7 +42,12 @@ class FastPathInfo:
     constant or planar-checker kd; point/distant/sphere-area lights under a
     global distribution, 1..16 of them; rigid + uniform-scale transforms.
 
-    mesh_ok: the mesh megakernel's superset (not ported yet).
+    mesh_ok: whether the scene fits the mesh megakernel
+    (ops/mesh_megakernel.py), which gates on it: the conditions above on
+    kd, lights and transforms; triangles, with at most 32 other prims;
+    matte (sigma 0), mirror, smooth glass or plastic, at most 16 materials.
+    ``mesh_megakernel.fits`` also asks for a BVH and more prims than the
+    brute kernel takes.
     """
 
     ok: bool = False
