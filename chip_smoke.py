@@ -114,6 +114,26 @@ non-zero and never prints the last line:
    - ``[baseline]``: the C++ tracer's demo mode at 1920x1080, 1 spp, depth
      10, and its --scene mode on the 10,224-triangle mesh at 960x544, 1
      spp, depth 5, on one thread and on every core: the host CPU's rays/s;
+   - ``[path-config]``: ``PathConfig`` with nee off, mis off and both off
+     through ``integrators.li`` on the demo (1920x1080, depth 10) and the
+     mesh (1920x1080, depth 5): a default-cfg control pass (#1 / #5) and
+     one timed pass of each (no megakernel; #2 / #4, and #3 / #4's any hit
+     only with NEE on), the image means; one band of each through ``li``,
+     every launch against its plain version, the band against the plain
+     intersection (> 98% of lanes within 1e-3);
+   - ``[null-passes]``: the bounded-media family at 960x544, depth 5,
+     through ``li`` with ``null_passes`` 0, 2 and 4 (5 + 5, 30 and 50
+     launches a pass), every launch against its plain version, the pass at
+     2 bit-equal to ``render_pass``'s with the default cfg;
+   - ``[hlbvh]``: the 10,224-triangle mesh's bounds built SAH and HLBVH on
+     one thread and every host core (the host's ms, the node counts), then
+     a band of camera rays and their shadow rays through #4 on both trees:
+     equal hits and occlusions, t within 1e-6 on the hits, other prims only
+     on ties, each launch against its plain walk;
+   - ``[goldens]``: the four golden configs as their goldens render
+     (``gallery.golden_config``) through ``render.render`` against
+     ``tests/goldens/*.npz`` at tests/test_goldens.py's gates, config 1 on
+     #2 / #3, configs 2 and 4 on #1, config 3 on #5;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
    profiled passes.  The brute kernels are timed on every launch of the
@@ -121,9 +141,10 @@ non-zero and never prints the last line:
    pass and its bound by two methods: the work the function needs (the
    tests of the lanes that are not dead, the bytes every lane moves) and
    every lane testing every prim.  ``launches_shard``,
-   ``launches_shard_train``, ``launches_service`` and
-   ``launches_cross_validate`` count each kernel's launches on the last
-   four paths (all ranks).
+   ``launches_shard_train``, ``launches_service``,
+   ``launches_cross_validate``, ``launches_path_config``,
+   ``launches_null_passes``, ``launches_hlbvh`` and ``launches_goldens``
+   count each kernel's launches on those paths (all ranks).
 
 Beside the kernel times, ``[lane-slots]`` lines give the lane-slot
 efficiency of a launch of one thread per item on the redesigned kernels'
@@ -317,12 +338,13 @@ def recording(calls: list, accel="brute"):
                                 record(prefix + "intersect_any"), accel)
 
 
-def plain_intersection():
+def plain_intersection(accel="brute"):
     """The plain versions on the card's tensors, in place of the kernels."""
-    from gopbrt_tpu_torch.ops import brute_intersect as bi
-
-    return swapped_intersection(lambda _, *a: bi.intersect_brute(*a),
-                                lambda _, *a: bi.intersect_p_brute(*a))
+    mod = _intersector(accel)
+    closest, any_hit = (("intersect_brute", "intersect_p_brute") if accel == "brute"
+                        else ("bvh_intersect", "bvh_intersect_p"))
+    return swapped_intersection(lambda _, *a: getattr(mod, closest)(*a),
+                                lambda _, *a: getattr(mod, any_hit)(*a), accel)
 
 
 def close_t(t, ref):
@@ -958,17 +980,19 @@ def bump_scene(device, size=256):
     return b.build(accelerator="none", device=device), camera
 
 
-def chains_agree(what: str, run, bar: float) -> torch.Tensor:
+def chains_agree(what: str, run, bar: float, accel="brute", lit=True) -> torch.Tensor:
     """``run()`` on the intersection kernels against ``run()`` on the plain
-    intersection, per lane (> ``bar`` within 1e-3) -> the kernels' result."""
+    intersection, per lane (> ``bar`` within 1e-3) -> the kernels' result.
+    lit: the plain result's mean must be above 0."""
     got = run()
-    with plain_intersection():
+    with plain_intersection(accel):
         ref = run()
     frac, mean_rel, max_abs = agreement(got, ref)
     phase("chain-vs-chain", f"{what} on the kernels vs on the plain intersection: "
           f"{frac:.5f} of lanes within 1e-3, mean diff {mean_rel:.2e}, max abs err "
           f"{max_abs:.3e}, mean L {float(ref.mean()):.6f}")
-    if not (frac > bar and bool(torch.isfinite(got).all()) and float(ref.mean()) > 0.0):
+    if not (frac > bar and bool(torch.isfinite(got).all())
+            and (float(ref.mean()) > 0.0 or not lit)):
         raise AssertionError(f"{what}: the kernels change the result")
     return got
 
@@ -1288,9 +1312,12 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
 ODD_CHUNK = 100_003
 
 
-def chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev, stats=None):
+def chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev, stats=None,
+               dispatch=False):
     """A pass of the general chain on every band (``_li_wavefront`` with
-    ``cfg``, the row splat), in ``render_pass``'s ranges -> the film."""
+    ``cfg``, the row splat), in ``render_pass``'s ranges -> the film.
+    dispatch: through ``integrators.li`` with ``cfg`` instead, which picks
+    the megakernels or the chain as ``render_pass`` does."""
     film = film_mod.new_film(settings.width, settings.height, device=dev)
     band_rows = settings.chunk_pixels // settings.width
     cone = render._cone(camera, settings)
@@ -1298,8 +1325,11 @@ def chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev,
         with record_function("render.band_rays"):
             jitter, o, d, pix, smp = render.band_rays(camera, settings, r0, band_rows, 0)
         with record_function("render.li"):
-            L = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg, cone=cone,
-                                          stats=stats)
+            if dispatch:
+                L = integrators.li(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+            else:
+                L = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg,
+                                              cone=cone, stats=stats)
         with record_function("render.splat"):
             film_mod.add_samples_rows(film, r0, jitter.reshape(band_rows, -1, 2),
                                       L.reshape(band_rows, -1, 3), settings.filter)
@@ -2182,6 +2212,333 @@ def baseline_runs(mesh_scene) -> None:
                 "mean_luminance": one["mean_luminance"], "host_cpu": cpu}))
 
 
+# [path-config]: the gated PathConfigs (nee, mis), by the names the lines print
+PC_GATES = {"nee off": (False, True), "mis off": (True, False), "both off": (False, False)}
+# [null-passes]: the null boundaries a bounded-media bounce and shadow ray walk through
+NULL_PASSES = (0, 2, 4)
+
+
+def worst_of(worst: dict, kind: str, agree: float, err: float) -> None:
+    """Folds one launch's (agreement, max abs err) into ``worst[kind]``."""
+    w = worst.get(kind, (1.0, 0.0))
+    worst[kind] = (min(w[0], agree), max(w[1], err))
+
+
+def check_calls(what: str, calls: list, worst: dict):
+    """Every recorded launch against its plain version at the kernels' bars,
+    each folded into ``worst`` -> (the launches by kind, the calls' least
+    agreement by kind)."""
+    kinds, least = collections.Counter(), {}
+    for i, call in enumerate(calls):
+        agree, err, ids, dead = check_intersect_call(*call)
+        check_agreement(f"{what} {call[0]} launch {i}", agree, ids, dead)
+        worst_of(worst, call[0], agree, err)
+        least[call[0]] = min(least.get(call[0], 1.0), agree)
+        kinds[call[0]] += 1
+    return dict(kinds), least
+
+
+def path_config_checks(dev, render, film_mod, runs, device_name: str, power_limit: str) -> dict:
+    """``[path-config]``: ``PathConfig`` with nee off, mis off and both off
+    (``PC_GATES``) through ``integrators.li``, the dispatch, for each of
+    ``runs`` ((name, scene, camera, settings, accel)).  A control pass of
+    the default cfg (the scene's megakernel) and one pass of each gated cfg,
+    each through ``li`` in ``render_pass``'s bands (``chain_pass(dispatch=
+    True)``), timed, the counts set to 0 just before each and read just
+    after: a gated pass launches no megakernel, the closest-hit kernel of
+    the scene's intersector, and its any-hit kernel only with NEE on.  The
+    image means beside the control's; on one lane both the gated cfgs trace
+    the same path, so mis off and nee off hold at least what both off does.
+    Then one band of each gated cfg through ``li`` on the kernels: every
+    launch against its plain version at the kernels' bars, the band against
+    the same call on the plain intersection (> 98% of lanes within 1e-3).
+    -> {"launches": the passes' launch counts, "worst": {kind: (least
+    agreement, max abs err)}}."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import integrators
+
+    out = {"launches": collections.Counter(), "worst": {}}
+    for name, scene, camera, settings, accel in runs:
+        t_start = time.perf_counter()
+        cfg0 = render.path_config(settings)
+        closest = "intersect" if accel == "brute" else "bvh_intersect"
+        control = "megakernel" if accel == "brute" else "mesh_megakernel"
+        means = {}
+        for gate, (nee, mis) in (("default", (True, True)), *PC_GATES.items()):
+            cfg = cfg0._replace(nee=nee, mis=mis)
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            film = chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev,
+                              dispatch=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(_build.LAUNCHES)
+            out["launches"].update(launches)
+            want = ({control} if gate == "default"
+                    else {closest, closest + "_any"} if nee else {closest})
+            img = film_mod.develop(film)
+            linear = float(film_mod.develop(film, gamma=False).mean())
+            means[gate] = linear
+            phase("path-config", f"{name}, {gate} (nee={nee}, mis={mis}): one pass of "
+                  f"{settings.width}x{settings.height} 1 spp path depth {cfg.max_depth} through "
+                  f"li: {ms:.2f} ms, launches {launches}; image mean {float(img.mean()):.6f}, "
+                  f"linear mean {linear:.6f} against the default cfg's {means['default']:.6f} "
+                  f"({device_name}, {power_limit})")
+            if set(launches) != want or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{name}, {gate}: launched {launches}, expected the "
+                                     f"kernels {sorted(want)}, or a non-finite image")
+        if not (means["mis off"] >= means["both off"] and means["nee off"] >= means["both off"]
+                and means["default"] > 0.0):
+            raise AssertionError(f"{name}: the gated passes' means {means} are out of order")
+        band_rows = settings.chunk_pixels // settings.width
+        cone = render._cone(camera, settings)
+        _, o, d, pix, smp = render.band_rays(camera, settings, band_rows, band_rows, 0)
+        for gate, (nee, mis) in PC_GATES.items():
+            cfg = cfg0._replace(nee=nee, mis=mis)
+            calls = []
+            with recording(calls, accel):
+                integrators.li(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+            kinds, least = check_calls(f"{name}, {gate}", calls, out["worst"])
+            phase("kernel-vs-plain", f"{name}, {gate}, one {settings.width}x{band_rows} band "
+                  f"through li: launches {kinds}, each against its plain version: least "
+                  "agreement " + ", ".join(f"{k} {v:.6f}" for k, v in least.items()))
+            # with NEE off only emitter hits light a path: the demo's small
+            # lamp may light none of a band's
+            chains_agree(f"{name}, {gate}, li on one band", lambda: integrators.li(
+                scene, o, d, pix, smp, settings.seed, cfg, cone=cone), 0.98, accel, lit=nee)
+        phase("time", f"[path-config] {name}: {time.perf_counter() - t_start:.1f} s")
+    out["launches"] = dict(out["launches"])
+    return out
+
+
+def null_passes_checks(dev, render, film_mod, device_name: str, power_limit: str) -> dict:
+    """``[null-passes]``: the bounded-media family (a fog ball behind a null
+    boundary) at its size, through ``render_pass`` with the default cfg,
+    then one pass through ``li`` with each ``PathConfig.null_passes`` of
+    NULL_PASSES (the counts set to 0 just before each and read just after;
+    every launch recorded, then held against its plain version): at 0 one
+    segment a bounce and an any-hit shadow ray, at k > 0 1 + k segments and
+    a shadow walk of 1 + k closest hits a bounce; the pass at 2 (the
+    default) bit-equal to the default cfg's.  -> {"launches", "worst"} as
+    ``path_config_checks``."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import gallery, integrators
+
+    scene, camera, settings = gallery.FAMILIES["bounded_media"](device=dev)
+    depth = settings.max_depth
+    out = {"launches": collections.Counter(), "worst": {}}
+    film0 = film_mod.new_film(settings.width, settings.height, device=dev)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    render.render_pass(scene, camera, film0, settings, 0, device=dev)
+    torch.cuda.synchronize()
+    out["launches"].update(_build.LAUNCHES)
+    mean0 = float(film_mod.develop(film0).mean())
+    for k in NULL_PASSES:
+        cfg = render.path_config(settings)._replace(null_passes=k)
+        calls = []
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with recording(calls):
+            film = chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev,
+                              dispatch=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        out["launches"].update(launches)
+        want = ({"intersect": depth, "intersect_any": depth} if k == 0
+                else {"intersect": 2 * (1 + k) * depth})
+        kinds, least = check_calls(f"bounded media, null_passes {k}", calls, out["worst"])
+        img = film_mod.develop(film)
+        same = torch.equal(film.rgb, film0.rgb) and torch.equal(film.weight, film0.weight)
+        phase("null-passes", f"bounded media {settings.width}x{settings.height} 1 spp path "
+              f"depth {depth}, null_passes {k}: one pass through li {ms:.2f} ms, launches "
+              f"{launches}, each against its plain version (least agreement "
+              + ", ".join(f"{c} {v:.6f}" for c, v in least.items())
+              + f"); image mean {float(img.mean()):.6f} against the default cfg's "
+              f"{mean0:.6f} through render_pass" + (", bit-equal to it" if same else "")
+              + f" ({device_name}, {power_limit})")
+        if launches != want or kinds != want or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"null_passes {k}: launched {launches}, expected {want}")
+        if k == 2 and not same:
+            raise AssertionError("null_passes 2 differs from the default cfg's pass")
+    out["launches"] = dict(out["launches"])
+    return out
+
+
+def hlbvh_checks(dev, mesh: dict, device_name: str, power_limit: str) -> dict:
+    """``[hlbvh]``: the 10,224-triangle mesh scene's prim bounds built by the
+    native builder with method "sah" and "hlbvh", on one thread and on every
+    host core (the host CPU's build ms, the median of 3, and the node
+    counts; the tree must not depend on the threads); the SAH tree is the
+    scene's.  Then the mesh band's camera rays and their shadow rays toward
+    the point light through the BVH walk (#4) on both trees, the counts set
+    to 0 just before and read just after: the HLBVH tree's hits and
+    occlusions equal the SAH tree's, its t within 1e-6 relative on the
+    hits, another prim only on a tie (``bvh_prim_mismatches``: the same t
+    or a shared edge); each launch against its plain walk.  -> {"launches",
+    "worst"}."""
+    from gopbrt_tpu_torch import _build, native
+    from gopbrt_tpu_torch.models import meshes
+    from gopbrt_tpu_torch.ops import bvh
+
+    cpu, cores = host_cpu()
+    lo, hi = bvh._prim_bounds_np(meshes.mesh_builder())
+    for method in ("sah", "hlbvh"):
+        trees = []
+        for threads in (1, cores):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tree = native.bvh_build(lo, hi, bvh.MAX_LEAF, bvh.N_BUCKETS, threads, method)
+                times.append((time.perf_counter() - t0) * 1e3)
+            trees.append(tree)
+            phase("hlbvh", json.dumps({
+                "method": method, "prims": lo.shape[0], "threads": threads,
+                "host_build_ms": statistics.median(times), "nodes": tree[0].shape[0],
+                "host_cpu": cpu}))
+        if not all(np.array_equal(a, b) for a, b in zip(*trees)):
+            raise AssertionError(f"{method}: the tree depends on the build's threads")
+    scene = mesh["scene"]
+    sah = scene.bvh_tables
+    tree, used, method, build_ms = bvh.build_timed(lo, hi, backend="native", method="hlbvh")
+    if (used, method) != ("native", "hlbvh"):
+        raise AssertionError(f"asked for a native HLBVH, built {used} {method}")
+    hl = bvh.bvh_table(bvh.LinearBVH(*(t.to(dev) for t in tree)), scene.prims, used, build_ms)
+    same_sah = all(torch.equal(getattr(sah.bvh, f).cpu(), t) for f, t in zip(
+        bvh.LinearBVH._fields, bvh.build_from_bounds(lo, hi, backend="native")))
+    if not same_sah:
+        raise AssertionError("the scene's tree is not the native SAH build of its bounds")
+    o, d = mesh["band"][:2]
+    n = o.shape[0]
+    big = torch.full((n,), 1e30, device=dev)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    hs, t_s, p_s = bvh.bvh_intersect_fused(sah, o, d, big)
+    hh, t_h, p_h = bvh.bvh_intersect_fused(hl, o, d, big)
+    so, sd, st = shadow_rays(scene, o, d, t_s, hs)
+    occ_s = bvh.bvh_intersect_p_fused(sah, so, sd, st)
+    occ_h = bvh.bvh_intersect_p_fused(hl, so, sd, st)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    ids = bvh_prim_mismatches(hl, o, d, big, t_h, p_h, t_s, p_s, hs & hh)
+    t_rel = float(((t_h - t_s).abs() / t_s.abs().clamp(min=1e-30))[hs & hh].max())
+    out = {"launches": launches, "worst": {}}
+    walk_ms = {}
+    for label, tab in (("sah", sah), ("hlbvh", hl)):
+        for kind, args in (("bvh_intersect", (tab, o, d, big)),
+                           ("bvh_intersect_any", (tab, so, sd, st))):
+            agree, err, ids_k, _ = check_intersect_call(kind, *args)
+            check_agreement(f"{label} tree {kind}", agree, ids_k)
+            worst_of(out["worst"], kind, agree, err)
+            fused = bvh.bvh_intersect_fused if kind == "bvh_intersect" else bvh.bvh_intersect_p_fused
+            walk_ms[f"{label} {kind}"] = cuda_ms(lambda: fused(*args), reps=21)
+    phase("hlbvh", f"the mesh band {mesh['settings'].width}x{n // mesh['settings'].width} "
+          f"({n} camera rays, {int((st > 1e-3).sum())} shadow rays) through the BVH walk on "
+          f"the SAH tree ({sah.bvh.node_lo.shape[0]} nodes) and the HLBVH tree "
+          f"({tree.node_lo.shape[0]} nodes, built in {build_ms:.1f} host ms), launches "
+          f"{launches}: hits equal {bool(torch.equal(hs, hh))}, occlusions equal "
+          f"{bool(torch.equal(occ_s, occ_h))}, t max rel. diff on hits {t_rel:.3e}, prim ids "
+          f"{ids}; each launch against its plain walk: least agreement "
+          + ", ".join(f"{k} {v[0]:.6f}" for k, v in out["worst"].items())
+          + "; ms a launch " + ", ".join(f"{k} {v:.4f}" for k, v in walk_ms.items())
+          + f" ({device_name}, {power_limit})")
+    if not (torch.equal(hs, hh) and torch.equal(occ_s, occ_h) and t_rel <= 1e-6
+            and ids["untied"] == 0
+            and launches == {"bvh_intersect": 2, "bvh_intersect_any": 2}):
+        raise AssertionError("the HLBVH tree's walk differs from the SAH tree's")
+    return out
+
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+# the goldens' gates, tests/test_goldens.py:40-45: (mean abs diff, per-pixel
+# diff, the fraction of pixels within it), in sRGB
+TOLS = {
+    "config1_demo_direct": (1e-3, 5e-3, 0.995),
+    "config2_cornell_mirror": (5e-4, 5e-3, 0.995),
+    "config3_mesh_bvh": (1e-3, 5e-3, 0.995),
+    "config4_arealights_glass": (5e-4, 5e-3, 0.995),
+}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The plain versions of all five kernels on the card's tensors, in
+    place of the kernels, for the duration."""
+    from gopbrt_tpu_torch.ops import megakernel as mk
+    from gopbrt_tpu_torch.ops import mesh_megakernel as mm
+
+    def mega(scene, o, d, pixel, sample, seed, cfg, cone=None):
+        return mk.path_li_plain(scene, o, d, *mk.check_inputs(scene, o, d, pixel, sample),
+                                seed, cfg, cone=cone)
+
+    def mesh(scene, o, d, pixel, sample, seed, cfg, cone=None):
+        p, s = mk.check_inputs(scene, o, d, pixel, sample, mm.fits, mm._WHY)
+        return mk.path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone, accel="bvh")
+
+    saved = mk.path_li_fused, mm.mesh_li_fused
+    mk.path_li_fused, mm.mesh_li_fused = mega, mesh
+    try:
+        with plain_intersection(), plain_intersection("bvh"):
+            yield
+    finally:
+        mk.path_li_fused, mm.mesh_li_fused = saved
+
+
+def goldens_checks(dev, render, device_name: str, power_limit: str) -> dict:
+    """``[goldens]``: each golden config as its golden renders
+    (``gallery.golden_config``) through ``render.render`` on the card, the
+    counts set to 0 just before and read just after, against
+    ``tests/goldens/<name>.npz`` at TOLS, on its kernels (VAL_KERNELS).  A
+    config outside its gates prints its per-pixel error histogram and its
+    image against the same render on the plain versions.  Every config
+    runs; a failure raises after the last -> the launches of all four."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import gallery
+
+    total, failed = collections.Counter(), []
+    for name, (mean_tol, pix_tol, frac_tol) in TOLS.items():
+        ref = np.load(os.path.join(GOLDEN_DIR, name + ".npz"))["img"].astype(np.float32)
+        scene, camera, settings = gallery.golden_config(name, device=dev)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        img = render.render(scene, camera, settings, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        total.update(launches)
+        got = img.cpu().numpy()
+        diff = np.abs(got - ref) if got.shape == ref.shape else np.full(ref.shape, np.inf)
+        within = float((diff < pix_tol).mean())
+        ok = float(diff.mean()) < mean_tol and within > frac_tol
+        on_kernels = set(launches) == VAL_KERNELS[name]
+        phase("goldens", json.dumps({
+            "config": name, "size": f"{settings.width}x{settings.height}", "spp": settings.spp,
+            "depth": settings.max_depth, "mean_abs_diff": float(diff.mean()),
+            "mean_tol": mean_tol, "pixels_within": within, "pixel_tol": pix_tol,
+            "fraction_tol": frac_tol, "ok": ok, "render_ms": ms, "launches": launches,
+            "device": device_name, "power_limit": power_limit}))
+        if not ok:
+            edges = [0.0, 1e-4, 1e-3, 5e-3, 1e-2, 5e-2, np.inf]
+            hist, _ = np.histogram(diff.max(axis=-1), bins=edges)
+            with plain_kernels():
+                plain = render.render(scene, camera, settings, device=dev).cpu().numpy()
+            phase("goldens", f"{name}: per-pixel max abs diff to the golden by bin "
+                  f"{edges}: {hist.tolist()}; the plain versions' render: mean abs diff to "
+                  f"the golden {float(np.abs(plain - ref).mean()):.3e}, "
+                  f"{float((np.abs(got - plain) < pix_tol).mean()):.5f} of the kernels' "
+                  f"pixel channels within {pix_tol} of it")
+        if not (ok and on_kernels and bool(np.isfinite(got).all())):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"[goldens] failed for {failed}: outside tests/test_goldens.py's "
+                             f"TOLS, or not on the kernels {VAL_KERNELS}")
+    return dict(total)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     marks = [t_start]
@@ -2592,6 +2949,20 @@ def main() -> int:
     stamp("[cross-validate]")
     baseline_runs(mesh["scene"])
     stamp("[baseline]")
+    # the JAX package's last options: PathConfig's nee / mis on the demo (#2
+    # / #3) and the mesh (#4), null_passes on bounded media, the HLBVH
+    # build under #4, and the golden configs as their goldens render
+    gated = path_config_checks(dev, render, film_mod, (
+        ("demo", scene, camera, settings, "brute"),
+        ("mesh", mesh["scene"], mesh["cam"], mesh["settings"], "bvh")),
+        device_name, power_limit)
+    stamp("[path-config]")
+    nulls = null_passes_checks(dev, render, film_mod, device_name, power_limit)
+    stamp("[null-passes]")
+    hlbvh = hlbvh_checks(dev, mesh, device_name, power_limit)
+    stamp("[hlbvh]")
+    goldens = goldens_checks(dev, render, device_name, power_limit)
+    stamp("[goldens]")
     slice_launches = {}
     for counts in (grad_demo["launches"], grad_mesh["launches"], inverse["launches"]):
         for k, v in counts.items():
@@ -2657,6 +3028,15 @@ def main() -> int:
         row["launches_service"] = served.get(row["name"], 0)
         # the four golden configs' renders of [cross-validate]
         row["launches_cross_validate"] = crossed.get(row["name"], 0)
+        # the passes of [path-config] and [null-passes], the band of
+        # [hlbvh], the renders of [goldens]
+        row["launches_path_config"] = gated["launches"].get(row["name"], 0)
+        row["launches_null_passes"] = nulls["launches"].get(row["name"], 0)
+        row["launches_hlbvh"] = hlbvh["launches"].get(row["name"], 0)
+        row["launches_goldens"] = goldens.get(row["name"], 0)
+        for phase_worst in (gated["worst"], nulls["worst"], hlbvh["worst"]):
+            if row["name"] in phase_worst:
+                row["max_abs_err"] = max(row["max_abs_err"], phase_worst[row["name"]][1])
     line[0]["launches_families"] = {f: c.get("megakernel", 0) for f, c in fam["launches"].items()}
     line[0]["max_abs_err"] = max(line[0]["max_abs_err"], opts["worst"][1],
                                  fam["worst"]["megakernel"][1])

@@ -78,6 +78,8 @@ class PathConfig(NamedTuple):
     max_depth: int = 5
     rr_threshold: float = 1.0
     rr_start_depth: int = 3  # RR after 3 bounces (path.go:143-153)
+    nee: bool = True  # next-event estimation at every vertex
+    mis: bool = True  # BSDF-sampled emitter hits weighted against NEE
     # wavefront compaction: each bounce sorts the live lanes to the front
     # and runs only ceil(live / chunk_size) chunks of chunk_size lanes
     # (_li_compacted); one host sync a bounce; not differentiable
@@ -85,12 +87,9 @@ class PathConfig(NamedTuple):
     chunk_size: int = 1 << 18
     # stop the bounce loop once every lane is dead
     early_exit: bool = False
-
-
-# the null-boundary crossings a bounce, or a shadow ray, walks through
-# (path.go:72-78; the reference's PathConfig.null_passes, which nothing
-# sets); only scenes with a null material walk
-NULL_PASSES = 2
+    # the null-boundary crossings a bounce, or a shadow ray, walks through
+    # (path.go:72-78); only scenes with a null material walk
+    null_passes: int = 2
 
 
 class _Sampler:
@@ -528,14 +527,17 @@ def _scene_time(scene, time):
     return time if scene.prims.anim is not None else None
 
 
-def _emitted_mis(scene, st: PathState, hit, prim_idx, si, beta, all_lights=False):
+def _emitted_mis(scene, st: PathState, hit, prim_idx, si, beta, all_lights=False,
+                 mis=True):
     """Emitted radiance at the hits, MIS-weighted: camera and specular rays
     get weight 1 (path.go:48-63); BSDF rays the power-heuristic complement
     of NEE (integrator.go:133-192), their light's pick pmf read at the ray
-    origin.  all_lights: every light is sampled at every vertex (pmf 1)."""
+    origin.  all_lights: every light is sampled at every vertex (pmf 1).
+    mis=False (``PathConfig.mis``): BSDF rays get weight 0
+    (integrators.py:801-816)."""
     le, hit_light = light_ops.le_emitted(scene.lights, scene.prims.area_light_id,
                                          prim_idx, si.n, si.wo)
-    if scene.n_lights > 0:
+    if mis and scene.n_lights > 0:
         lid = torch.clamp(hit_light, min=0)
         l_pdf = light_ops.pdf_li(scene.lights, lid, st.o, st.d)
         pick_pmf = (torch.ones_like(l_pdf) if all_lights
@@ -596,9 +598,10 @@ def _features(scene) -> _Features:
                      scene.prims.medium_inside is not None)
 
 
-def _segments(scene, feat: _Features, sampler: _Sampler, dim_base: int, st: PathState):
+def _segments(scene, cfg: PathConfig, feat: _Features, sampler: _Sampler, dim_base: int,
+              st: PathState):
     """The hit search of a bounce with media or null boundaries
-    (integrators.py:678-776): up to 1 + NULL_PASSES closest-hit
+    (integrators.py:678-776): up to 1 + ``cfg.null_passes`` closest-hit
     segments, stepping through null boundaries (switching the medium per
     the interface), each with a sampled scattering distance in the lane's
     medium and the per-channel MIS throughput.  -> (hit, scatter, t,
@@ -607,7 +610,7 @@ def _segments(scene, feat: _Features, sampler: _Sampler, dim_base: int, st: Path
     n = st.o.shape[0]
     dev = st.o.device
     prims = scene.prims
-    n_seg = 1 + (NULL_PASSES if feat.has_null else 0)
+    n_seg = 1 + (cfg.null_passes if feat.has_null else 0)
     o_cur, d_ray, mid_cur, walking, beta = st.o, st.d, st.medium, st.alive, st.beta
     hit = torch.zeros((n,), dtype=torch.bool, device=dev)
     scatter = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -681,7 +684,12 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     vertices, which are spliced into the wavefront (their lobe the HG
     phase function, their next direction HG-sampled).  Bump mapping and
     the BSSRDF's probe transport run where the scene has them; a
-    refraction through an interface switches the lane's medium.
+    refraction through an interface switches the lane's medium.  NEE runs
+    where ``cfg.nee`` (integrators.py:869); ``cfg.mis`` gates the emitter
+    hits' MIS weight (``_emitted_mis``).  The reference's gates as they
+    are: with nee off and mis on, BSDF-sampled emitter hits keep the
+    power-heuristic weight while NEE adds nothing, so the estimate is low;
+    with both off only camera and specular rays see emitters.
 
     The detached-sampling estimator of the reference: the hit search, the
     sampled distance, the sampled direction, its pdf in the throughput and
@@ -695,7 +703,7 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     mid_cur = st.medium
     if feat.has_null or feat.any_medium:
         hit, scatter, t, prim_idx, o_eff, beta_in, p_med, mid_cur = _segments(
-            scene, feat, sampler, dim_base, st)
+            scene, cfg, feat, sampler, dim_base, st)
         if not feat.any_medium:
             scatter = None
         alive = st.alive & (hit if scatter is None else hit | scatter)
@@ -714,7 +722,7 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
     phase_g = media_ops.table_lookup(scene.media, mid_cur)[2] if feat.use_tab else None
 
     # a medium vertex is no emitter hit: ``hit`` excludes it
-    L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, beta_in)
+    L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, beta_in, mis=cfg.mis)
 
     si = _apply_bump(scene, si)
     fw_hit, fw_surf = _footprint(st, cone_spread, t, si)
@@ -733,10 +741,11 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
         si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive, sampler,
                                                      dim_base, st.time)
     ss, ts, ns = _shading_frame(si)
-    L = L + beta0 * _estimate_direct(
-        scene, si, mp, ss, ts, ns, alive, sampler, dim_base, medium_scatter=scatter,
-        phase_g=phase_g, medium_ids=mid_cur if feat.use_tab else None,
-        null_passes=NULL_PASSES if feat.has_null else 0, time=st.time)
+    if cfg.nee:
+        L = L + beta0 * _estimate_direct(
+            scene, si, mp, ss, ts, ns, alive, sampler, dim_base, medium_scatter=scatter,
+            phase_g=phase_g, medium_ids=mid_cur if feat.use_tab else None,
+            null_passes=cfg.null_passes if feat.has_null else 0, time=st.time)
 
     bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
     wi_w = wi_w.detach()
@@ -964,11 +973,12 @@ def li(scene, o: torch.Tensor, d: torch.Tensor, pixel, sample, seed,
     fast-path set, up to the brute-force cutoff, run the bounce megakernel
     (integrators.py:103-120); mesh fast-path scenes above it with a BVH run
     the mesh megakernel (:123-141); both need a static scene and neither
-    compaction nor ``early_exit``.  Every other run takes the
+    compaction nor ``early_exit``, and NEE with MIS (``cfg.nee`` and
+    ``cfg.mis``), which the kernels bake in.  Every other run takes the
     general wavefront loop (integrators.py:1059-1069).
     """
     fi = scene.fastinfo
-    if (fi is not None and scene.prims.anim is None
+    if (fi is not None and scene.prims.anim is None and cfg.nee and cfg.mis
             and not cfg.compaction and not cfg.early_exit):
         if fi.ok and scene.prims.count <= BRUTE_FORCE_CUTOFF:
             return megakernel.path_li_fused(scene, o, d, pixel, sample, seed, cfg,

@@ -107,6 +107,14 @@ def build_mesh_scene(n_lat: int = 72, n_lon: int = 72, accelerator: str = "bvh",
     mesh_material: "plastic" (the config), or "metal", which the mesh
     megakernel does not take, so the same scene runs the general wavefront
     chain with the BVH intersection kernels."""
+    return mesh_builder(n_lat, n_lon, mesh_material).build(accelerator=accelerator,
+                                                           device=device)
+
+
+def mesh_builder(n_lat: int = 72, n_lon: int = 72,
+                 mesh_material: str = "plastic") -> SceneBuilder:
+    """The SceneBuilder of ``build_mesh_scene``, before its build (its
+    prims' bounds: ``ops/bvh._prim_bounds_np``)."""
     b = SceneBuilder()
     verts, idx = uv_sphere(n_lat, n_lon, radius=1.0)
     if mesh_material == "plastic":
@@ -126,7 +134,7 @@ def build_mesh_scene(n_lat: int = 72, n_lon: int = 72, accelerator: str = "bvh",
     dark = b.matte(kd=(0.0, 0.0, 0.0))
     lamp = b.sphere(np.asarray(geom.translate([-3.0, 4.0, 2.0])), 0.6, dark)
     b.area_light(lamp, radiance=(24.0, 22.0, 18.0), two_sided=False)
-    return b.build(accelerator=accelerator, device=device)
+    return b
 
 
 def mesh_camera(width: int, height: int, device=None) -> cam_mod.Camera:

@@ -600,7 +600,7 @@ class SceneBuilder:
                      fastinfo=asdict(self._fast_path_info(o2w)),
                      camera_medium=self._camera_medium)
         if accelerator == "bvh" and n > 4:
-            tree, backend, ms = bvh_ops.build_timed(*bvh_ops._prim_bounds_np(self))
+            tree, backend, _, ms = bvh_ops.build_timed(*bvh_ops._prim_bounds_np(self))
             arrays.update({f"bvh.{f}": getattr(tree, f).numpy() for f in tree._fields})
             infos["bvh_build"] = {"backend": backend, "build_ms": ms}
         return scene_from_arrays(arrays, infos, device)

@@ -7,7 +7,9 @@ packages build the same tree from the same bounds.  The library builds at
 first use into ``build/gopbrt_tpu_torch/native/<hash of the source>/`` at
 the root of the checkout.  Where no C++ compiler is found, ``bvh_build``
 returns None and ``ops/bvh.build_from_bounds`` falls back to its NumPy
-builder (``backend="auto"``) or raises (``backend="native"``).
+builder (``backend="auto"``) or raises (``backend="native"``).  The
+builder's methods are binned SAH and HLBVH (``method``), on ``n_threads``
+threads (0: the host's cores).
 """
 
 from __future__ import annotations
@@ -26,9 +28,8 @@ from gopbrt_tpu_torch._build import BUILD_ROOT
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bvh_builder.cpp")
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
-# gopbrt_bvh_build's n_threads (0: the source picks) and method (0: SAH)
-_DEFAULT_THREADS = 0
-_METHOD_SAH = 0
+# gopbrt_bvh_build's method argument
+METHODS = {"sah": 0, "hlbvh": 1}
 
 _F, _I = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
 
@@ -64,11 +65,19 @@ def load() -> Optional[ctypes.CDLL]:
     return lib
 
 
-def bvh_build(lo: np.ndarray, hi: np.ndarray, max_leaf: int = 4, n_buckets: int = 12):
-    """Build a flat binned-SAH BVH natively -> (node_lo, node_hi,
-    node_right, node_first, node_count, node_axis, prim_order) NumPy
-    arrays, or None where the library is unavailable.  The source's HLBVH
-    method and thread count stay at the SAH build and their defaults."""
+def bvh_build(lo: np.ndarray, hi: np.ndarray, max_leaf: int = 4, n_buckets: int = 12,
+              n_threads: int = 0, method: str = "sah"):
+    """Build a flat BVH natively -> (node_lo, node_hi, node_right,
+    node_first, node_count, node_axis, prim_order) NumPy arrays, or None
+    where the library is unavailable.
+
+    method: "sah" (binned SAH, bvh.go:272-411) or "hlbvh" (Morton radix
+    sort, treelets built in parallel, an SAH over them, bvh.go:413-630; at
+    most 4 prims build SAH, as the source does).  Any other method raises,
+    where the reference's binding builds SAH.  n_threads: the build's
+    threads, 0 for the host's cores."""
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {sorted(METHODS)}, got {method!r}")
     lib = load()
     if lib is None:
         return None
@@ -89,8 +98,8 @@ def bvh_build(lo: np.ndarray, hi: np.ndarray, max_leaf: int = 4, n_buckets: int 
     def ip(a):
         return a.ctypes.data_as(_I)
 
-    n_nodes = lib.gopbrt_bvh_build(fp(lo), fp(hi), n, max_leaf, n_buckets, _DEFAULT_THREADS,
-                                   _METHOD_SAH, fp(node_lo), fp(node_hi),
+    n_nodes = lib.gopbrt_bvh_build(fp(lo), fp(hi), n, max_leaf, n_buckets, n_threads,
+                                   METHODS[method], fp(node_lo), fp(node_hi),
                                    *(ip(a) for a in ints), ip(order))
     if n_nodes <= 0:
         return None

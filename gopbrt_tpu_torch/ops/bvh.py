@@ -1,11 +1,11 @@
-"""BVH: the host SAH build, the packed tables, the plain walk and the
-wrappers of the BVH intersection kernels.
+"""BVH: the host build (SAH or HLBVH), the packed tables, the plain walk
+and the wrappers of the BVH intersection kernels.
 
 Counterpart of ``gopbrt_tpu/ops/bvh.py`` and of the TPU cluster kernel
 ``gopbrt_tpu/ops/pallas_cluster.py``.  The build runs on the host at scene
-load: the native C++ builder (``gopbrt_tpu_torch/native``) or, as the
-plain version, the NumPy binned-SAH builder, both giving the flattened
-depth-first ``LinearBVH`` (bvh.go:80-87, 632-651).
+load: the native C++ builder (``gopbrt_tpu_torch/native``; binned SAH or
+HLBVH) or, as the plain version, the NumPy binned-SAH builder, both giving
+the flattened depth-first ``LinearBVH`` (bvh.go:80-87, 632-651).
 
 The cluster kernel stands in for a stack walk because the TPU has no
 per-lane branching.  On the card the walk itself is the kernel
@@ -91,31 +91,39 @@ def _prim_bounds_np(builder) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(los, np.float32), np.asarray(his, np.float32)
 
 
-def build_from_bounds(lo: np.ndarray, hi: np.ndarray, backend: str = "auto") -> LinearBVH:
-    """Build the flat binned-SAH BVH (host tensors).  backend: "auto"
-    prefers the native C++ builder and falls back to NumPy; "native" /
-    "numpy" force one."""
-    return build_timed(lo, hi, backend)[0]
+def build_from_bounds(lo: np.ndarray, hi: np.ndarray, backend: str = "auto",
+                      method: str = "sah") -> LinearBVH:
+    """Build the flat BVH (host tensors).  backend: "auto" prefers the
+    native C++ builder and falls back to NumPy; "native" / "numpy" force
+    one.  method: "sah" (binned SAH) or "hlbvh" (native only, as in the
+    reference: "numpy" raises, and "auto" without the native library
+    builds SAH; ``build_timed`` says which was built)."""
+    return build_timed(lo, hi, backend, method)[0]
 
 
-def build_timed(lo: np.ndarray, hi: np.ndarray,
-                backend: str = "auto") -> tuple[LinearBVH, str, float]:
-    """``build_from_bounds`` -> (tree, the backend that built it, build ms)."""
+def build_timed(lo: np.ndarray, hi: np.ndarray, backend: str = "auto",
+                method: str = "sah") -> tuple[LinearBVH, str, str, float]:
+    """``build_from_bounds`` -> (tree, the backend that built it, the method
+    it built, build ms)."""
+    from gopbrt_tpu_torch import native
+
+    if method not in native.METHODS:
+        raise ValueError(f"unknown BVH method {method!r}")
+    if backend == "numpy" and method != "sah":
+        raise ValueError(f"the NumPy builder builds SAH only, not {method!r}")
     t0 = time.perf_counter()
     if backend in ("auto", "native"):
-        from gopbrt_tpu_torch import native
-
         out = native.bvh_build(np.asarray(lo, np.float32), np.asarray(hi, np.float32),
-                               max_leaf=MAX_LEAF, n_buckets=N_BUCKETS)
+                               max_leaf=MAX_LEAF, n_buckets=N_BUCKETS, method=method)
         if out is not None:
             bvh = LinearBVH(*(torch.as_tensor(a) for a in out))
-            return bvh, "native", (time.perf_counter() - t0) * 1e3
+            return bvh, "native", method, (time.perf_counter() - t0) * 1e3
         if backend == "native":
             raise RuntimeError("native BVH builder unavailable (no C++ toolchain?)")
     elif backend != "numpy":
         raise ValueError(f"unknown BVH backend {backend!r}")
     bvh = _build_from_bounds_numpy(lo, hi)
-    return bvh, "numpy", (time.perf_counter() - t0) * 1e3
+    return bvh, "numpy", "sah", (time.perf_counter() - t0) * 1e3
 
 
 def _build_from_bounds_numpy(lo: np.ndarray, hi: np.ndarray) -> LinearBVH:

@@ -653,6 +653,7 @@ def path_li_plain(scene, o, d, pixel, sample, seed, cfg, cone=None,
 
     if accel not in ("brute", "bvh"):
         raise ValueError(f"accel must be 'brute' or 'bvh', got {accel!r}")
+    check_cfg(cfg)
     hits = _BVHScene(scene) if accel == "bvh" else _BruteScene(scene)
     any_tri = TRIANGLE in scene.prims.types
     any_plastic = hits.plastic and bool((scene.materials.mat_type == PLASTIC).any())
@@ -1266,6 +1267,16 @@ def check_inputs(scene, o, d, pixel, sample, scene_fits=fits,
     return pixel, sample
 
 
+def check_cfg(cfg) -> None:
+    """The kernels (and ``path_li_plain``, their plain version) bake in NEE
+    with MIS: a cfg with ``nee`` or ``mis`` off is refused, as the
+    reference's gates send it to the wavefront chain
+    (integrators.py:116-117, 137-138)."""
+    if not (cfg.nee and cfg.mis):
+        raise ValueError(f"the megakernels trace NEE with MIS; nee={cfg.nee}, mis={cfg.mis} "
+                         "runs the wavefront chain (integrators.li)")
+
+
 def check_launch(o, d, out):
     """What a launch needs of the rays and the output buffer."""
     if o.device.type != "cuda":
@@ -1281,6 +1292,7 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     that launches the kernel on the current stream, writing radiance into
     ``out`` (f32[N,3], on the card), and counts the launch."""
     pixel, sample = check_inputs(scene, o, d, pixel, sample)
+    check_cfg(cfg)
     check_launch(o, d, out)
 
     fn = _build.load().gopbrt_path_li
@@ -1373,8 +1385,10 @@ def path_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Ten
     stream; CPU tensors run ``path_li_plain``.  cone: optional
     (width0, spread) ray-cone floats enabling the checker box filter.  The
     result carries a gradient to o, d and the scene's float tensors where
-    they need one, by path replay (``replayed``).
+    they need one, by path replay (``replayed``).  A cfg with nee or mis
+    off raises (``check_cfg``).
     """
+    check_cfg(cfg)
     if o.device.type == "cpu":
         def run():
             p, s = check_inputs(scene, o, d, pixel, sample)

@@ -97,6 +97,7 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     that launches the kernel on the current stream, writing radiance into
     ``out`` (f32[N,3], on the card), and counts the launch."""
     pixel, sample = mk.check_inputs(scene, o, d, pixel, sample, fits, _WHY)
+    mk.check_cfg(cfg)
     mk.check_launch(o, d, out)
     mt, bt = tables_for(scene), scene.bvh_tables
     fn = _build.load("mesh_megakernel").gopbrt_mesh_li
@@ -134,7 +135,9 @@ def mesh_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Ten
     filter.  The result carries a gradient by path replay
     (``megakernel.replayed``, pallas_mesh_megakernel.py:1521-1556): the
     forward reads the build's material rows, the replay ``scene.materials``,
-    as in the reference."""
+    as in the reference.  A cfg with nee or mis off raises
+    (``megakernel.check_cfg``)."""
+    mk.check_cfg(cfg)
     if o.device.type == "cpu":
         def run():
             p, s = mk.check_inputs(scene, o, d, pixel, sample, fits, _WHY)

@@ -5,16 +5,18 @@ Data crosses between the packages as NumPy arrays only.
 
 from __future__ import annotations
 
+import time
 from dataclasses import asdict
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gopbrt_tpu.models import camera as jcam
 from gopbrt_tpu.models import render as jrender
 from gopbrt_tpu_torch.models.scene import (ARRAY_FIELDS, OPTIONAL_FIELDS, OPTIONAL_GROUPS,
-                                           scene_from_arrays, table_of)
+                                           scene_from_arrays, scene_to_arrays, table_of)
 
 
 def jax_scene_arrays(scene) -> dict:
@@ -36,6 +38,54 @@ def jax_scene_arrays(scene) -> dict:
 def jax_scene_infos(scene) -> dict:
     return dict(pinfo=asdict(scene.prims.pinfo), minfo=asdict(scene.materials.info),
                 fastinfo=asdict(scene.fastinfo), camera_medium=scene.camera_medium)
+
+
+def jax_bvh_backend() -> str:
+    """The builder that the JAX package's ``build_from_bounds(backend="auto")``
+    uses in this process: "native" where its loader loaded the library,
+    else "numpy".  The loader compiles straight to the library's final
+    path, so under xdist a worker can load a file another worker is still
+    writing; its failure then sticks for the process
+    (gopbrt_tpu/native/__init__.py:44-98) and every JAX tree it builds is
+    NumPy's."""
+    from gopbrt_tpu import native as jnative
+
+    return "native" if jnative.available() else "numpy"
+
+
+def match_bvh_backend(monkeypatch) -> str:
+    """Make the port's builders build with the JAX side's backend for the
+    rest of the test (the NumPy builder: its native library reported
+    missing) -> that backend.  A test that compares the two builders'
+    trees asserts the port's ``bvh_tables.backend`` equals it first."""
+    backend = jax_bvh_backend()
+    if backend == "numpy":
+        from gopbrt_tpu_torch import native as tnative
+
+        monkeypatch.setattr(tnative, "load", lambda: None)
+    return backend
+
+
+@pytest.fixture
+def bvh_backend(monkeypatch) -> str:
+    """``match_bvh_backend`` as a fixture."""
+    return match_bvh_backend(monkeypatch)
+
+
+def load_jax_native(tries: int = 40, wait_s: float = 0.25) -> bool:
+    """Whether the reference's native builder is loaded in this process,
+    loading it again where its loader failed: the library a racing worker
+    was writing is complete once it loads, so the loader's failure flag is
+    cleared and ``load()`` called again, at most ``tries`` times ``wait_s``
+    apart."""
+    from gopbrt_tpu import native as jnative
+
+    for _ in range(tries):
+        if jnative.load() is not None:
+            return True
+        time.sleep(wait_s)
+        jnative._lib_failed = False
+    return jnative.load() is not None
 
 
 def carry(scene):
@@ -66,6 +116,16 @@ def assert_tables_equal(got: dict, want: dict, rtol: float = 0.0):
             np.testing.assert_array_equal(g.astype(np.float32), w, err_msg=k)
         else:
             np.testing.assert_allclose(g, w, rtol=rtol, atol=0.0, err_msg=k)
+
+
+def assert_builder_tables_equal(got, want, backend: str, rtol: float = 1e-6):
+    """The port builder's Scene ``got`` against the JAX builder's ``want``,
+    table for table (``assert_tables_equal``); where the port built a tree,
+    first that it built it with ``backend``, the JAX side's
+    (``match_bvh_backend``)."""
+    if got.bvh_tables is not None:
+        assert got.bvh_tables.backend == backend, (got.bvh_tables.backend, backend)
+    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=rtol)
 
 
 def rough_glass_scene(builder_cls, geom):

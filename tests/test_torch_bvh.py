@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_tables_equal, carry, jax_scene_arrays
+from _torch_parity import (assert_tables_equal, bvh_backend, carry,  # noqa: F401
+                           jax_scene_arrays, load_jax_native)
 from gopbrt_tpu.models import meshes as jmeshes
 from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
 from gopbrt_tpu.ops import bvh as jbvh
@@ -73,14 +74,18 @@ def test_builders_match_jax_array_for_array(name, backend):
     """The prims' world bounds, then the tree of each builder."""
     if backend == "native" and tnative.load() is None:
         pytest.skip("no C++ compiler for the native builder on this machine")
+    if backend == "native":
+        # the reference's loader may have failed in this worker (a library
+        # another worker was still writing): load it again once complete
+        assert load_jax_native(), "the JAX package's native builder does not load"
     jb, tb = _builders(name)
     jlo, jhi = jbvh._prim_bounds_np(jb)
     tlo, thi = tbvh._prim_bounds_np(tb)
     np.testing.assert_array_equal(tlo, jlo)
     np.testing.assert_array_equal(thi, jhi)
     want = jbvh.build_from_bounds(jlo, jhi, backend=backend)
-    got, used, ms = tbvh.build_timed(tlo, thi, backend=backend)
-    assert used == backend and ms > 0.0
+    got, used, method, ms = tbvh.build_timed(tlo, thi, backend=backend)
+    assert used == backend and method == "sah" and ms > 0.0
     assert got.prim_order.shape == (jlo.shape[0],)
     for f in tbvh.LinearBVH._fields:
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
@@ -93,6 +98,78 @@ def test_unknown_backend_raises():
         tbvh.build_from_bounds(lo, lo + 1.0, backend="cuda")
 
 
+def _native_bvh_case(case):
+    """tests/test_native_bvh.py's inputs: the bounds of its random sphere
+    scenes of n prims (seed n), or its 37 prims with one centroid."""
+    from tests.test_bvh import prim_bounds, random_sphere_scene
+
+    if case == "duplicate":
+        lo = np.zeros((37, 3), np.float32)
+        return lo, np.ones((37, 3), np.float32)
+    return prim_bounds(random_sphere_scene(case, seed=case))
+
+
+@pytest.mark.parametrize("case", [1, 2, 5, 64, 333, "duplicate"])
+def test_hlbvh_matches_jax_array_for_array(case):
+    """The native HLBVH build (Morton radix sort, treelets, an SAH over
+    them; SAH at <= 4 prims, as the source does) gives the JAX package's
+    tree array for array."""
+    if tnative.load() is None:
+        pytest.skip("no C++ compiler for the native builder on this machine")
+    assert load_jax_native(), "the JAX package's native builder does not load"
+    lo, hi = _native_bvh_case(case)
+    want = jbvh.build_from_bounds(lo, hi, backend="native", method="hlbvh")
+    got, used, method, _ = tbvh.build_timed(lo, hi, backend="native", method="hlbvh")
+    assert (used, method) == ("native", "hlbvh")
+    for f in tbvh.LinearBVH._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("method", ["sah", "hlbvh"])
+def test_native_tree_does_not_depend_on_the_thread_count(method):
+    """One thread builds the tree every host core builds, array for array:
+    on the 16x16 mesh scene's 482 prims and the 10,224-triangle mesh
+    scene's 10,226."""
+    if tnative.load() is None:
+        pytest.skip("no C++ compiler for the native builder on this machine")
+    for b in (tmeshes.mesh_builder(16, 16), tmeshes.mesh_builder()):
+        lo, hi = tbvh._prim_bounds_np(b)
+        one = tnative.bvh_build(lo, hi, n_threads=1, method=method)
+        every = tnative.bvh_build(lo, hi, method=method)
+        for f, x, y in zip(tbvh.LinearBVH._fields, one, every):
+            np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("backend, method, error", [
+    ("numpy", "hlbvh", "SAH only"), ("auto", "octree", "method"),
+    ("native", "octree", "method"), ("numpy", "octree", "method")])
+def test_build_refuses_an_unknown_or_unbuildable_method(backend, method, error):
+    lo = np.zeros((8, 3), np.float32)
+    with pytest.raises(ValueError, match=error):
+        tbvh.build_from_bounds(lo, lo + 1.0, backend=backend, method=method)
+
+
+def test_native_binding_refuses_an_unknown_method():
+    lo = np.zeros((8, 3), np.float32)
+    with pytest.raises(ValueError, match="method"):
+        tnative.bvh_build(lo, lo + 1.0, method="octree")
+
+
+def test_hlbvh_without_the_library_builds_sah_and_says_so(monkeypatch):
+    """backend="auto" where the native library is missing builds NumPy's
+    SAH tree, as the reference does; build_timed reports it."""
+    monkeypatch.setattr(tnative, "load", lambda: None)
+    lo, hi = _native_bvh_case(64)
+    got, used, method, _ = tbvh.build_timed(lo, hi, method="hlbvh")
+    assert (used, method) == ("numpy", "sah")
+    want = tbvh.build_from_bounds(lo, hi, backend="numpy")
+    for f in tbvh.LinearBVH._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(RuntimeError, match="unavailable"):
+        tbvh.build_from_bounds(lo, hi, backend="native", method="hlbvh")
+
+
 @pytest.fixture(scope="module")
 def mesh():
     js = jmeshes.build_mesh_scene(n_lat=16, n_lon=16)
@@ -100,16 +177,19 @@ def mesh():
     return js, carry(js)
 
 
-def test_mesh_scene_builds_and_carries_the_jax_tree(mesh):
-    """The port's builder gives the JAX scene's tables, the tree included;
-    scene_from_arrays carries a JAX-built tree across exactly and packs the
-    walk's and the mesh kernel's tables."""
+def test_mesh_scene_builds_and_carries_the_jax_tree(mesh, bvh_backend):
+    """The port's builder gives the JAX scene's tables, the tree included,
+    each side's tree built by the builder the JAX side uses in this process
+    (its scene built here, after ``bvh_backend`` read which); scene_from_arrays
+    carries a JAX-built tree across exactly and packs the walk's and the
+    mesh kernel's tables."""
     js, ts = mesh
     got = tmeshes.build_mesh_scene(n_lat=16, n_lon=16, device="cpu")
-    want = jax_scene_arrays(js)
+    want = jax_scene_arrays(jmeshes.build_mesh_scene(n_lat=16, n_lon=16))
     assert "bvh.node_lo" in want
+    assert got.bvh_tables.backend == bvh_backend
     assert_tables_equal(scene_to_arrays(got), want, rtol=1e-6)
-    assert_tables_equal(scene_to_arrays(ts), want)
+    assert_tables_equal(scene_to_arrays(ts), jax_scene_arrays(js))
     for s in (got, ts):
         assert s.prims.count == 482 and s.fastinfo.mesh_ok and not s.fastinfo.ok
         assert s.bvh_tables.records.shape == (482, tbvh.REC_K)

@@ -2,11 +2,13 @@
 hold (config 1: test_torch_direct.py; config 3: test_torch_mesh.py),
 rendered by the port's plain path on the CPU at the goldens' own settings:
 
-- configs 2 and 4 at gallery.GOLDEN_SETTINGS (128x128, 64 spp), at the
-  gates of tests/test_goldens.TOLS;
+- configs 2 and 4 at the port's gallery.golden_config (GOLDEN_SETTINGS:
+  128x128, 64 spp), at the gates of tests/test_goldens.TOLS;
 - the demo developed with the reference's WriteImage semantics
   (``compat_go=True``) at 96x54, 4 spp, depth 5, seed 2, at that test's
-  gates (mean 1e-3, 0.995 of pixels within 5e-3).
+  gates (mean 1e-3, 0.995 of pixels within 5e-3);
+
+and the port's GOLDEN_SETTINGS / golden_config against the JAX gallery's.
 """
 
 import os
@@ -14,7 +16,7 @@ import os
 import numpy as np
 import pytest
 
-from gopbrt_tpu.models.gallery import GOLDEN_SETTINGS
+from gopbrt_tpu.models import gallery as jgallery
 from gopbrt_tpu_torch.models import demo as tdemo
 from gopbrt_tpu_torch.models import film as tfilm
 from gopbrt_tpu_torch.models import gallery as tgallery
@@ -28,9 +30,7 @@ def _golden(name: str) -> np.ndarray:
 
 @pytest.mark.parametrize("name", ["config2_cornell_mirror", "config4_arealights_glass"])
 def test_render_matches_its_golden(name):
-    ov = GOLDEN_SETTINGS[name]
-    scene, cam, settings = tgallery.CONFIGS[name](ov["width"], ov["height"], device="cpu")
-    settings = settings._replace(spp=ov["spp"], samples_per_pass=ov["samples_per_pass"])
+    scene, cam, settings = tgallery.golden_config(name, device="cpu")
     ref = _golden(name)
     img = trender.render(scene, cam, settings, device="cpu").numpy()
     assert img.shape == ref.shape
@@ -54,3 +54,19 @@ def test_compat_go_demo_matches_its_golden():
     diff = np.abs(img - ref)
     assert diff.mean() < 1e-3, f"mean drift {diff.mean():.2e}"
     assert (diff < 5e-3).mean() > 0.995, f"pixels off: {(diff >= 5e-3).mean():.4f}"
+
+
+def test_golden_settings_match_jax():
+    assert tgallery.GOLDEN_SETTINGS == jgallery.GOLDEN_SETTINGS
+
+
+@pytest.mark.parametrize("name", sorted(jgallery.CONFIGS))
+def test_golden_config_matches_jax(name):
+    """The settings, field for field (the filter's too); the scenes are the
+    configs' builders, which the builder tests hold."""
+    want = jgallery.golden_config(name)[2]
+    got = tgallery.golden_config(name, device="cpu")[2]
+    assert got._fields == want._fields
+    for f in want._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert (tuple(g) == tuple(w)) if f == "filter" else (g == w), f

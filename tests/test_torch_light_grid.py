@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (as_torch, assert_tables_equal, camera_rays, carry,
+from _torch_parity import (as_torch, assert_builder_tables_equal,  # noqa: F401
+                           assert_tables_equal, bvh_backend, camera_rays, carry,
                            jax_scene_arrays, lane_agreement)
 from gopbrt_tpu.models import camera as jcam
 from gopbrt_tpu.models import demo as jdemo
@@ -69,14 +70,14 @@ def _grid_scene(builder_cls, geom, **kw):
 
 
 @pytest.mark.parametrize("name", ["two_lights", "spatial_lights"])
-def test_light_grid_tables_match_jax(name):
+def test_light_grid_tables_match_jax(name, bvh_backend):
     if name == "two_lights":
         want = _grid_scene(JaxBuilder, jgeom)
         got = _grid_scene(SceneBuilder, tgeom, device="cpu")
     else:
         want = _bench_families().spatial_lights()[0]
         got = gallery.spatial_lights(W, H, device="cpu")[0]
-    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
+    assert_builder_tables_equal(got, want, bvh_backend)
     g = got.light_grid
     v = int(np.prod(g.dims.numpy()))
     assert g.func.shape == (v, got.n_lights) and g.cdf.shape == (v, got.n_lights + 1)

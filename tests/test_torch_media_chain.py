@@ -32,15 +32,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (as_torch, assert_tables_equal, camera_rays, carry,
-                           jax_scene_arrays, jax_scene_infos, lane_agreement)
+from _torch_parity import (as_torch, assert_builder_tables_equal,  # noqa: F401
+                           bvh_backend, camera_rays, carry, jax_scene_infos,
+                           lane_agreement)
 from gopbrt_tpu.models import camera as jcam
 from gopbrt_tpu.models import integrators as jint
 from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
 from gopbrt_tpu.ops import geom as jgeom
 from gopbrt_tpu_torch.models import gallery
 from gopbrt_tpu_torch.models import integrators as tint
-from gopbrt_tpu_torch.models.scene import SceneBuilder, scene_to_arrays
+from gopbrt_tpu_torch.models.scene import SceneBuilder
 from gopbrt_tpu_torch.ops import geom as tgeom
 
 W, H = 48, 27
@@ -139,7 +140,7 @@ def _rays(view, width=W, height=H):
 
 @pytest.mark.parametrize("name", ["bounded_media", "global_fog", "sss", "bump",
                                   "glass_shell"])
-def test_builder_tables_match_jax(name):
+def test_builder_tables_match_jax(name, bvh_backend):
     """Ints exact, floats within 1e-6 relative, static facts equal; the
     fast path off."""
     if name in FAMILY_VIEWS:
@@ -150,7 +151,7 @@ def test_builder_tables_match_jax(name):
         build = SMALL[name][0]
         want = build(JaxBuilder, jgeom).build(accelerator="none")
         got = build(SceneBuilder, tgeom).build(accelerator="none", device="cpu")
-    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
+    assert_builder_tables_equal(got, want, bvh_backend)
     infos = jax_scene_infos(want)
     assert got.materials.info.mat_types == tuple(infos["minfo"]["mat_types"])
     assert got.camera_medium == want.camera_medium

@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import as_torch, camera_rays, carry, jax_scene_arrays, lane_agreement
+from _torch_parity import (as_torch, bvh_backend, camera_rays, carry,  # noqa: F401
+                           jax_scene_arrays, lane_agreement)
 from gopbrt_tpu.models import camera as jcam
 from gopbrt_tpu.models import integrators as jint
 from gopbrt_tpu.models import render as jrender
@@ -157,9 +158,13 @@ def _camera(mod, geom, **kw):
 
 
 @pytest.mark.parametrize("n_fill", [0, 70])
-def test_animated_builder_tables_match_jax(n_fill):
+def test_animated_builder_tables_match_jax(n_fill, bvh_backend):
+    """The tree, where the scene has one, built by the builder the JAX side
+    uses in this process on both sides."""
     want = _moving_scene(JaxBuilder, jgeom, n_fill)
     got = _moving_scene(SceneBuilder, tgeom, n_fill, device="cpu")
+    assert (got.bvh_tables is None) == (n_fill == 0)
+    assert got.bvh_tables is None or got.bvh_tables.backend == bvh_backend
     _assert_tables_close(scene_to_arrays(got), jax_scene_arrays(want))
     assert got.prims.anim.animated.tolist()[:3] == [False, True, True]
     assert not got.fastinfo.ok and got.kernel is None and got.mesh is None

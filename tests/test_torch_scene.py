@@ -6,8 +6,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (assert_tables_equal, carry, jax_scene_arrays,
-                           jax_scene_infos, rough_glass_scene)
+from _torch_parity import (assert_builder_tables_equal, assert_tables_equal,  # noqa: F401
+                           bvh_backend, carry, jax_scene_arrays, jax_scene_infos,
+                           match_bvh_backend, rough_glass_scene)
+from gopbrt_tpu import native as jnative
 from gopbrt_tpu.models import demo as jdemo
 from gopbrt_tpu.models import gallery
 from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
@@ -23,19 +25,19 @@ def _port_infos(scene):
                 fastinfo=asdict(scene.fastinfo), camera_medium=scene.camera_medium)
 
 
-def test_demo_builder_tables_match_jax():
+def test_demo_builder_tables_match_jax(bvh_backend):
     """Ints exact, floats within 1e-6 relative; static facts equal."""
     want = jdemo.build_demo_scene(accelerator="none")
     got = tdemo.build_demo_scene(device="cpu")
-    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
+    assert_builder_tables_equal(got, want, bvh_backend)
     assert _port_infos(got) == jax_scene_infos(want)
     assert got.fastinfo.ok and got.prims.count == 24 and got.n_lights == 4
 
 
-def test_rough_glass_builder_tables_match_jax():
+def test_rough_glass_builder_tables_match_jax(bvh_backend):
     want = rough_glass_scene(JaxBuilder, jgeom).build(accelerator="none")
     got = rough_glass_scene(SceneBuilder, tgeom).build(device="cpu")
-    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
+    assert_builder_tables_equal(got, want, bvh_backend)
     assert _port_infos(got) == jax_scene_infos(want)
     assert got.fastinfo.has_rough_glass and not got.fastinfo.has_glass
 
@@ -77,7 +79,7 @@ _ANIMATE = lambda b: b.animate(b.sphere(np.eye(4), 1.0, b.matte()),  # noqa: E73
     lambda b: b.null_material(),
     _ANIMATE,
 ])
-def test_builder_raises_outside_the_slice(call):
+def test_builder_raises_outside_the_slice(call, bvh_backend):
     """Media, subsurface, bump, null materials and animation are ported:
     the builder takes them, the scene builds outside the megakernel's fast
     path, and an animated scene's tables, the animation table included,
@@ -94,6 +96,7 @@ def test_builder_raises_outside_the_slice(call):
     assert not scene.fastinfo.ok and scene.kernel is None
     if call is _ANIMATE:
         want = build(JaxBuilder, accelerator="none")
+        assert scene.bvh_tables is None or scene.bvh_tables.backend == bvh_backend
         got, wanted = scene_to_arrays(scene), jax_scene_arrays(want)
         assert sorted(got) == sorted(wanted) and "prims.anim.q0" in got
         for k, w in wanted.items():
@@ -101,22 +104,27 @@ def test_builder_raises_outside_the_slice(call):
         assert _port_infos(scene) == jax_scene_infos(want)
 
 
-def test_scenes_that_need_a_bvh_raise():
-    """A scene above 64 prims builds its SAH BVH: its tables, the tree
-    included, equal the JAX builder's, and the general chain on the BVH
-    walk gives the brute-force chain's radiance."""
-    def build(cls, geom, **kw):
-        b = cls()
-        m = b.matte()
-        for i in range(65):
-            b.sphere(np.asarray(geom.translate([3.0 * i, 0.0, 0.0])), 1.0, m)
-        b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
-        return b.build(**kw)
+def _spheres_65(cls, geom, **kw):
+    """65 spheres in a row under a point light: above the brute-force
+    cutoff, so the builder builds the SAH BVH."""
+    b = cls()
+    m = b.matte()
+    for i in range(65):
+        b.sphere(np.asarray(geom.translate([3.0 * i, 0.0, 0.0])), 1.0, m)
+    b.point_light(p=(0.0, 5.0, 0.0), intensity=(1.0, 1.0, 1.0))
+    return b.build(**kw)
 
+
+def test_scenes_that_need_a_bvh_raise(bvh_backend):
+    """A scene above 64 prims builds its SAH BVH: its tables, the tree
+    included, equal the JAX builder's (both built by the builder the JAX
+    side uses in this process), and the general chain on the BVH walk
+    gives the brute-force chain's radiance."""
+    build = _spheres_65
     want = build(JaxBuilder, jgeom)
     got = build(SceneBuilder, tgeom, device="cpu")
-    assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
     assert got.bvh_tables is not None and got.kernel is None and got.mesh is None
+    assert_builder_tables_equal(got, want, bvh_backend)
     flat = build(SceneBuilder, tgeom, accelerator="none", device="cpu")
     assert flat.bvh is None and "bvh.node_lo" not in scene_to_arrays(flat)
     n = 64
@@ -130,7 +138,22 @@ def test_scenes_that_need_a_bvh_raise():
     assert float(bvh_l.amax()) > 0.0
 
 
-def test_power_light_strategy_raises():
+def test_tables_compare_like_with_like_after_the_reference_loader_failed(monkeypatch):
+    """The state the reference loader's race leaves in a worker: its
+    library failed to load, so JAX builds every tree with NumPy for the
+    rest of the process.  ``match_bvh_backend`` then has the port build
+    with NumPy too, and the 65-sphere scene's tables, the tree included,
+    compare NumPy's tree with NumPy's and agree."""
+    monkeypatch.setattr(jnative, "_lib_failed", True)
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert match_bvh_backend(monkeypatch) == "numpy"
+    want = _spheres_65(JaxBuilder, jgeom)
+    got = _spheres_65(SceneBuilder, tgeom, device="cpu")
+    assert got.bvh_tables.backend == "numpy"
+    assert_builder_tables_equal(got, want, "numpy")
+
+
+def test_power_light_strategy_raises(bvh_backend):
     """The power distribution and the spatial light grid build the JAX
     builder's tables."""
     def build(cls, strategy, **kw):
@@ -143,5 +166,5 @@ def test_power_light_strategy_raises():
     for strategy in ("power", "spatial"):
         want = build(JaxBuilder, strategy, accelerator="none")
         got = build(SceneBuilder, strategy, device="cpu")
-        assert_tables_equal(scene_to_arrays(got), jax_scene_arrays(want), rtol=1e-6)
+        assert_builder_tables_equal(got, want, bvh_backend)
         assert (got.light_grid is not None) == (strategy == "spatial")
