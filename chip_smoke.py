@@ -1312,27 +1312,31 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
 ODD_CHUNK = 100_003
 
 
-def chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev, stats=None,
+def chain_pass(render, integrators, film_mod, scene, camera, settings, cfg, dev,
                dispatch=False):
     """A pass of the general chain on every band (``_li_wavefront`` with
-    ``cfg``, the row splat), in ``render_pass``'s ranges -> the film.
-    dispatch: through ``integrators.li`` with ``cfg`` instead, which picks
-    the megakernels or the chain as ``render_pass`` does."""
+    ``cfg``, the row splat), in ``render_pass``'s ranges and one request of
+    the tracer -> the film.  dispatch: through ``integrators.li`` with
+    ``cfg`` instead, which picks the megakernels or the chain as
+    ``render_pass`` does."""
+    from gopbrt_tpu_torch.utils import trace
+
     film = film_mod.new_film(settings.width, settings.height, device=dev)
     band_rows = settings.chunk_pixels // settings.width
     cone = render._cone(camera, settings)
-    for r0 in range(0, settings.height, band_rows):
-        with record_function("render.band_rays"):
-            jitter, o, d, pix, smp = render.band_rays(camera, settings, r0, band_rows, 0)
-        with record_function("render.li"):
-            if dispatch:
-                L = integrators.li(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
-            else:
-                L = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg,
-                                              cone=cone, stats=stats)
-        with record_function("render.splat"):
-            film_mod.add_samples_rows(film, r0, jitter.reshape(band_rows, -1, 2),
-                                      L.reshape(band_rows, -1, 3), settings.filter)
+    with trace.request():
+        for r0 in range(0, settings.height, band_rows):
+            with trace.span("render.band_rays"):
+                jitter, o, d, pix, smp = render.band_rays(camera, settings, r0, band_rows, 0)
+            with trace.span("render.li"):
+                if dispatch:
+                    L = integrators.li(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+                else:
+                    L = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, cfg,
+                                                  cone=cone)
+            with trace.span("render.splat"):
+                film_mod.add_samples_rows(film, r0, jitter.reshape(band_rows, -1, 2),
+                                          L.reshape(band_rows, -1, 3), settings.filter)
     return film
 
 
@@ -1344,7 +1348,8 @@ def compaction_checks(dev, render, film_mod, runs, device_name: str, power_limit
     kernels' bars; a chunk's padding slots are there), then the compacted
     radiance at the default and at ODD_CHUNK against the uncompacted
     chain's (every lane within 1e-5; the lanes not bit-equal counted), the
-    live lanes a bounce and the host syncs; then one timed 1080p pass of
+    live lanes a bounce and the host syncs (the tracer's counters); then one
+    timed 1080p pass of
     each (the band runs before warm them): the uncompacted chain through
     ``chain_pass``, the compacted one through ``render_pass`` with
     ``RenderSettings(compaction=True)``, the counts set to 0 just before
@@ -1352,6 +1357,7 @@ def compaction_checks(dev, render, film_mod, runs, device_name: str, power_limit
     "worst": {kind: (least agreement, max abs err)}}."""
     from gopbrt_tpu_torch import _build
     from gopbrt_tpu_torch.models import integrators
+    from gopbrt_tpu_torch.utils import trace
 
     out = {"launches": collections.Counter(), "worst": {}}
     for name, scene, camera, settings, accel in runs:
@@ -1362,10 +1368,17 @@ def compaction_checks(dev, render, film_mod, runs, device_name: str, power_limit
         cone = render._cone(camera, settings)
         _, o, d, pix, smp = render.band_rays(camera, settings, band_rows, band_rows, 0)
         n = o.shape[0]
-        calls, stats = [], {}
-        with recording(calls, accel):
-            got = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, on,
-                                            cone=cone, stats=stats)
+        calls = []
+        trace.enable()
+        try:
+            with recording(calls, accel), trace.request() as req:
+                got = integrators._li_wavefront(scene, o, d, pix, smp, settings.seed, on,
+                                                cone=cone)
+        finally:
+            trace.disable()
+        live = req.counter("li.lanes_live")
+        stats = {"live": [live[k] for k in sorted(live)],
+                 "syncs": req.counter("host_syncs").get("compaction", 0)}
         kinds = collections.Counter(c[0] for c in calls)
         want = {"brute": {"intersect", "intersect_any"},
                 "bvh": {"bvh_intersect", "bvh_intersect_any"}}[accel]
@@ -1427,16 +1440,15 @@ def compaction_checks(dev, render, film_mod, runs, device_name: str, power_limit
                 and set(launches_c) == want):
             raise AssertionError(f"{name}: compacted render_pass launched {launches_c}, "
                                  f"image mean {float(img.mean())}")
-        pstats = {}
-        for mode, c, dt, launches, st in (("uncompacted chain", cfg, dt_u, launches_u, None),
+        for mode, c, dt, launches, st in (("uncompacted chain", cfg, dt_u, launches_u, False),
                                           ("compacted render_pass", on, dt_c, launches_c,
-                                           pstats)):
+                                           True)):
             line = traced(lambda: chain_pass(render, integrators, film_mod, scene, camera,
-                                             settings, c, dev, stats=st), dt)
+                                             settings, c, dev), dt)
+            syncs = trace.requests()[-1].counter("host_syncs").get("compaction", 0)
             phase("compaction", f"{name}, {mode}: one timed pass of {settings.width}x"
                   f"{settings.height} 1 spp depth {cfg.max_depth}: {dt:.2f} ms, launches "
-                  f"{launches}" + (f", host syncs {pstats['syncs']} a pass" if st is not None
-                                   else "")
+                  f"{launches}" + (f", host syncs {syncs} a pass" if st else "")
                   + f" ({device_name}, {power_limit}); one profiled pass of the chain: {line}")
         phase("main-path", f"{name} through render_pass with compaction=True: image mean "
               f"{float(img.mean()):.4f}; compacted / uncompacted pass {dt_c / dt_u:.3f}")

@@ -38,12 +38,14 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # ctypes signature of each library's entry points, by library (source stem).
 # The bounce kernels, on persistent lanes (csrc/lanes.cuh), take one int of
-# device memory for their path counter after the stream.
+# device memory for their path counter after the stream, then an int flag:
+# nonzero for the counting instance, which fills the three ints after the
+# path counter.
 _SIGNATURES = {
     "megakernel": {
         "gopbrt_path_li":
             [_P] * 5 + [_I, _P, _I, _I, _I, ctypes.c_uint]
-            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P],
+            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P, _I],
     },
     "intersect": {
         # o, d, t_max, n, rec, n_prims, dead_d2, instance, flags, outputs,
@@ -59,10 +61,11 @@ _SIGNATURES = {
     "mesh_megakernel": {
         # o, d, pixel, sample, L, n, tables, table_words, nodes, records,
         # bvh_flags, n_mats, n_lights, seed, func_int, world_radius, cone_w0,
-        # cone_sp, max_depth, rr_start, rr_threshold, flags, stream, counter
+        # cone_sp, max_depth, rr_start, rr_threshold, flags, stream, counter,
+        # count
         "gopbrt_mesh_li":
             [_P] * 5 + [_I, _P, _I, _P, _P, _I, _I, _I, ctypes.c_uint]
-            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P],
+            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P, _I],
     },
 }
 
@@ -111,10 +114,16 @@ def build() -> dict:
     return info
 
 
+# what the counting instance of a bounce kernel counts, in the ints after
+# its path counter (csrc/bounce.cuh run_paths)
+STATS = ("paths", "steps", "warp_slots")
+
+
 def counter(device) -> torch.Tensor:
-    """The work counter of a launch on persistent lanes: one int32 on the
-    card, which the C entry zeroes on the stream before the launch."""
-    return torch.empty((1,), dtype=torch.int32, device=device)
+    """The work counter of a launch on persistent lanes, int32 on the card,
+    which the C entry zeroes on the stream before the launch: the path
+    counter, then the counting instance's STATS."""
+    return torch.empty((1 + len(STATS),), dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -942,26 +942,50 @@ GOPBRT_HD bool path_step(const S& scene, const LightTables& LT, const Params& P,
 // one step of its path per iteration (path_step).  A lane whose path has
 // ended writes its radiance and takes the next path.  s: this thread's
 // path state, where its kernel keeps it.  All threads of the block enter.
-template <class S>
+// kCount, the counting instance: each lane counts in registers the paths
+// it finished, its path_step calls and the iterations in which a lane of
+// its warp was active; at the loop's exit the warp sums them and one lane
+// adds them to the three unsigned ints after `next` (paths, steps, and 32
+// x those iterations: the warp's slots), one atomicAdd each.
+template <bool kCount, class S>
 __device__ void run_paths(const S& scene, const LightTables& LT, const Params& P,
                           const float* o, const float* d, const int* pixel,
                           const int* sample, float* L, int* next, PathState& s) {
   Ray r;
   bool active = false, drained = false;
+  unsigned paths = 0, steps = 0, iterations = 0;
   for (;;) {
     const int i = take_next(!active, P.n, next, drained);
     if (i >= 0) {
       path_init(s, r, P, o, d, pixel, sample, i);
       active = P.max_depth > 0;
-      if (!active) path_finish(s, L);
+      if (!active) {
+        path_finish(s, L);
+        if constexpr (kCount) ++paths;
+      }
     }
     if (!__any_sync(FULL_MASK, active)) {
       if (drained) break;
       continue;
     }
+    if constexpr (kCount) ++iterations;
     if (active) {
+      if constexpr (kCount) ++steps;
       active = path_step(scene, LT, P, s, r);
-      if (!active) path_finish(s, L);
+      if (!active) {
+        path_finish(s, L);
+        if constexpr (kCount) ++paths;
+      }
+    }
+  }
+  if constexpr (kCount) {
+    paths = __reduce_add_sync(FULL_MASK, paths);
+    steps = __reduce_add_sync(FULL_MASK, steps);
+    if ((threadIdx.x & 31) == 0) {
+      unsigned* stats = reinterpret_cast<unsigned*>(next + 1);
+      atomicAdd(stats, paths);
+      atomicAdd(stats + 1, steps);
+      atomicAdd(stats + 2, 32u * iterations);
     }
   }
 }

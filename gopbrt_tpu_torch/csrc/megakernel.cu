@@ -81,6 +81,9 @@ struct BruteScene {
 
 constexpr int THREADS = 128;
 
+// kCount: the counting instance (run_paths), launched after
+// trace.enable()
+template <bool kCount>
 __global__ void __launch_bounds__(THREADS)
     mega_kernel(const float* __restrict__ tables, Params P, const float* __restrict__ o,
                 const float* __restrict__ d, const int* __restrict__ pixel,
@@ -92,7 +95,7 @@ __global__ void __launch_bounds__(THREADS)
   const BruteScene scene{T, P.n_prims, (P.flags & FLAG_FULL_SPH) != 0,
                          (P.flags & FLAG_FULL_DISK) != 0};
   PathState s;  // in registers: in shared memory beside the tables it ran slower
-  run_paths(scene, T.lights, P, o, d, pixel, sample, L, next, s);
+  run_paths<kCount>(scene, T.lights, P, o, d, pixel, sample, L, next, s);
 }
 
 #endif  // __CUDACC__
@@ -102,14 +105,17 @@ __global__ void __launch_bounds__(THREADS)
 #ifdef __CUDACC__
 
 // Plain C entry point (loaded with ctypes).  next: one int of device
-// memory, the path counter, zeroed here on `stream`.  Launches on `stream`
-// and returns the cudaError_t of the launch; it does not synchronise.
+// memory, the path counter, zeroed here on `stream`; count: nonzero for
+// the counting instance, which fills the three ints after `next` (paths,
+// steps, warp slots), zeroed by the same memset.  Launches on `stream` and
+// returns the cudaError_t of the launch; it does not synchronise.
 extern "C" int gopbrt_path_li(const float* o, const float* d, const int* pixel,
                               const int* sample, float* L, int n, const float* tables,
                               int table_words, int n_prims, int n_lights,
                               unsigned int seed, float func_int, float world_radius,
                               float cone_w0, float cone_sp, int max_depth, int rr_start,
-                              float rr_threshold, int flags, void* stream, int* next) {
+                              float rr_threshold, int flags, void* stream, int* next,
+                              int count) {
   using namespace gopbrt;
   if (table_words != TABLE_WORDS || n_prims < 1 || n_prims > MAX_PRIMS ||
       n_lights < 1 || n_lights > MAX_LIGHTS || n < 0)
@@ -117,12 +123,14 @@ extern "C" int gopbrt_path_li(const float* o, const float* d, const int* pixel,
   if (n == 0) return 0;
   Params p{n, n_prims, n_lights, seed, func_int, world_radius, cone_w0, cone_sp,
            max_depth, rr_start, rr_threshold, flags};
+  const auto kernel = count ? mega_kernel<true> : mega_kernel<false>;
   int blocks;
-  cudaError_t err = persistent_blocks(mega_kernel, THREADS, n, blocks);
-  if (err == cudaSuccess) err = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
+  cudaError_t err = persistent_blocks(kernel, THREADS, n, blocks);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(next, 0, (count ? 4 : 1) * sizeof(int), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  mega_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tables, p, o, d, pixel,
-                                                             sample, L, next);
+  kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tables, p, o, d, pixel, sample, L,
+                                                        next);
   return (int)cudaGetLastError();
 }
 

@@ -77,6 +77,9 @@ struct MeshScene {
 
 constexpr int THREADS = 128;
 
+// kCount: the counting instance (run_paths), launched after
+// trace.enable()
+template <bool kCount>
 __global__ void __launch_bounds__(THREADS)
     mesh_kernel(const float* __restrict__ tables, BvhView B, Params P,
                 const float* __restrict__ o, const float* __restrict__ d,
@@ -87,8 +90,8 @@ __global__ void __launch_bounds__(THREADS)
   float* dst = reinterpret_cast<float*>(&T);
   for (int i = threadIdx.x; i < MESH_TABLE_WORDS; i += blockDim.x) dst[i] = tables[i];
   __syncthreads();
-  run_paths(MeshScene{B, T.mat}, T.lights, P, o, d, pixel, sample, L, next,
-            paths[threadIdx.x]);
+  run_paths<kCount>(MeshScene{B, T.mat}, T.lights, P, o, d, pixel, sample, L, next,
+                    paths[threadIdx.x]);
 }
 
 #endif  // __CUDACC__
@@ -100,15 +103,18 @@ __global__ void __launch_bounds__(THREADS)
 // Plain C entry point (loaded with ctypes).  tables: f32[MESH_TABLE_WORDS]
 // (ops/mesh_megakernel.py pack_tables); nodes, recs: the BVH tables
 // (ops/bvh.py bvh_table); next: one int of device memory, the path
-// counter, zeroed here on `stream`.  Launches on `stream` and returns the
-// cudaError_t of the launch; it does not synchronise.
+// counter, zeroed here on `stream`; count: nonzero for the counting
+// instance, which fills the three ints after `next` (paths, steps, warp
+// slots), zeroed by the same memset.  Launches on `stream` and returns the cudaError_t of
+// the launch; it does not synchronise.
 extern "C" int gopbrt_mesh_li(const float* o, const float* d, const int* pixel,
                               const int* sample, float* L, int n, const float* tables,
                               int table_words, const float* nodes, const float* recs,
                               int bvh_flags, int n_mats, int n_lights, unsigned int seed,
                               float func_int, float world_radius, float cone_w0,
                               float cone_sp, int max_depth, int rr_start,
-                              float rr_threshold, int flags, void* stream, int* next) {
+                              float rr_threshold, int flags, void* stream, int* next,
+                              int count) {
   using namespace gopbrt;
   if (table_words != MESH_TABLE_WORDS || n_mats < 1 || n_mats > MAX_MATS ||
       n_lights < 1 || n_lights > MAX_LIGHTS || n < 0)
@@ -118,12 +124,14 @@ extern "C" int gopbrt_mesh_li(const float* o, const float* d, const int* pixel,
                   reinterpret_cast<const float4*>(recs), bvh_flags};
   Params p{n, 0, n_lights, seed, func_int, world_radius, cone_w0, cone_sp,
            max_depth, rr_start, rr_threshold, flags};
+  const auto kernel = count ? mesh_kernel<true> : mesh_kernel<false>;
   int blocks;
-  cudaError_t err = persistent_blocks(mesh_kernel, THREADS, n, blocks);
-  if (err == cudaSuccess) err = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
+  cudaError_t err = persistent_blocks(kernel, THREADS, n, blocks);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(next, 0, (count ? 4 : 1) * sizeof(int), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  mesh_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tables, B, p, o, d, pixel,
-                                                             sample, L, next);
+  kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tables, B, p, o, d, pixel, sample, L,
+                                                        next);
   return (int)cudaGetLastError();
 }
 

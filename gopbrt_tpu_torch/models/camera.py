@@ -20,6 +20,7 @@ from gopbrt_tpu_torch import resolve_device
 from gopbrt_tpu_torch.ops import geom
 from gopbrt_tpu_torch.ops.geom import normalize
 from gopbrt_tpu_torch.ops.sampling import concentric_sample_disk
+from gopbrt_tpu_torch.utils import trace
 
 CAM_PERSPECTIVE = 0
 CAM_ORTHOGRAPHIC = 1
@@ -121,7 +122,7 @@ def generate_rays(cam: Camera, p_film: torch.Tensor, u_lens: torch.Tensor):
         d = normalize(p_cam)
     elif cam.kind == CAM_ORTHOGRAPHIC:
         o = p_cam
-        d = torch.tensor([0.0, 0.0, 1.0], device=p_film.device).expand(n, 3)
+        d = trace.to_card([0.0, 0.0, 1.0], p_film.device).expand(n, 3)
     else:
         raise ValueError(f"unknown camera kind {cam.kind}")
     if cam.lens_radius > 0.0:
@@ -140,8 +141,9 @@ def pixel_spread(cam: Camera):
     """Ray-cone parameters of one pixel, (width0, spread) as floats: the
     world-space footprint of a camera ray at hit distance t is
     ``width0 + spread * t`` (the wavefront stand-in for ray differentials,
-    camera.go:192-242)."""
-    r2c = cam.raster_to_camera.cpu()
+    camera.go:192-242).  A camera on the card is copied to the host here,
+    which synchronises (the tracer's ``host_syncs``)."""
+    r2c = trace.to_host(cam.raster_to_camera)
     corners = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 0.0]])
     p0, p1 = geom.apply_point(r2c, corners)
     dx = (p1 - p0) * torch.tensor([1.0, 1.0, 0.0])

@@ -17,6 +17,14 @@ dispatch ``li``.  As in the reference, what a scene lacks (media, null
 materials, interfaces, bump, subsurface, motion, the light grid) is left
 out in Python: such a scene runs the ops it ran before these features.
 
+The chain's stages run in the tracer's spans (``utils/trace.py``):
+``li.intersect`` (the intersection dispatch), ``li.surface`` (the hit's
+record, emission, bump, footprint, material, subsurface transport and
+shading frame) and ``li.nee`` (each ``_estimate_direct``).  Each bounce
+counts the lanes it runs over and those alive entering it
+(``li.lanes_run`` / ``li.lanes_live``, keyed by the bounce), and each
+copy between host and card counts in ``host_syncs`` (``trace.to_host``).
+
 The whole batch of rays advances bounce by bounce as SoA tensors with an
 alive mask, as in the JAX chain, and draws the same counter-based random
 numbers, so both packages trace the same paths.  On CUDA tensors the
@@ -65,6 +73,7 @@ from gopbrt_tpu_torch.ops.rng import (  # noqa: F401  (re-exports)
     DIM_CAMERA,
     DIMS_PER_BOUNCE,
 )
+from gopbrt_tpu_torch.utils import trace
 
 # brute force below this prim count (no BVH)
 BRUTE_FORCE_CUTOFF = 64
@@ -131,32 +140,35 @@ def _scene_intersect(scene, o, d, t_max, time=None):
     as kernels on CUDA tensors and as plain versions on CPU tensors
     (integrators.py:144-177).  An animated scene takes the plain versions,
     its moving prims at the lanes' ``time`` where given."""
-    args = (o.contiguous(), d.contiguous(), t_max.contiguous())
-    anim = scene.prims.anim
-    if _use_bvh(scene):
+    with trace.span("li.intersect"):
+        args = (o.contiguous(), d.contiguous(), t_max.contiguous())
+        anim = scene.prims.anim
+        if _use_bvh(scene):
+            if anim is not None:
+                return bvh_ops.bvh_intersect(scene.bvh_tables, *args,
+                                             anim=None if time is None else anim, time=time)
+            return bvh_ops.bvh_intersect_fused(scene.bvh_tables, *args)
+        table = brute_intersect.scene_table(scene)
         if anim is not None:
-            return bvh_ops.bvh_intersect(scene.bvh_tables, *args,
-                                         anim=None if time is None else anim, time=time)
-        return bvh_ops.bvh_intersect_fused(scene.bvh_tables, *args)
-    table = brute_intersect.scene_table(scene)
-    if anim is not None:
-        return brute_intersect.intersect_brute(table, *args, moving=_moving(scene, time))
-    return brute_intersect.intersect_brute_fused(table, *args)
+            return brute_intersect.intersect_brute(table, *args, moving=_moving(scene, time))
+        return brute_intersect.intersect_brute_fused(table, *args)
 
 
 def _scene_intersect_p(scene, o, d, t_max, time=None):
     """Any hit closer than t_max -> bool[N] (integrators.py:180-204)."""
-    args = (o.contiguous(), d.contiguous(), t_max.contiguous())
-    anim = scene.prims.anim
-    if _use_bvh(scene):
+    with trace.span("li.intersect"):
+        args = (o.contiguous(), d.contiguous(), t_max.contiguous())
+        anim = scene.prims.anim
+        if _use_bvh(scene):
+            if anim is not None:
+                return bvh_ops.bvh_intersect_p(scene.bvh_tables, *args,
+                                               anim=None if time is None else anim, time=time)
+            return bvh_ops.bvh_intersect_p_fused(scene.bvh_tables, *args)
+        table = brute_intersect.scene_table(scene)
         if anim is not None:
-            return bvh_ops.bvh_intersect_p(scene.bvh_tables, *args,
-                                           anim=None if time is None else anim, time=time)
-        return bvh_ops.bvh_intersect_p_fused(scene.bvh_tables, *args)
-    table = brute_intersect.scene_table(scene)
-    if anim is not None:
-        return brute_intersect.intersect_p_brute(table, *args, moving=_moving(scene, time))
-    return brute_intersect.intersect_p_brute_fused(table, *args)
+            return brute_intersect.intersect_p_brute(table, *args,
+                                                     moving=_moving(scene, time))
+        return brute_intersect.intersect_p_brute_fused(table, *args)
 
 
 def _moving(scene, time):
@@ -717,35 +729,37 @@ def _bounce_once(scene, cfg: PathConfig, sampler: _Sampler, bounce_idx: int,
         o_eff, beta_in = st.o, st.beta
         # escaped rays find no light: the scene has no infinite lights
         alive = st.alive & hit
-    si = isect.surface_interaction(scene.prims, hit, t, prim_idx, o_eff, st.d, st.time)
-    # per-lane phase asymmetry with bounded media
-    phase_g = media_ops.table_lookup(scene.media, mid_cur)[2] if feat.use_tab else None
+    with trace.span("li.surface"):
+        si = isect.surface_interaction(scene.prims, hit, t, prim_idx, o_eff, st.d, st.time)
+        # per-lane phase asymmetry with bounded media
+        phase_g = media_ops.table_lookup(scene.media, mid_cur)[2] if feat.use_tab else None
 
-    # a medium vertex is no emitter hit: ``hit`` excludes it
-    L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, beta_in, mis=cfg.mis)
+        # a medium vertex is no emitter hit: ``hit`` excludes it
+        L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, beta_in, mis=cfg.mis)
 
-    si = _apply_bump(scene, si)
-    fw_hit, fw_surf = _footprint(st, cone_spread, t, si)
-    mp = _material_at(scene, si, fw=fw_surf)
-    if scatter is not None:
-        # splice medium vertices in: at the scattering point, the frame
-        # facing back along the ray (MediumInteraction, interaction.go:
-        # 299-307), the gathered material neutralized to MATTE
-        back = -st.d
-        zero = torch.zeros_like(si.p)
-        si = _where_si(scatter, si._replace(p=p_med, p_err=zero, n=back, ns=back, wo=back,
-                                            dpdu=zero, dpdv=zero), si)
-        mp = mp._replace(mat_type=torch.where(scatter, bsdf_ops.MATTE, mp.mat_type))
-    beta0 = beta_in
-    if scene.materials.sss_d is not None:
-        si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive, sampler,
-                                                     dim_base, st.time)
-    ss, ts, ns = _shading_frame(si)
+        si = _apply_bump(scene, si)
+        fw_hit, fw_surf = _footprint(st, cone_spread, t, si)
+        mp = _material_at(scene, si, fw=fw_surf)
+        if scatter is not None:
+            # splice medium vertices in: at the scattering point, the frame
+            # facing back along the ray (MediumInteraction, interaction.go:
+            # 299-307), the gathered material neutralized to MATTE
+            back = -st.d
+            zero = torch.zeros_like(si.p)
+            si = _where_si(scatter, si._replace(p=p_med, p_err=zero, n=back, ns=back,
+                                                wo=back, dpdu=zero, dpdv=zero), si)
+            mp = mp._replace(mat_type=torch.where(scatter, bsdf_ops.MATTE, mp.mat_type))
+        beta0 = beta_in
+        if scene.materials.sss_d is not None:
+            si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive,
+                                                         sampler, dim_base, st.time)
+        ss, ts, ns = _shading_frame(si)
     if cfg.nee:
-        L = L + beta0 * _estimate_direct(
-            scene, si, mp, ss, ts, ns, alive, sampler, dim_base, medium_scatter=scatter,
-            phase_g=phase_g, medium_ids=mid_cur if feat.use_tab else None,
-            null_passes=cfg.null_passes if feat.has_null else 0, time=st.time)
+        with trace.span("li.nee"):
+            L = L + beta0 * _estimate_direct(
+                scene, si, mp, ss, ts, ns, alive, sampler, dim_base, medium_scatter=scatter,
+                phase_g=phase_g, medium_ids=mid_cur if feat.use_tab else None,
+                null_passes=cfg.null_passes if feat.has_null else 0, time=st.time)
 
     bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
     wi_w = wi_w.detach()
@@ -796,8 +810,8 @@ def _where_state(mask, a: PathState, b: PathState) -> PathState:
         mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())), x, y) for x, y in zip(a, b)))
 
 
-def _li_compacted(scene, cfg: PathConfig, sampler: _Sampler, st: PathState, cone_spread,
-                  stats=None) -> PathState:
+def _li_compacted(scene, cfg: PathConfig, sampler: _Sampler, st: PathState,
+                  cone_spread) -> PathState:
     """The compacted bounce loop (integrators.py:970-1032): each bounce
     sorts the live lanes to the front (a stable argsort) and runs
     ceil(live / C) chunks of C = min(chunk_size, N) lanes through
@@ -807,18 +821,19 @@ def _li_compacted(scene, cfg: PathConfig, sampler: _Sampler, st: PathState, cone
     count on the host: one sync a bounce.  The last chunk's padding slots
     past N gather lane N - 1 (the reference's clamped gather) and are left
     out of the scatter (its dropped writes); slots past the live count run
-    dead and write their lanes back unchanged.  stats: an optional dict
-    that gets "live" (the live lanes of each bounce) and "syncs"."""
+    dead and write their lanes back unchanged.  Each bounce counts its
+    sync (``host_syncs`` under the key "compaction", on a card), its live
+    lanes (``li.lanes_live``) and the chunk slots it runs (``li.lanes_run``)
+    in the tracer."""
     n = st.o.shape[0]
     c = min(cfg.chunk_size, n)
     # the state is written in place: the caller's o and d stay theirs
     st = PathState(*(None if x is None else x.clone() for x in st))
     slots = torch.arange(c, device=st.o.device)
     for bounce_idx in range(cfg.max_depth):
-        m = int(st.alive.sum())
-        if stats is not None:
-            stats.setdefault("live", []).append(m)
-            stats["syncs"] = stats.get("syncs", 0) + 1
+        m = int(trace.to_host(st.alive.sum(), key="compaction"))
+        trace.count("li.lanes_live", m, key=bounce_idx)
+        trace.count("li.lanes_run", math.ceil(m / c) * c, key=bounce_idx)
         if m == 0:
             break
         order = torch.argsort((~st.alive).to(torch.int8), stable=True)
@@ -837,6 +852,16 @@ def _li_compacted(scene, cfg: PathConfig, sampler: _Sampler, st: PathState, cone
     return st
 
 
+def _count_lanes(bounce_idx: int, alive: torch.Tensor) -> None:
+    """The lanes a bounce runs over (``li.lanes_run``) and those alive
+    entering it (``li.lanes_live``: the mask, which the tracer sums when
+    read, so tracing adds no operation to the chain), under the key
+    ``bounce_idx``, where the program traces."""
+    if trace.on():
+        trace.count("li.lanes_run", alive.numel(), key=bounce_idx)
+        trace.count("li.lanes_live", alive, key=bounce_idx)
+
+
 def _sanitize(L: torch.Tensor) -> torch.Tensor:
     """NaN/Inf lanes to zero, negatives clamped (integrator.go:256-262).
     ``torch.maximum``, not ``clamp``: at a channel that is exactly 0 it
@@ -846,15 +871,15 @@ def _sanitize(L: torch.Tensor) -> torch.Tensor:
 
 
 def _li_wavefront(scene, o, d, pixel, sample, seed, cfg: PathConfig = PathConfig(),
-                  cone=None, time=None, stats=None) -> torch.Tensor:
+                  cone=None, time=None) -> torch.Tensor:
     """The general wavefront bounce loop (``_li_jnp``,
     integrators.py:1072-1140): radiance f32[N,3] of rays (o, d).
 
     cone: optional (width0, spread) ray-cone floats enabling filtered
     texture lookups.  time: the rays' shutter times f32[N] (read where the
     scene moves).  cfg.early_exit stops once every lane is dead (one host
-    sync per bounce); cfg.compaction runs ``_li_compacted`` (stats: see
-    there), which raises where autograd would need a gradient through it,
+    sync per bounce); cfg.compaction runs ``_li_compacted``, which raises
+    where autograd would need a gradient through it,
     as the reference's dynamic loops have none.  The camera rays start in
     the scene's camera medium where it has bounded media
     (integrators.py:1106-1110).
@@ -872,10 +897,11 @@ def _li_wavefront(scene, o, d, pixel, sample, seed, cfg: PathConfig = PathConfig
             raise RuntimeError("PathConfig(compaction=True) is not differentiable (its "
                                "loops depend on the data, as the reference's do); render "
                                "with compaction=False for gradients")
-        return _sanitize(_li_compacted(scene, cfg, sampler, state, cone_spread, stats).L)
+        return _sanitize(_li_compacted(scene, cfg, sampler, state, cone_spread).L)
     for i in range(cfg.max_depth):
-        if cfg.early_exit and not bool(state.alive.any()):
+        if cfg.early_exit and not bool(trace.to_host(state.alive.any())):
             break
+        _count_lanes(i, state.alive)
         state = _bounce_once(scene, cfg, sampler, i, state, cone_spread)
     return _sanitize(state.L)
 
@@ -913,7 +939,9 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
         t_max = torch.where(st.alive, 1e30, 1e-4)
         hit, t, prim_idx = _scene_intersect(scene, st.o, st.d, t_max, st.time)
         hit = hit & st.alive
-        si = isect.surface_interaction(scene.prims, hit, t, prim_idx, st.o, st.d, st.time)
+        with trace.span("li.surface"):
+            si = isect.surface_interaction(scene.prims, hit, t, prim_idx, st.o, st.d,
+                                           st.time)
         if scene.medium is not None:
             st = st._replace(beta=st.beta * media_ops.transmittance(
                 scene.medium, torch.where(hit, t, 0.0)))
@@ -921,26 +949,30 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
 
     for bounce_idx in range(max_depth):
         dim_base = DIM_BOUNCE_BASE + bounce_idx * DIMS_PER_BOUNCE
+        _count_lanes(bounce_idx, st.alive)
         st, hit, t, prim_idx, si = closest(st)
-        L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, st.beta, all_lights)
-        # diffuse-continuation lanes existed only for the emitter check
-        alive = st.alive & hit & st.specular
-        si = _apply_bump(scene, si)
-        fw_hit, fw_surf = _footprint(st, cone_spread, t, si)
-        mp = _material_at(scene, si, fw=fw_surf)
-        beta0 = st.beta
-        if scene.materials.sss_d is not None:
-            si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive,
-                                                         sampler, dim_base, st.time)
-        ss, ts, ns = _shading_frame(si)
+        with trace.span("li.surface"):
+            L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, st.beta, all_lights)
+            # diffuse-continuation lanes existed only for the emitter check
+            alive = st.alive & hit & st.specular
+            si = _apply_bump(scene, si)
+            fw_hit, fw_surf = _footprint(st, cone_spread, t, si)
+            mp = _material_at(scene, si, fw=fw_surf)
+            beta0 = st.beta
+            if scene.materials.sss_d is not None:
+                si, mp, beta0, alive = _subsurface_transport(scene, si, mp, beta0, alive,
+                                                             sampler, dim_base, st.time)
+            ss, ts, ns = _shading_frame(si)
         if all_lights:
             for k in range(scene.n_lights):
-                L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
-                                                 sampler, dim_base, fixed_light=k,
-                                                 time=st.time)
+                with trace.span("li.nee"):
+                    L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
+                                                     sampler, dim_base, fixed_light=k,
+                                                     time=st.time)
         else:
-            L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
-                                             sampler, dim_base, time=st.time)
+            with trace.span("li.nee"):
+                L = L + beta0 * _estimate_direct(scene, si, mp, ss, ts, ns, alive,
+                                                 sampler, dim_base, time=st.time)
         # specular lanes recurse (directlighting.go:97-101); diffuse lanes
         # get one MIS segment
         bs, wi_w = _sample_bsdf(mp, si, ss, ts, ns, sampler, dim_base)
@@ -953,9 +985,11 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
         )
 
     # the emission-only pass: lanes whose last vertex scattered
+    _count_lanes(max_depth, st.alive)
     st, hit, _, prim_idx, si = closest(st)
-    return _sanitize(st.L + _emitted_mis(scene, st, hit, prim_idx, si, st.beta,
-                                         all_lights))
+    with trace.span("li.surface"):
+        L = st.L + _emitted_mis(scene, st, hit, prim_idx, si, st.beta, all_lights)
+    return _sanitize(L)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,11 @@ Counterpart of ``gopbrt_tpu/models/render.py``: ``RenderSettings``,
 window (``crop_pixel_bounds``, ``_render_pass_crop``) and ``render`` with
 its progress callback and checkpoint / resume.  Where the JAX render loop scans
 the bands under ``jit``, this one is a Python loop: one ``li`` (path) or
-``li_direct`` (direct lighting) call per band.  Each band's three stages
-run inside profiler ranges (``render.band_rays``, ``render.li``,
-``render.splat``) that a ``torch.profiler`` trace shows.
+``li_direct`` (direct lighting) call per band.  Each ``render`` call is
+one request of the tracer (``utils/trace.py``, span ``render.request``),
+and each band's three stages run in its spans ``render.band_rays``,
+``render.li`` and ``render.splat``, which a ``torch.profiler`` trace shows
+as ranges.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gopbrt_tpu_torch import resolve_device
 from gopbrt_tpu_torch.models import camera as cam_mod
@@ -29,6 +30,7 @@ from gopbrt_tpu_torch.models import film as film_mod
 from gopbrt_tpu_torch.models import integrators
 from gopbrt_tpu_torch.ops import rng, sampling
 from gopbrt_tpu_torch.ops.filters import Filter, box_filter
+from gopbrt_tpu_torch.utils import trace
 
 
 class RenderSettings(NamedTuple):
@@ -174,10 +176,10 @@ def band_jitter_radiance(scene, camera: cam_mod.Camera, settings: RenderSettings
     ``row0`` -> (jitter f32[rows,W,2], L f32[rows,W,3])."""
     if settings.integrator not in ("path", "direct"):
         raise ValueError(f"unknown integrator {settings.integrator!r}")
-    with record_function("render.band_rays"):
+    with trace.span("render.band_rays"):
         jitter, o, d, pixel, sample = band_rays(camera, settings, row0, n_rows,
                                                 sample_idx)
-    with record_function("render.li"):
+    with trace.span("render.li"):
         L = _radiance(scene, o, d, pixel, sample, camera, settings)
     w = settings.width
     return jitter.reshape(n_rows, w, 2), L.reshape(n_rows, w, 3)
@@ -188,7 +190,7 @@ def render_wave_rows(scene, camera, film: film_mod.Film, settings: RenderSetting
     """Render a band of rows (one sample per pixel) and splat it; rows past
     the image (last band) are traced and dropped by the splat."""
     jitter, L = band_jitter_radiance(scene, camera, settings, row0, n_rows, sample_idx)
-    with record_function("render.splat"):
+    with trace.span("render.splat"):
         return film_mod.add_samples_rows(film, row0, jitter, L, settings.filter)
 
 
@@ -260,32 +262,33 @@ def render(scene, camera: cam_mod.Camera, settings: RenderSettings,
     progress(done, total) is called after each pass.  checkpoint_path: the
     film and the next pass are saved there atomically every
     ``checkpoint_every`` passes and after the last, and a render resumes
-    from a checkpoint of the same settings (render.py:300-381).
+    from a checkpoint of the same settings (render.py:300-381).  The call
+    is one request of the tracer (``utils/trace.request``).
     """
-    device = resolve_device(device)
-    film = film_mod.new_film(settings.width, settings.height, device=device)
-    n_passes = math.ceil(settings.spp / settings.samples_per_pass)
-    start = 0
-    if checkpoint_path is not None:
-        ck = _load_checkpoint(checkpoint_path, settings, device)
-        if ck is not None:
-            film, start = ck
-    pass_fn = render_pass if settings.crop is None else _render_pass_crop
-    for p in range(start, n_passes):
-        film = pass_fn(scene, camera, film, settings, p * settings.samples_per_pass,
-                       device=device)
-        if checkpoint_path is not None and (
-                (p + 1) % max(checkpoint_every, 1) == 0 or p + 1 == n_passes):
-            _save_checkpoint(checkpoint_path, settings, film, p + 1)
-        if progress is not None:
-            if film.rgb.device.type == "cuda":
-                torch.cuda.synchronize(film.rgb.device)
-            progress(p + 1, n_passes)
-    img = film_mod.develop(film)
-    if settings.crop is not None:
-        x0, x1, y0, y1 = crop_pixel_bounds(settings)
-        img = img[y0:y1, x0:x1]
-    return img
+    with trace.request():
+        device = resolve_device(device)
+        film = film_mod.new_film(settings.width, settings.height, device=device)
+        n_passes = math.ceil(settings.spp / settings.samples_per_pass)
+        start = 0
+        if checkpoint_path is not None:
+            ck = _load_checkpoint(checkpoint_path, settings, device)
+            if ck is not None:
+                film, start = ck
+        pass_fn = render_pass if settings.crop is None else _render_pass_crop
+        for p in range(start, n_passes):
+            film = pass_fn(scene, camera, film, settings, p * settings.samples_per_pass,
+                           device=device)
+            if checkpoint_path is not None and (
+                    (p + 1) % max(checkpoint_every, 1) == 0 or p + 1 == n_passes):
+                _save_checkpoint(checkpoint_path, settings, film, p + 1)
+            if progress is not None:
+                trace.synchronize(film.rgb.device)
+                progress(p + 1, n_passes)
+        img = film_mod.develop(film)
+        if settings.crop is not None:
+            x0, x1, y0, y1 = crop_pixel_bounds(settings)
+            img = img[y0:y1, x0:x1]
+        return img
 
 
 def _checkpoint_key(settings: RenderSettings) -> str:
@@ -302,8 +305,8 @@ def _save_checkpoint(path: str, settings: RenderSettings, film: film_mod.Film,
     weight, next_pass and key), written beside ``path`` and moved over it
     with ``os.replace``."""
     tmp = path + ".tmp"
-    np.savez(tmp, rgb=film.rgb.detach().cpu().numpy(),
-             weight=film.weight.detach().cpu().numpy(), next_pass=np.int64(next_pass),
+    np.savez(tmp, rgb=trace.to_host(film.rgb.detach()).numpy(),
+             weight=trace.to_host(film.weight.detach()).numpy(), next_pass=np.int64(next_pass),
              key=np.array(_checkpoint_key(settings)))
     # np.savez appends .npz to a name without it
     os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz", path)
@@ -318,8 +321,8 @@ def _load_checkpoint(path: str, settings: RenderSettings, device=None):
         with np.load(path, allow_pickle=False) as z:
             if str(z["key"]) != _checkpoint_key(settings):
                 return None
-            film = film_mod.Film(rgb=torch.as_tensor(z["rgb"], device=device),
-                                 weight=torch.as_tensor(z["weight"], device=device))
+            film = film_mod.Film(rgb=trace.to_card(z["rgb"], device),
+                                 weight=trace.to_card(z["weight"], device))
             return film, int(z["next_pass"])
     except (OSError, KeyError, ValueError, zipfile.BadZipFile):
         return None

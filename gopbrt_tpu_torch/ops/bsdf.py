@@ -22,6 +22,7 @@ import torch
 from gopbrt_tpu_torch.ops.geom import INV_PI, PI, dot, normalize
 from gopbrt_tpu_torch.ops.sampling import cosine_sample_hemisphere
 from gopbrt_tpu_torch.ops.static_info import MatInfo
+from gopbrt_tpu_torch.utils import trace
 
 MATTE = 0
 MIRROR = 1
@@ -400,7 +401,7 @@ def bsdf_sample(mp: MaterialParams, wo, u2, uc) -> BsdfSample:
     if need_matte:
         # cosine hemisphere on wo's side
         wi_matte = cosine_sample_hemisphere(u2)
-        flip = torch.tensor([1.0, 1.0, -1.0], dtype=wo.dtype, device=wo.device)
+        flip = trace.to_card([1.0, 1.0, -1.0], wo.device, wo.dtype)
         wi_matte = torch.where(cos_theta(wo)[..., None] < 0, wi_matte * flip, wi_matte)
         pdf_matte = abs_cos_theta(wi_matte) * INV_PI
     if MIRROR in types or has_smooth_glass:

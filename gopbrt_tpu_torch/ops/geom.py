@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from gopbrt_tpu_torch.utils import trace
+
 PI = math.pi
 INV_PI = 1.0 / math.pi
 ONE_MINUS_EPSILON = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
@@ -354,7 +356,7 @@ class _NextafterAway(torch.autograd.Function):
 
     @staticmethod
     def forward(po, offset):
-        inf = torch.tensor(float("inf"), dtype=po.dtype, device=po.device)
+        inf = trace.to_card(float("inf"), po.device, po.dtype)
         up = torch.where(po > 0, torch.nextafter(po, inf), po)
         dn = torch.where(po < 0, torch.nextafter(po, -inf), po)
         return torch.where(offset > 0, up, torch.where(offset < 0, dn, po))

@@ -19,6 +19,7 @@ import torch
 
 from gopbrt_tpu_torch.ops import geom
 from gopbrt_tpu_torch.ops.geom import PI, gather_rows
+from gopbrt_tpu_torch.utils import trace
 
 INV_4PI = 1.0 / (4.0 * PI)
 
@@ -87,7 +88,7 @@ def hg_sample(u: torch.Tensor, g) -> torch.Tensor:
     """cos theta ~ HG with theta from the propagation direction (-wo):
     E[cos theta] = g.  ``hg_phase`` takes dot(wo, wi), whose mean is -g, so
     ``sample_phase`` negates this cosine."""
-    g = torch.as_tensor(g, dtype=torch.float32, device=u.device)
+    g = trace.to_card(g, u.device, torch.float32)
     iso = torch.abs(g) < 1e-3
     cos_iso = 1.0 - 2.0 * u
     sq = (1.0 - g * g) / torch.clamp(1.0 - g + 2.0 * g * u, min=1e-10)

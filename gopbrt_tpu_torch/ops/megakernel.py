@@ -48,6 +48,7 @@ from gopbrt_tpu_torch.ops.rng import (
     DIM_BOUNCE_BASE,
     DIMS_PER_BOUNCE,
 )
+from gopbrt_tpu_torch.utils import trace
 
 
 # shade-table column layout (per primitive, f32[P, SH_K]) — the layout of
@@ -1312,15 +1313,28 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
     next_path = _build.counter(o.device)
 
     def launch(_keep=(o, d, tables, pix32, smp32, out, next_path)):
-        # _keep holds the tensors behind the pointers in ``args``
-        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream,
-                 next_path.data_ptr())
+        # _keep holds the tensors behind the pointers in ``args``; after
+        # trace.enable(), the counting instance runs on a counter of its own
+        counting = trace.enabled()
+        ctr = _build.counter(o.device) if counting else next_path
+        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream, ctr.data_ptr(),
+                 int(counting))
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
         _build.LAUNCHES["megakernel"] += 1
+        if counting:
+            count_stats("megakernel", ctr)
         return out
 
     return launch
+
+
+def count_stats(kernel: str, ctr: torch.Tensor) -> None:
+    """The STATS that the counting instance of ``kernel`` wrote after its
+    path counter ``ctr``, to the tracer's counters under the key
+    ``kernel``, on the card."""
+    for k, name in enumerate(_build.STATS, 1):
+        trace.count(name, ctr[k], key=kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import torch
 from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.ops import megakernel as mk
 from gopbrt_tpu_torch.ops import packed
+from gopbrt_tpu_torch.utils import trace
 
 # Packed table layout read by csrc/mesh_megakernel.cu (struct MeshTables):
 # the material rows, then the light tables of ops/megakernel.TABLE_LAYOUT.
@@ -116,12 +117,17 @@ def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
 
     def launch(_keep=(o, d, mt.tables, bt.nodes, bt.records, pix32, smp32, out,
                       next_path)):
-        # _keep holds the tensors behind the pointers in ``args``
-        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream,
-                 next_path.data_ptr())
+        # _keep holds the tensors behind the pointers in ``args``; after
+        # trace.enable(), the counting instance runs on a counter of its own
+        counting = trace.enabled()
+        ctr = _build.counter(o.device) if counting else next_path
+        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream, ctr.data_ptr(),
+                 int(counting))
         if err != 0:
             raise RuntimeError(f"mesh megakernel launch failed: cudaError_t {err}")
         _build.LAUNCHES["mesh_megakernel"] += 1
+        if counting:
+            mk.count_stats("mesh_megakernel", ctr)
         return out
 
     return launch

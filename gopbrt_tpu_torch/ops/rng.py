@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from gopbrt_tpu_torch.ops.geom import ONE_MINUS_EPSILON
+from gopbrt_tpu_torch.utils import trace
 
 _MASK = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -37,8 +38,10 @@ DIM_ALL_LIGHT_BASE = 0x10000
 
 
 def as_u32(x, device=None) -> torch.Tensor:
-    """A counter (Python int or integer tensor) as int64 in [0, 2^32)."""
-    t = torch.as_tensor(x, device=device)
+    """A counter (Python int or integer tensor) as int64 in [0, 2^32).  A
+    Python int put on the card is a copy from the host, which synchronises
+    the stream (the tracer's ``host_syncs``)."""
+    t = trace.to_card(x, device)
     return t.to(torch.int64) & _MASK
 
 

@@ -35,12 +35,12 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
-from torch.profiler import record_function
 
 from gopbrt_tpu_torch.models import camera as cam_mod
 from gopbrt_tpu_torch.models import film as film_mod
 from gopbrt_tpu_torch.models import render
 from gopbrt_tpu_torch.parallel.dist import init_distributed, local_device  # noqa: F401
+from gopbrt_tpu_torch.utils import trace
 
 
 class Mesh(NamedTuple):
@@ -167,7 +167,7 @@ def render_pass_sharded_band(mesh: Mesh, scene, camera: cam_mod.Camera,
         for s in range(spp):
             jitter, L = render.band_jitter_radiance(scene, camera, settings, r0, n,
                                                     sample_base + mesh.s_idx * spp + s)
-            with record_function("render.splat"):
+            with trace.span("render.splat"):
                 r_, w_ = film_mod.splat_band_halo(r0, jitter, L, settings.height,
                                                   settings.filter)
                 acc_rgb[r0 - row0:r0 - row0 + n + 2 * rr] += r_
@@ -207,31 +207,32 @@ def render_sharded(mesh: Mesh, scene, camera: cam_mod.Camera,
     image f32[H,W,3] on every rank.  ``band_film`` keeps each rank's band
     of the film for the whole render and gathers the bands once at the
     end; False sums a replicated film every pass.  progress(done, total) is
-    called after each pass, as ``render`` calls it."""
+    called after each pass, as ``render`` calls it.  The call is one
+    request of the tracer (``utils/trace.request``)."""
     render._check_device("the scene", scene.device, mesh.device)
     render._check_device("the camera", camera.raster_to_camera.device, mesh.device)
-    spp_per_pass = settings.samples_per_pass * mesh.sample
-    n_passes = -(-settings.spp // spp_per_pass)
-    if band_film:
-        film = new_band_film(mesh, settings)
-        pass_fn = render_pass_sharded_band
-    else:
-        film = film_mod.new_film(settings.width, settings.height, device=mesh.device)
-        pass_fn = render_pass_sharded
-    for p in range(n_passes):
-        film = pass_fn(mesh, scene, camera, film, settings, p * spp_per_pass)
-        if progress is not None:
-            if mesh.device.type == "cuda":
-                torch.cuda.synchronize(mesh.device)
-            progress(p + 1, n_passes)
-    if band_film:
-        # gather the bands once, then crop the padding rows
-        full = torch.cat([film.rgb, film.weight[..., None]], dim=-1)
-        if mesh.distributed and mesh.data > 1:
-            full = torch.cat(_all_gather(mesh, full))
-        h = settings.height
-        film = film_mod.Film(rgb=full[:h, :, :3], weight=full[:h, :, 3])
-    return film_mod.develop(film)
+    with trace.request():
+        spp_per_pass = settings.samples_per_pass * mesh.sample
+        n_passes = -(-settings.spp // spp_per_pass)
+        if band_film:
+            film = new_band_film(mesh, settings)
+            pass_fn = render_pass_sharded_band
+        else:
+            film = film_mod.new_film(settings.width, settings.height, device=mesh.device)
+            pass_fn = render_pass_sharded
+        for p in range(n_passes):
+            film = pass_fn(mesh, scene, camera, film, settings, p * spp_per_pass)
+            if progress is not None:
+                trace.synchronize(mesh.device)
+                progress(p + 1, n_passes)
+        if band_film:
+            # gather the bands once, then crop the padding rows
+            full = torch.cat([film.rgb, film.weight[..., None]], dim=-1)
+            if mesh.distributed and mesh.data > 1:
+                full = torch.cat(_all_gather(mesh, full))
+            h = settings.height
+            film = film_mod.Film(rgb=full[:h, :, :3], weight=full[:h, :, 3])
+        return film_mod.develop(film)
 
 
 def make_train_step(mesh: Mesh, camera: cam_mod.Camera, settings: render.RenderSettings,

@@ -8,7 +8,8 @@ does not divide the lane count (padding slots).  Scenes: the demo (brute
 force), bounded media (the medium column rides the chunks), the 16x16
 mesh (the BVH walk) and a moving sphere (the time column).  Then the
 port's compacted loop against JAX's ``_li_compacted``, the render setting,
-the loop's host syncs and live lanes, and the error under autograd.
+the loop's host syncs and live lanes (the tracer's counters), and the error
+under autograd.
 """
 
 import jax
@@ -28,6 +29,7 @@ from gopbrt_tpu_torch.models import integrators as tint
 from gopbrt_tpu_torch.models import render as trender
 from gopbrt_tpu_torch.models.scene import SceneBuilder
 from gopbrt_tpu_torch.ops import geom as tgeom
+from gopbrt_tpu_torch.utils import trace
 
 W, H = 48, 27
 SEED = 4
@@ -70,17 +72,26 @@ def test_compacted_equals_the_uncompacted_chain(name):
     cone = trender._cone(cam, settings)
     off = tint._li_wavefront(scene, o, d, pix, smp, SEED, tint.PathConfig(max_depth=depth),
                              cone=cone, time=time)
-    stats = {}
     o_in = o.clone()
-    on = tint._li_wavefront(scene, o, d, pix, smp, SEED,
-                            tint.PathConfig(max_depth=depth, compaction=True, chunk_size=CHUNK),
-                            cone=cone, time=time, stats=stats)
+    trace.enable()
+    try:
+        with trace.request() as req:
+            on = tint._li_wavefront(scene, o, d, pix, smp, SEED,
+                                    tint.PathConfig(max_depth=depth, compaction=True,
+                                                    chunk_size=CHUNK),
+                                    cone=cone, time=time)
+    finally:
+        trace.disable()
     assert torch.equal(o, o_in)  # the caller's rays are not written
     assert bool(torch.isfinite(on).all()) and float(off.mean()) > 1e-3
     torch.testing.assert_close(on, off, atol=1e-5, rtol=0.0)
-    live = stats["live"]
+    by_bounce = req.counter("li.lanes_live")
+    live = [by_bounce[k] for k in sorted(by_bounce)]
     assert live[0] == W * H and all(a >= b for a, b in zip(live, live[1:]))
-    assert stats["syncs"] == len(live) <= depth
+    # the loop reads its live count once a bounce: a host sync on a card,
+    # none on the CPU
+    syncs = req.counter("host_syncs").get("compaction", 0)
+    assert syncs == (len(live) if on.is_cuda else 0) and len(live) <= depth
 
 
 def test_compacted_matches_jax_li_compacted():
