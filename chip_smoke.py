@@ -14,6 +14,15 @@ non-zero and never prints the last line:
    stack);
 3. kernel vs plain, each kernel against its plain PyTorch version on the
    same inputs:
+   - ``[camera-rays]``: the camera-ray kernel (csrc/camera_rays.cu) against
+     ``render.band_rays_plain`` on one 1920x273 band of four 1080p cameras
+     (the demo's and the mesh's, an orthographic one, a thin lens), at
+     stratified 1 and 8 spp, random and Halton: pixel, sample and jitter
+     bit-equal, o and d within 2e-7 (o relative to its largest component
+     where that exceeds 1), d a unit vector; a crop window's columns of a
+     band bit-equal to the band's lanes; the device ms of a launch (behind
+     a spin kernel) beside its bound (48 B a lane written) and the plain
+     version's ms;
    - the bounce megakernel on one 1920x273 band of the 1080p demo at depth
      10 (the main path's launch shape), and on a lobe scene (checker floor,
      matte, mirror, smooth and rough glass, sphere lamp) at 256x256, depth 8;
@@ -136,7 +145,9 @@ non-zero and never prints the last line:
      #2 / #3, configs 2 and 4 on #1, config 3 on #5;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
-   profiled passes.  The brute kernels are timed on every launch of the
+   profiled passes; the camera-ray kernel's row: its launches in the
+   demo's main path (one a band), its ms from ``[camera-rays]`` (a launch
+   on the device, and a call's with the host's launch).  The brute kernels are timed on every launch of the
    config-1 band, beside the device ms of that launch in the profiled
    pass and its bound by two methods: the work the function needs (the
    tests of the lanes that are not dead, the bytes every lane moves) and
@@ -195,11 +206,12 @@ N_PASSES = 5
 INV_SIZE, INV_SPP, INV_STEPS = 64, 64, 40
 # __global__ functions of csrc/*.cu, as the profiler names their launches
 OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel",
-               "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel")
+               "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel", "camera_rays_kernel")
 # the _build.LAUNCHES name of each of OWN_KERNELS
 LAUNCH_KEY = {"mega_kernel": "megakernel", "closest_hit_kernel": "intersect",
               "any_hit_kernel": "intersect_any", "bvh_closest_kernel": "bvh_intersect",
-              "bvh_any_kernel": "bvh_intersect_any", "mesh_kernel": "mesh_megakernel"}
+              "bvh_any_kernel": "bvh_intersect_any", "mesh_kernel": "mesh_megakernel",
+              "camera_rays_kernel": "camera_rays"}
 # profiled_pass: traces after the first one that dropped events
 PROFILE_RETRIES = 2
 # the compile-time instances of csrc/intersect.cu (brute_intersect.INSTANCE_*)
@@ -211,6 +223,15 @@ FUSED = {"brute": ("intersect_brute_fused", "intersect_p_brute_fused"),
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def camera_launches(settings, passes: int = 1) -> int:
+    """The camera-ray kernel's launches in ``passes`` passes of
+    ``render_pass``: one a band of ``chunk_pixels`` and sample (a
+    ``chain_pass`` is a pass at ``samples_per_pass`` 1)."""
+    w, h = settings.width, settings.height
+    band_rows = max(1, min((settings.chunk_pixels or w * h) // w, h))
+    return math.ceil(h / band_rows) * settings.samples_per_pass * passes
 
 
 def kernel_name(symbol: str):
@@ -266,14 +287,18 @@ def agreement(got: torch.Tensor, ref: torch.Tensor):
     return frac, mean_rel, float(diff.max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` between CUDA events, after a warm-up."""
+def cuda_ms(fn, reps: int, spin: bool = False) -> float:
+    """Median milliseconds of ``fn`` between CUDA events, after a warm-up.
+    spin: each call is queued behind a sleeping kernel, so that the
+    events time the device's work and not the host's launch."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -638,6 +663,114 @@ def timed_passes(render, film_mod, scene, camera, settings, dev):
     return dt_ms, dict(_build.LAUNCHES), film
 
 
+# bytes a lane the camera-ray kernel writes: jitter 8, o 12, d 12, pixel 8,
+# sample 8 (it reads two 4x4 matrices, once a block through the cache)
+CAMERA_BYTES_PER_LANE = 48
+# o and d against band_rays_plain: the plain version's matrix products
+# round in cuBLAS's order (o relative to its largest component beyond 1)
+CAMERA_TOL = 2e-7
+
+
+def camera_rays_checks(dev, render, device_name: str, power_limit: str) -> dict:
+    """``[camera-rays]``: the camera-ray kernel through ``band_rays`` against
+    ``band_rays_plain`` on the card, on the second 1920x273 band of four
+    1080p cameras (the demo's and the mesh's perspective ones, an
+    orthographic one and a thin lens), each sampler: one launch each,
+    synchronised; pixel, sample and jitter bit-equal; o and d within
+    CAMERA_TOL; d a unit vector.  Then a crop window's columns of the
+    band: the plain version's integers and jitter bit for bit, and the
+    band's own lanes (o and d too) bit for bit, so a crop renders the rays
+    of the full render.  Then the device ms of a launch (median of single
+    launches) beside its bound, the ms of a call as the host's loop sees
+    it, and the plain version's ms.  -> {"launches", "max_do", "max_dd",
+    "ms", "call_ms", "plain_ms", "bound_ms"} (ms of the demo's stratified
+    band)."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.models import camera as cam_mod
+    from gopbrt_tpu_torch.models import demo, meshes
+    from gopbrt_tpu_torch.ops import geom
+
+    frame = geom.look_at([3.0, 4.0, 5.0], [0.0, 0.5, 0.0], [0.0, 1.0, 0.0])
+    cameras = {"demo": demo.build_demo_camera(W, H, device=dev),
+               "mesh10k": meshes.mesh_camera(W, H, device=dev),
+               "orthographic": cam_mod.orthographic_camera(frame, W, H, device=dev),
+               "thin lens": cam_mod.perspective_camera(frame, W, H, fov_deg=45.0,
+                                                       lens_radius=0.1, focal_distance=4.0,
+                                                       device=dev)}
+    if not (cameras["orthographic"].kind == cam_mod.CAM_ORTHOGRAPHIC and cameras["thin lens"].lens_radius > 0):
+        raise AssertionError("[camera-rays]: not an orthographic and a thin-lens camera")
+    base = render.RenderSettings(width=W, height=H, spp=1, seed=2**31 + 1017)
+    rows = base.chunk_pixels // W
+    samplers = {"stratified 1 spp": base, "stratified 8 spp": base._replace(spp=8),
+                "random": base._replace(sampler="random"),
+                "halton": base._replace(sampler="halton", spp=8)}
+    out = {"launches": 0, "max_do": 0.0, "max_dd": 0.0}
+    for cname, cam in cameras.items():
+        for sname, st in samplers.items():
+            before = _build.LAUNCHES["camera_rays"]
+            got = render.band_rays(cam, st, rows, rows, 3)
+            torch.cuda.synchronize()
+            out["launches"] += _build.LAUNCHES["camera_rays"] - before
+            if _build.LAUNCHES["camera_rays"] != before + 1:
+                raise AssertionError(f"[camera-rays] {cname}, {sname}: band_rays made "
+                                     f"{_build.LAUNCHES['camera_rays'] - before} launches")
+            want = render.band_rays_plain(cam, st, rows, rows, 3)
+            torch.cuda.synchronize()
+            same = [torch.equal(g, w) for g, w in zip((got[0], got[3], got[4]),
+                                                      (want[0], want[3], want[4]))]
+            same_dtype = [g.dtype == w.dtype and g.shape == w.shape
+                          for g, w in zip(got, want)]
+            scale = want[1].abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+            do = float(((got[1] - want[1]).abs() / scale).max())
+            dd = float((got[2] - want[2]).abs().max())
+            unit = float((got[2].double().norm(dim=1) - 1.0).abs().max())
+            exact = float((got[2] == want[2]).all(dim=1).float().mean())
+            out["max_do"], out["max_dd"] = max(out["max_do"], do), max(out["max_dd"], dd)
+            phase("camera-rays", f"{cname}, {sname}, band of rows {rows}-{2 * rows - 1} "
+                  f"({got[1].shape[0]} lanes): jitter, pixel, sample bit-equal {same}; "
+                  f"max |do| (relative beyond 1) {do:.3e}, max |dd| {dd:.3e}, d bit-equal "
+                  f"on {exact:.4f} of lanes, max ||d| - 1| {unit:.2e}")
+            if not (all(same) and all(same_dtype) and do <= CAMERA_TOL and dd <= CAMERA_TOL
+                    and unit <= 2.4e-7):
+                raise AssertionError(f"[camera-rays] {cname}, {sname}: the kernel "
+                                     "disagrees with band_rays_plain")
+    # a crop window's columns of the band (the CROP of [options])
+    st, cam = samplers["stratified 8 spp"], cameras["thin lens"]
+    x0, x1 = W // 4, 3 * W // 4
+    before = _build.LAUNCHES["camera_rays"]
+    band = render.band_rays(cam, st, rows, rows, 3)
+    got = render.band_rays(cam, st, rows, rows, 3, (x0, x1))
+    torch.cuda.synchronize()
+    out["launches"] += _build.LAUNCHES["camera_rays"] - before
+    want = render.band_rays_plain(cam, st, rows, rows, 3, (x0, x1))
+    same = [torch.equal(got[i], want[i]) for i in (0, 3, 4)]
+    of_band = [torch.equal(g, b.reshape(rows, W, -1)[:, x0:x1].reshape(g.shape))
+               for g, b in zip(got, band)]
+    phase("camera-rays", f"thin lens, stratified 8 spp, columns [{x0}, {x1}) of the band "
+          f"({got[1].shape[0]} lanes): jitter, pixel, sample bit-equal to the plain version "
+          f"{same}; jitter, o, d, pixel, sample bit-equal to the band's lanes {of_band}")
+    if not (all(same) and all(of_band)):
+        raise AssertionError("[camera-rays]: a window's rays differ from the band's")
+    st, cam = samplers["stratified 1 spp"], cameras["demo"]
+    n = W * rows
+    before = _build.LAUNCHES["camera_rays"]
+    out["ms"] = cuda_ms(lambda: render.band_rays(cam, st, rows, rows, 0), 50, spin=True)
+    out["call_ms"] = cuda_ms(lambda: render.band_rays(cam, st, rows, rows, 0), 50)
+    out["launches"] += _build.LAUNCHES["camera_rays"] - before
+    out["plain_ms"] = cuda_ms(lambda: render.band_rays_plain(cam, st, rows, rows, 0), 10)
+    out["bound_ms"] = n * CAMERA_BYTES_PER_LANE / PEAK_BYTES_PER_S * 1e3
+    phase("camera-rays", f"demo band {W}x{rows}, stratified 1 spp: {out['ms']:.4f} ms a "
+          f"launch on the device (median of 50 single launches, each behind a sleeping "
+          f"kernel; bound {out['bound_ms']:.4f} ms: {n * CAMERA_BYTES_PER_LANE / 1e6:.1f} MB "
+          f"at 3.35 TB/s, share {out['bound_ms'] / out['ms']:.3f}); {out['call_ms']:.4f} ms "
+          f"a band_rays call between events with the host's launch; plain band_rays "
+          f"{out['plain_ms']:.3f} ms; {out['launches']} launches ({device_name}, "
+          f"{power_limit})")
+    return out
+
+
+# spin kernels (torch.cuda._sleep) that open each profiler session of _trace
+PRIMER_SPINS = 4
 # a device event of a trace: its name, start and duration in microseconds
 DeviceEvent = collections.namedtuple("DeviceEvent", "name start_us dur_us")
 
@@ -650,11 +783,19 @@ def _trace(fn, ranges: tuple, host: bool = True):
     kernels and copies.  host=False traces the device only (no host ms).
     The events are read from the profiler's kineto results as they are:
     ``prof.events()`` builds a Python object for each event, over 10x
-    slower, seconds for a pass of tens of thousands of kernels."""
+    slower, seconds for a pass of tens of thousands of kernels.
+
+    Late in a long process, a session loses the records of the card's
+    first one to three operations (kernels, copies, annotations), which
+    were a pass's first camera-ray kernel: the session opens with
+    PRIMER_SPINS spin kernels of its own, left out of the events."""
     activities = [torch.profiler.ProfilerActivity.CUDA]
     if host:
         activities.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(PRIMER_SPINS):
+            torch.cuda._sleep(500_000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -665,7 +806,7 @@ def _trace(fn, ranges: tuple, host: bool = True):
         name, kind = e.name(), e.device_type()
         if kind == cpu and name in host_ms:
             host_ms[name] += e.duration_ns() / 1e6
-        elif kind == cuda and name not in ranges:
+        elif kind == cuda and name not in ranges and "spin_kernel" not in name:
             work.append(DeviceEvent(torch._C._demangle(name), e.start_ns() / 1e3,
                                     e.duration_ns() / 1e3))
     return host_ms, work
@@ -911,9 +1052,10 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
     counts of each."""
     scene, metal, cam, settings = m["scene"], m["metal"], m["cam"], m["settings"]
     dt, launches, film = timed_passes(render, film_mod, scene, cam, settings, dev)
-    if launches != {"mesh_megakernel": 4 * N_PASSES}:
+    want = {"mesh_megakernel": 4 * N_PASSES, "camera_rays": camera_launches(settings, N_PASSES)}
+    if launches != want:
         raise AssertionError(f"mesh main path launched {launches} in {N_PASSES} passes, "
-                             f"expected {4 * N_PASSES} mesh megakernel launches")
+                             f"expected {want}")
     img = film_mod.develop(film)
     if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01):
         raise AssertionError(f"mesh scene: bad image (mean {float(img.mean())})")
@@ -931,7 +1073,8 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
 
     dtc, launches_c, film_c = timed_passes(render, film_mod, metal, cam, settings, dev)
     if not (launches_c.get("bvh_intersect", 0) > 0 and launches_c.get("bvh_intersect_any", 0) > 0
-            and set(launches_c) == {"bvh_intersect", "bvh_intersect_any"}):
+            and set(launches_c) == {"bvh_intersect", "bvh_intersect_any", "camera_rays"}
+            and launches_c["camera_rays"] == camera_launches(settings, N_PASSES)):
         raise AssertionError(f"the BVH chain main path launched {launches_c}")
     img_c = film_mod.develop(film_c)
     if not (bool(torch.isfinite(img_c).all()) and float(img_c.mean()) > 0.01):
@@ -1005,6 +1148,7 @@ def family_pass(name, render, film_mod, scene, camera, settings, dev, out: dict,
     ``out["launches"]``."""
     dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
     want = {k: v * N_PASSES for k, v in FAMILY_LAUNCHES[name].items()}
+    want["camera_rays"] = camera_launches(settings, N_PASSES)
     if launches != want:
         raise AssertionError(f"{name} main path launched {launches} in {N_PASSES} "
                              f"passes, expected {want}")
@@ -1194,13 +1338,14 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
 
     - the uninterrupted render at OPT_SPP spp (``progress`` once a pass);
     - the crop window CROP: one ``render_wave`` of its 518,400 lanes a
-      pass (the scatter splat, with atomics), its launches, #1 on the
-      crop's lanes against ``path_li_plain``, and its interior pixels (one
-      pixel in from the edge: every box tap inside the crop) against the
-      same region of the full render, each within 1e-5: both splats weigh
-      a tap from the same rounded film position (the row splat's jitter is
-      p_film - pixel), so only the order of the adds differs (the scatter
-      splat's atomics);
+      pass (the scatter splat, with atomics), its launches (the camera-ray
+      kernel on the window's columns, #1), #1 on the crop's lanes against
+      ``path_li_plain``, and its interior pixels (one pixel in from the
+      edge: every box tap inside the crop) against the same region of the
+      full render, each within 1e-5: both take their rays from the
+      camera-ray kernel and weigh a tap from the same rounded film
+      position (the row splat's jitter is p_film - pixel), so only the
+      order of the adds differs (the scatter splat's atomics);
     - the Halton sampler, a Mitchell and a Lanczos filter: N_PASSES timed
       passes each, #1's launches a pass and the splat's host ms in a
       profiled pass, a finite non-black image; #1 on a Halton band
@@ -1253,7 +1398,9 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
     crop, crop_ms, launches = counted(lambda: render.render(scene, camera, crop_set,
                                                             device=dev))
     n_crop = (x1 - x0) * (y1 - y0)
-    if launches != {"megakernel": OPT_SPP} or tuple(crop.shape) != (y1 - y0, x1 - x0, 3):
+    # a pass: one camera-ray launch for the window, one megakernel launch
+    if launches != {"megakernel": OPT_SPP, "camera_rays": OPT_SPP} or \
+            tuple(crop.shape) != (y1 - y0, x1 - x0, 3):
         raise AssertionError(f"crop render: launches {launches}, image {tuple(crop.shape)}")
     diff = (crop[1:-1, 1:-1] - full[y0 + 1:y1 - 1, x0 + 1:x1 - 1]).abs().amax(dim=-1)
     phase("options", f"crop {CROP}: pixels [{x0}, {x1}) x [{y0}, {y1}), {n_crop} lanes a pass, "
@@ -1279,7 +1426,8 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
         out["launches"].update(launches)
         img = film_mod.develop(film)
         mean = float(img.mean())
-        if launches != {"megakernel": 4 * N_PASSES} or not (
+        want = {"megakernel": 4 * N_PASSES, "camera_rays": camera_launches(opt, N_PASSES)}
+        if launches != want or not (
                 bool(torch.isfinite(img).all()) and mean > 0.01):
             raise AssertionError(f"{what}: launches {launches}, image mean {mean}")
         line, _, _ = profiled_pass(render, scene, camera, film, opt, dev, dt)
@@ -1437,7 +1585,8 @@ def compaction_checks(dev, render, film_mod, runs, device_name: str, power_limit
         out["launches"].update(launches_c)
         img = film_mod.develop(film)
         if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01
-                and set(launches_c) == want):
+                and set(launches_c) == want | {"camera_rays"}
+                and launches_c["camera_rays"] == camera_launches(settings)):
             raise AssertionError(f"{name}: compacted render_pass launched {launches_c}, "
                                  f"image mean {float(img.mean())}")
         for mode, c, dt, launches, st in (("uncompacted chain", cfg, dt_u, launches_u, False),
@@ -1512,7 +1661,8 @@ def motion_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
     sphere at 1920x1080 (brute force) and a scene of 82 prims with 9 of
     them moving at MOTION_BVH_SIZE square (the plain, time-aware BVH
     walk): N_PASSES timed passes with the counts set to 0 just before (no
-    launch of the port's kernels), a finite, non-black image, and the
+    launch of the port's integrator kernels, the camera-ray kernel's one a
+    band), a finite, non-black image, and the
     rows of a band (MOTION_BAND_ROWS rows, the shutter times drawn per
     lane) on the card against the same lanes on the CPU (> 0.99 within
     1e-3 relative)."""
@@ -1525,7 +1675,8 @@ def motion_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
         dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
         img = film_mod.develop(film)
         mean = float(img.mean())
-        if launches or not (bool(torch.isfinite(img).all()) and mean > 0.01):
+        if launches != {"camera_rays": camera_launches(settings, N_PASSES)} or not (
+                bool(torch.isfinite(img).all()) and mean > 0.01):
             raise AssertionError(f"{what}: launches {launches}, image mean {mean}")
         cfg = render.path_config(settings)
         lanes = []
@@ -1540,7 +1691,7 @@ def motion_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
               f"{int(scene.prims.anim.animated.sum())} moving, "
               f"{'the BVH walk' if n_fill else 'brute force'}), {settings.width}x"
               f"{settings.height} 1 spp depth {settings.max_depth}: {N_PASSES} passes, "
-              f"{dt:.2f} ms per pass, launches {launches or 'none'}, image mean {mean:.4f} "
+              f"{dt:.2f} ms per pass, launches {launches}, image mean {mean:.4f} "
               f"({device_name}, {power_limit}); {lanes[0].shape[0]} lanes of a band on the card "
               f"against the CPU: {frac:.5f} within 1e-3 (bar 0.99), mean diff {mean_rel:.2e}, "
               f"max abs err {max_abs:.3e}")
@@ -2012,7 +2163,8 @@ def shard_checks(dev, device_name: str, power_limit: str) -> dict:
         for mode, r in modes.items():
             if not (r["finite"] and r["max_abs_err"] <= 2e-5):
                 bad.append(f"{where} {mode}: {r['max_abs_err']:.3e}")
-    want = {"megakernel": 4 * SHARD_SPP}  # 4 bands of the image a sample
+    # 4 bands of the image a sample, a camera-ray launch and a megakernel one each
+    want = {"megakernel": 4 * SHARD_SPP, "camera_rays": 4 * SHARD_SPP}
     launches = {mode: _sum_launches([one[mode]["launches"]]
                                     + [r["shard"][mode]["launches"] for r in ranks])
                 for mode in one}
@@ -2093,7 +2245,8 @@ def service_checks(dev, device_name: str, power_limit: str) -> dict:
                   f"bytes, {px.shape[1]}x{px.shape[0]}, equal to "
                   + ("render's" if sid == "demo" else "the handler's image once more")
                   + f": {same}; image mean {mean:.4f}; {device_name}, {power_limit}")
-            want = {kernel[sid]: 4 * settings.spp}  # 4 bands of the image a sample
+            # 4 bands of the image a sample, a camera-ray launch and an integrator one each
+            want = {kernel[sid]: 4 * settings.spp, "camera_rays": 4 * settings.spp}
             if not (finite and same and mean > 0.01 and launches == want
                     and px.shape == (settings.height, settings.width, 3)):
                 bad.append(f"{sid}: finite {finite}, PNG equal {same}, mean {mean}, "
@@ -2125,11 +2278,12 @@ def service_checks(dev, device_name: str, power_limit: str) -> dict:
 
 # [cross-validate]: the kernels each golden config's render must launch
 # (and no other): #2 / #3 for config 1's direct lighting, #1 for the brute
-# fast-path configs 2 and 4, #5 for the mesh of config 3
-VAL_KERNELS = {"config1_demo_direct": {"intersect", "intersect_any"},
-               "config2_cornell_mirror": {"megakernel"},
-               "config3_mesh_bvh": {"mesh_megakernel"},
-               "config4_arealights_glass": {"megakernel"}}
+# fast-path configs 2 and 4, #5 for the mesh of config 3; the camera rays'
+# (#6) in every one
+VAL_KERNELS = {"config1_demo_direct": {"intersect", "intersect_any", "camera_rays"},
+               "config2_cornell_mirror": {"megakernel", "camera_rays"},
+               "config3_mesh_bvh": {"mesh_megakernel", "camera_rays"},
+               "config4_arealights_glass": {"megakernel", "camera_rays"}}
 # [baseline]: the mesh scene's size and depth in --scene mode
 # (benchmarks/cross_validate.py --mesh-baseline)
 MESH_BASE_W, MESH_BASE_H, MESH_BASE_DEPTH = 960, 544, 5
@@ -2288,7 +2442,7 @@ def path_config_checks(dev, render, film_mod, runs, device_name: str, power_limi
             launches = dict(_build.LAUNCHES)
             out["launches"].update(launches)
             want = ({control} if gate == "default"
-                    else {closest, closest + "_any"} if nee else {closest})
+                    else {closest, closest + "_any"} if nee else {closest}) | {"camera_rays"}
             img = film_mod.develop(film)
             linear = float(film_mod.develop(film, gamma=False).mean())
             means[gate] = linear
@@ -2372,7 +2526,8 @@ def null_passes_checks(dev, render, film_mod, device_name: str, power_limit: str
               + f"); image mean {float(img.mean()):.6f} against the default cfg's "
               f"{mean0:.6f} through render_pass" + (", bit-equal to it" if same else "")
               + f" ({device_name}, {power_limit})")
-        if launches != want or kinds != want or not bool(torch.isfinite(img).all()):
+        if launches != {**want, "camera_rays": camera_launches(settings._replace(
+                samples_per_pass=1))} or kinds != want or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"null_passes {k}: launched {launches}, expected {want}")
         if k == 2 and not same:
             raise AssertionError("null_passes 2 differs from the default cfg's pass")
@@ -2608,6 +2763,7 @@ def main() -> int:
           f"the C++ tracer (g++) {time.perf_counter() - t1:.1f} s, {tracer}")
 
     # ---- 3. kernel vs plain ---------------------------------------------
+    cam_rays = camera_rays_checks(dev, render, device_name, power_limit)
     scene = build_demo_scene(device=dev)
     camera = build_demo_camera(W, H, device=dev)
     settings = demo_settings(W, H, spp=1, samples_per_pass=1)
@@ -2809,10 +2965,11 @@ def main() -> int:
     # ---- 4. main paths --------------------------------------------------
     # the demo, path depth 10: the megakernel only
     dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
-    if launches != {"megakernel": 4 * N_PASSES}:
+    want = {"megakernel": 4 * N_PASSES, "camera_rays": camera_launches(settings, N_PASSES)}
+    if launches != want:
         raise AssertionError(f"demo main path launched {launches} in {N_PASSES} passes, "
-                             f"expected {4 * N_PASSES} megakernel launches")
-    mega_launches = launches["megakernel"]
+                             f"expected {want}")
+    mega_launches, cam_launches = launches["megakernel"], launches["camera_rays"]
     phase("main-path", f"demo: {N_PASSES} passes of {W}x{H} 1 spp depth {DEPTH}: "
           f"{dt:.2f} ms per pass, launches {launches}")
     print(json.dumps({
@@ -2848,7 +3005,8 @@ def main() -> int:
 
     # config 1: direct lighting depth 3, one light per vertex
     dt1, launches1, film1 = timed_passes(render, film_mod, scene1, camera1, set1, dev)
-    want = {"intersect": 16 * N_PASSES, "intersect_any": 12 * N_PASSES}
+    want = {"intersect": 16 * N_PASSES, "intersect_any": 12 * N_PASSES,
+            "camera_rays": camera_launches(set1, N_PASSES)}
     if launches1 != want:
         raise AssertionError(f"config-1 main path launched {launches1} in {N_PASSES} "
                              f"passes, expected {want}")
@@ -2893,7 +3051,8 @@ def main() -> int:
     dtf, launchesf, filmf = timed_passes(render, film_mod, fscene, fcam, fset, dev)
     imgf = film_mod.develop(filmf)
     if not (launchesf.get("intersect", 0) > 0 and launchesf.get("intersect_any", 0) > 0
-            and "megakernel" not in launchesf):
+            and "megakernel" not in launchesf
+            and launchesf.get("camera_rays") == camera_launches(fset, N_PASSES)):
         raise AssertionError(f"feature scene launched {launchesf}")
     if not (bool(torch.isfinite(imgf).all()) and float(imgf.mean()) > 0.01):
         raise AssertionError(f"feature scene: bad image (mean {float(imgf.mean())})")
@@ -3028,6 +3187,18 @@ def main() -> int:
             last = mesh["timing"][name + "_last"]
             row.update(ms_last_launch=last[0], bound_ms_last_launch=last[2])
         line.append(row)
+    # the camera rays (no TPU kernel): the demo main path's launches, one a
+    # band of every pass; [camera-rays]'s own launches apart
+    line.append({
+        "name": "camera_rays", "route": "cuda", "source": "gopbrt_tpu_torch/csrc/camera_rays.cu",
+        "replaces": None, "launches": cam_launches,
+        "launches_per_pass": cam_launches // N_PASSES,
+        "launches_camera_rays": cam_rays["launches"],
+        "max_abs_err": max(cam_rays["max_do"], cam_rays["max_dd"]), "ms": cam_rays["ms"],
+        "call_ms": cam_rays["call_ms"], "plain_ms": cam_rays["plain_ms"],
+        "bound_ms": cam_rays["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "ms_per_pass": per_pass.get("camera_rays_kernel"),
+    })
     for row in line:  # the [grad] and [inverse] paths' launches of each kernel
         row["launches_grad_inverse"] = slice_launches.get(row["name"], 0)
         # the [options] and [compaction] phases' launches (their main paths

@@ -28,9 +28,17 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# flags of one source beyond NVCC_FLAGS, by library (source stem)
+SOURCE_FLAGS = {
+    # no fused multiply-adds: every product and sum rounds on its own, as
+    # the plain version's PyTorch operations round them
+    "camera_rays": ["-fmad=false"],
+}
 
 # Launches of the CUDA kernels, by kernel name ("megakernel", "intersect",
-# "intersect_any", "bvh_intersect", "bvh_intersect_any", "mesh_megakernel").
+# "intersect_any", "bvh_intersect", "bvh_intersect_any", "mesh_megakernel",
+# "camera_rays"); a name not in portbench's KERNEL_SYMBOL is a substring of
+# its kernel's device symbol (camera_rays_kernel).
 # Each wrapper adds one where it launches its kernel and nowhere else;
 # callers reset it with LAUNCHES.clear().
 LAUNCHES: collections.Counter = collections.Counter()
@@ -67,6 +75,14 @@ _SIGNATURES = {
             [_P] * 5 + [_I, _P, _I, _P, _P, _I, _I, _I, ctypes.c_uint]
             + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P, _I],
     },
+    "camera_rays": {
+        # r2c, c2w, width, row0, col0, cols, n, seed, sample, sampler, nx,
+        # ny, kind, lens_radius, focal_distance, jitter, o, d, pixel,
+        # sample_out, stream
+        "gopbrt_camera_rays":
+            [_P, _P, _I, _I, _I, _I, _I, ctypes.c_uint, ctypes.c_longlong, _I, _I, _I, _I]
+            + [ctypes.c_float] * 2 + [_P] * 6,
+    },
 }
 
 
@@ -80,6 +96,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -101,7 +118,8 @@ def build() -> dict:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src.stem, []), "-o", str(tmp),
+               str(src)]
         jobs[src.stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, lib, time.perf_counter())

@@ -3,9 +3,11 @@
 Counterpart of ``gopbrt_tpu/models/render.py``: ``RenderSettings``,
 ``camera_samples`` (stratified, random or Halton), ``camera_time``,
 ``render_wave`` (explicit pixel-sample lanes, splatted by scatter),
-``band_jitter_radiance``, ``render_wave_rows``, ``render_pass``, the crop
-window (``crop_pixel_bounds``, ``_render_pass_crop``) and ``render`` with
-its progress callback and checkpoint / resume.  Where the JAX render loop scans
+``band_rays`` (a band's camera rays: one CUDA launch on the card,
+``band_rays_plain`` on the CPU), ``band_jitter_radiance``,
+``render_wave_rows``, ``render_pass``, the crop window
+(``crop_pixel_bounds``, ``_render_pass_crop``) and ``render`` with its
+progress callback and checkpoint / resume.  Where the JAX render loop scans
 the bands under ``jit``, this one is a Python loop: one ``li`` (path) or
 ``li_direct`` (direct lighting) call per band.  Each ``render`` call is
 one request of the tracer (``utils/trace.py``, span ``render.request``),
@@ -28,7 +30,7 @@ from gopbrt_tpu_torch import resolve_device
 from gopbrt_tpu_torch.models import camera as cam_mod
 from gopbrt_tpu_torch.models import film as film_mod
 from gopbrt_tpu_torch.models import integrators
-from gopbrt_tpu_torch.ops import rng, sampling
+from gopbrt_tpu_torch.ops import camera_rays, rng, sampling
 from gopbrt_tpu_torch.ops.filters import Filter, box_filter
 from gopbrt_tpu_torch.utils import trace
 
@@ -66,13 +68,23 @@ class RenderSettings(NamedTuple):
     chunk_pixels: int = 1 << 19
 
 
+def sampler_grid(settings: RenderSettings):
+    """The settings' film sampler -> (mode: "stratified", "random" or
+    "halton", the stratified grid nx, ny)."""
+    mode = settings.sampler if settings.stratify else "random"
+    if mode not in ("stratified", "random", "halton"):
+        raise ValueError(f"unknown sampler {mode!r}")
+    nx = int(np.floor(np.sqrt(settings.spp))) or 1
+    return mode, nx, max(settings.spp // nx, 1)
+
+
 def camera_samples(settings: RenderSettings, pixel_idx, sample_idx, seed):
     """CameraSample generation (Sampler.GetCameraSample, sampler.go:19-25):
     jittered film position + lens sample from the counter streams."""
     w = settings.width
     px = (pixel_idx % w).to(torch.float32)
     py = (pixel_idx // w).to(torch.float32)
-    mode = settings.sampler if settings.stratify else "random"
+    mode, nx, ny = sampler_grid(settings)
     if mode == "halton":
         # Halton (2, 3) over the sample index, rotated per pixel by the
         # pixel's stream at sample 0 (render.py:77-88)
@@ -82,13 +94,9 @@ def camera_samples(settings: RenderSettings, pixel_idx, sample_idx, seed):
         jitter = torch.stack([torch.fmod(h0 + r[..., 0], 1.0),
                               torch.fmod(h1 + r[..., 1], 1.0)], dim=-1)
     elif mode == "stratified":
-        nx = int(np.floor(np.sqrt(settings.spp))) or 1
-        ny = max(settings.spp // nx, 1)
         jitter = rng.stratified_2d(seed, pixel_idx, sample_idx, rng.DIM_CAMERA, nx, ny)
-    elif mode == "random":
-        jitter = rng.sample_2d(seed, pixel_idx, sample_idx, rng.DIM_CAMERA)
     else:
-        raise ValueError(f"unknown sampler {mode!r}")
+        jitter = rng.sample_2d(seed, pixel_idx, sample_idx, rng.DIM_CAMERA)
     p_film = torch.stack([px, py], dim=-1) + jitter
     u_lens = rng.sample_2d(seed, pixel_idx, sample_idx, rng.DIM_CAMERA + 2)
     return p_film, u_lens
@@ -140,19 +148,44 @@ def render_wave(scene, camera: cam_mod.Camera, film: film_mod.Film,
     scene's tensors that the integrator reads."""
     p_film, u_lens = camera_samples(settings, pixel_idx, sample_idx, settings.seed)
     o, d = cam_mod.generate_rays(camera, p_film, u_lens)
+    return _splat_rays(scene, camera, film, settings, p_film, o, d, pixel_idx, sample_idx)
+
+
+def _splat_rays(scene, camera, film, settings: RenderSettings, p_film, o, d, pixel_idx,
+                sample_idx) -> film_mod.Film:
+    """The radiance of the camera rays (o, d) from the film points
+    ``p_film``, splatted with ``film.add_samples``."""
     L = _radiance(scene, o, d, pixel_idx, sample_idx, camera, settings)
     return film_mod.add_samples(film, p_film, L, settings.filter)
 
 
 def band_rays(camera: cam_mod.Camera, settings: RenderSettings, row0: int,
-              n_rows: int, sample_idx: int):
+              n_rows: int, sample_idx: int, cols=None):
     """Camera rays of one sample for every pixel of the band of ``n_rows``
-    image rows from ``row0`` -> (jitter f32[N,2], o, d f32[N,3], pixel,
-    sample int64[N]), lanes in image order."""
+    image rows from ``row0`` (of the columns [x0, x1) of each row where
+    ``cols`` is (x0, x1)) -> (jitter f32[N,2], o, d f32[N,3], pixel,
+    sample int64[N]), lanes in image order.  A camera on the card takes one
+    launch of ``csrc/camera_rays.cu`` (``ops/camera_rays.py``), a camera on
+    the CPU ``band_rays_plain``; the tracer counts which in
+    ``render.camera_bands``."""
+    if camera_rays.on_card(camera):
+        trace.count("render.camera_bands", 1, key="kernel")
+        mode, nx, ny = sampler_grid(settings)
+        return camera_rays.camera_rays(camera, settings.width, row0, n_rows, sample_idx,
+                                       settings.seed, mode, nx, ny, cols)
+    trace.count("render.camera_bands", 1, key="plain")
+    return band_rays_plain(camera, settings, row0, n_rows, sample_idx, cols)
+
+
+def band_rays_plain(camera: cam_mod.Camera, settings: RenderSettings, row0: int,
+                    n_rows: int, sample_idx: int, cols=None):
+    """``band_rays`` in PyTorch operations: ``camera_samples``, then
+    ``camera.generate_rays``; differentiable in the camera's tensors."""
     w = settings.width
+    x0, x1 = (0, w) if cols is None else cols
     dev = camera.raster_to_camera.device
     y = row0 + torch.arange(n_rows, device=dev)[:, None]
-    x = torch.arange(w, device=dev)[None, :]
+    x = torch.arange(x0, x1, device=dev)[None, :]
     pixel_idx = (y * w + x).reshape(-1)
     sample_flat = torch.full_like(pixel_idx, sample_idx)
     p_film, u_lens = camera_samples(settings, pixel_idx, sample_flat, settings.seed)
@@ -235,19 +268,22 @@ def crop_pixel_bounds(settings: RenderSettings):
 def _render_pass_crop(scene, camera: cam_mod.Camera, film: film_mod.Film,
                       settings: RenderSettings, sample_base: int = 0,
                       device=None) -> film_mod.Film:
-    """One pass over the crop window's pixels only, one ``render_wave`` of
-    them a sample (the scatter splat; taps outside the film drop).  Pixel
-    ids stay global, so the crop draws the same streams as the same region
-    of the full render (render.py:274-297)."""
+    """One pass over the crop window's pixels only, one wave of them a
+    sample (the scatter splat; taps outside the film drop).  Pixel ids stay
+    global and the rays come from ``band_rays``, so the crop draws the same
+    streams and rays as the same region of the full render
+    (render.py:274-297)."""
     device = resolve_device(device)
     _check_device("the scene", scene.device, device)
     x0, x1, y0, y1 = crop_pixel_bounds(settings)
-    xs = torch.arange(x0, x1, device=device)[None, :]
-    ys = torch.arange(y0, y1, device=device)[:, None]
-    pixel_idx = (ys * settings.width + xs).reshape(-1)
+    w = settings.width
     for s in range(settings.samples_per_pass):
-        sample_idx = torch.full_like(pixel_idx, int(sample_base) + s)
-        film = render_wave(scene, camera, film, settings, pixel_idx, sample_idx)
+        jitter, o, d, pixel_idx, sample_idx = band_rays(camera, settings, y0, y1 - y0,
+                                                        int(sample_base) + s, (x0, x1))
+        # the film point: the jitter is p_film - pixel, exact (Sterbenz)
+        corner = torch.stack([pixel_idx % w, pixel_idx // w], dim=-1).to(torch.float32)
+        film = _splat_rays(scene, camera, film, settings, corner + jitter, o, d, pixel_idx,
+                           sample_idx)
     return film
 
 

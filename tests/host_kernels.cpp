@@ -10,12 +10,14 @@
 // run_paths), and hand a lane its next path as soon as its current one
 // ends: the refill of the bounce skeleton's persistent loop (csrc/bounce.cuh
 // run_paths), in another order.  Each writes path i's
-// radiance at row i.
+// radiance at row i.  The camera-ray entry runs csrc/camera_rays.cu's lane
+// function on every lane of a band, as its kernel's threads do.
 #include <algorithm>
 #include <numeric>
 #include <random>
 #include <vector>
 
+#include "camera_rays.cu"
 #include "intersect.cu"
 #include "megakernel.cu"
 #include "mesh_megakernel.cu"
@@ -215,6 +217,18 @@ void host_paths_mesh(const float* tables, const float* nodes, const float* recs,
         params(n, 0, n_lights, seed, func_int, world_radius, cone_w0, cone_sp, max_depth,
                rr_start, rr_threshold, flags),
         o, d, pixel, sample, L, lanes, order_seed);
+}
+
+// The camera rays of a window (csrc/camera_rays.cu): the lane function on
+// lanes 0..n-1; the arguments are gopbrt_camera_rays'.
+void host_camera_rays(const float* r2c, const float* c2w, int width, int row0, int col0,
+                      int cols, int n, unsigned seed, long long sample, int sampler, int nx, int ny, int kind,
+                      float lens_radius, float focal_distance, float* jitter, float* o,
+                      float* d, long long* pixel, long long* sample_out) {
+  const gopbrt::CameraParams P{width, row0, col0, cols, n, seed, sample, sampler, nx, ny, kind,
+                               lens_radius, focal_distance};
+  for (int lane = 0; lane < n; ++lane)
+    gopbrt::camera_ray(P, r2c, c2w, lane, jitter, o, d, pixel, sample_out);
 }
 
 }  // extern "C"

@@ -31,6 +31,12 @@ without a C++ compiler the tests skip.
   instance) at 16x16, at the bars of tests/test_megakernel.py; and bit for
   bit against themselves in another interleaving, so the order of refills
   cannot change a lane's answer.
+- The camera-ray kernel's lane (csrc/camera_rays.cu) against
+  ``render.band_rays_plain`` on bands of at most 64x16 lanes: stratified
+  (1, 8 and 9 samples a pixel), random and Halton samplers, the demo's
+  and the mesh's cameras, an orthographic and a thin-lens camera, a band
+  whose last rows lie past the image, a crop window's columns; pixel,
+  sample and jitter bit for bit, o and d within 2e-7.
 """
 
 import ctypes
@@ -54,11 +60,16 @@ from gopbrt_tpu.models.scene import SceneBuilder as JaxBuilder
 from gopbrt_tpu.ops import geom as jgeom
 from gopbrt_tpu.ops import intersect as jisect
 from gopbrt_tpu_torch._build import BUILD_ROOT, CSRC
+from gopbrt_tpu_torch.models import camera as tcam
+from gopbrt_tpu_torch.models import demo as tdemo
 from gopbrt_tpu_torch.models import gallery as tgallery
 from gopbrt_tpu_torch.models import integrators as tint
+from gopbrt_tpu_torch.models import meshes as tmeshes
 from gopbrt_tpu_torch.models import render as trender
 from gopbrt_tpu_torch.ops import brute_intersect as tbi
 from gopbrt_tpu_torch.ops import bvh as tbvh
+from gopbrt_tpu_torch.ops import camera_rays as tcr
+from gopbrt_tpu_torch.ops import geom as tgeom
 from gopbrt_tpu_torch.ops import megakernel as tmk
 from tests.test_bvh import random_rays
 from tests.test_intersect import make_prims, sphere_entry
@@ -71,6 +82,10 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # world_radius, cone_w0, cone_sp, max_depth, rr_start, rr_threshold,
 # flags, o, d, pixel, sample, L, n, lanes, order_seed
 _PATH_ARGS = [_I, _U, _F, _F, _F, _F, _I, _I, _F, _I, _P, _P, _P, _P, _P, _I, _I, _U]
+# host_camera_rays: r2c, c2w, width, row0, col0, cols, n, seed, sample,
+# sampler, nx, ny, kind, lens_radius, focal_distance, jitter, o, d, pixel,
+# sample_out
+_CAMERA_ARGS = [_P, _P, _I, _I, _I, _I, _I, _U, ctypes.c_longlong, _I, _I, _I, _I, _F, _F] + [_P] * 5
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,8 +118,9 @@ def lib():
     lib.host_plane_test.argtypes = [_P, _P, _P, _P, _I, _P]
     lib.host_paths_brute.argtypes = [_P, _I] + _PATH_ARGS
     lib.host_paths_mesh.argtypes = [_P, _P, _P, _I] + _PATH_ARGS
+    lib.host_camera_rays.argtypes = _CAMERA_ARGS
     for fn in (lib.host_bvh_walk, lib.host_intersect, lib.host_plane_test,
-               lib.host_paths_brute, lib.host_paths_mesh):
+               lib.host_paths_brute, lib.host_paths_mesh, lib.host_camera_rays):
         fn.restype = None
     return lib
 
@@ -436,3 +452,81 @@ def test_bounce_skeleton_is_the_same_in_any_order(lib, name):
     one = _host_paths(lib, name, 1, 0)
     for lanes, seed in ((5, 1), (32, 2)):
         np.testing.assert_array_equal(_host_paths(lib, name, lanes, seed), one)
+
+
+# ---------------------------------------------------------------------------
+# The camera rays
+# ---------------------------------------------------------------------------
+
+CAM_W, CAM_H = 64, 36
+
+
+def _camera(name):
+    if name == "demo":
+        return tdemo.build_demo_camera(CAM_W, CAM_H, device="cpu")
+    if name == "mesh10k":
+        return tmeshes.mesh_camera(CAM_W, CAM_H, device="cpu")
+    frame = tgeom.look_at([3.0, 4.0, 5.0], [0.0, 0.5, 0.0], [0.0, 1.0, 0.0])
+    if name == "orthographic":
+        return tcam.orthographic_camera(frame, CAM_W, CAM_H, device="cpu")
+    return tcam.perspective_camera(frame, CAM_W, CAM_H, fov_deg=45.0, lens_radius=0.1,
+                                   focal_distance=4.0, device="cpu")  # thin lens
+
+
+# name -> (camera, sampler, spp, first row, sample index, seed, columns);
+# 16 rows a band, the thin lens's last band running 12 rows past the image,
+# the crop windows' of their columns only
+CAMERA_CASES = {
+    "demo-stratified-spp1": ("demo", "stratified", 1, 8, 0, 2**31 + 11, None),
+    "demo-stratified-spp8": ("demo", "stratified", 8, 0, 5, 7, None),
+    "demo-random": ("demo", "random", 1, 4, 3, 2**31 - 1, None),
+    "demo-halton": ("demo", "halton", 16, 20, 12345, 2**33 + 5, None),
+    "mesh10k-stratified-spp8": ("mesh10k", "stratified", 8, 12, 13, 2**31 + 99, None),
+    "mesh10k-halton": ("mesh10k", "halton", 4, 0, 2**32 - 5, 42, None),  # 21 base-3 digits
+    "orthographic-stratified-spp1": ("orthographic", "stratified", 1, 16, 0, 3, None),
+    "thin-lens-stratified-spp9": ("thin_lens", "stratified", 9, 2, 7, 2**31 + 5, None),
+    "thin-lens-random-past-the-image": ("thin_lens", "random", 1, 32, 1, 17, None),
+    "demo-crop-window": ("demo", "stratified", 4, 9, 2, 2**31 + 7, (16, 49)),
+    "thin-lens-crop-window-to-the-edge": ("thin_lens", "halton", 4, 20, 3, 11, (40, 64)),
+}
+
+
+@pytest.mark.parametrize("case", list(CAMERA_CASES))
+def test_camera_ray_lane_matches_band_rays_plain(lib, case):
+    """The kernel's lane on every lane of a band against band_rays_plain:
+    pixel, sample and the jitter ((px + u) - px) bit for bit; o and d
+    within 2e-7 (o relative to the largest of its components and 1, its
+    scale where it is a point of the camera away from the origin), d a unit
+    vector.  o and d differ where the plain version's matrix products
+    round in BLAS's order."""
+    cam_name, sampler, spp, row0, sample_idx, seed, cols = CAMERA_CASES[case]
+    camera = _camera(cam_name)
+    settings = trender.RenderSettings(width=CAM_W, height=CAM_H, spp=spp, sampler=sampler,
+                                      seed=seed)
+    x0, x1 = cols or (0, CAM_W)
+    n_rows = 16
+    n = (x1 - x0) * n_rows
+    want = [t.numpy() for t in trender.band_rays_plain(camera, settings, row0, n_rows,
+                                                       sample_idx, cols)]
+    if cols is not None:  # the window's lanes are those columns of the band's
+        band = trender.band_rays_plain(camera, settings, row0, n_rows, sample_idx)
+        for w, b in zip(want, band):
+            np.testing.assert_array_equal(
+                w, b.numpy().reshape(n_rows, CAM_W, -1)[:, x0:x1].reshape(w.shape))
+    mode, nx, ny = trender.sampler_grid(settings)
+    jitter, o, d = (np.full((n, k), np.nan, np.float32) for k in (2, 3, 3))
+    pixel, sample = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    lib.host_camera_rays(_ptr(_np(camera.raster_to_camera, np.float32)),
+                         _ptr(_np(camera.camera_to_world, np.float32)), CAM_W, row0, x0,
+                         x1 - x0, n,
+                         seed & 0xFFFFFFFF, sample_idx, tcr.SAMPLERS[mode], nx, ny,
+                         camera.kind, camera.lens_radius, camera.focal_distance,
+                         _ptr(jitter), _ptr(o), _ptr(d), _ptr(pixel), _ptr(sample))
+    np.testing.assert_array_equal(pixel, want[3])
+    np.testing.assert_array_equal(sample, want[4])
+    np.testing.assert_array_equal(jitter.view(np.int32), want[0].view(np.int32))
+    scale = np.maximum(1.0, np.abs(want[1]).max(axis=1, keepdims=True))
+    assert np.abs(o - want[1]).max() <= 2e-7 * scale.max()
+    assert (np.abs(o - want[1]) <= 2e-7 * scale).all()
+    assert np.abs(d - want[2]).max() <= 2e-7
+    assert np.abs(np.linalg.norm(d.astype(np.float64), axis=1) - 1.0).max() <= 2.4e-7

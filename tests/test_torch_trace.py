@@ -12,7 +12,13 @@ tiny sizes:
   bounce;
 - under a profiler, the program runs the operations it runs with its
   counters cut out: the tracer adds none;
-- host syncs count only where a card is involved.
+- host syncs count only where a card is involved;
+- ``band_rays`` on the CPU takes its plain version, with no host sync, and
+  counts the band in ``render.camera_bands`` under ``"plain"``; where the
+  camera lies on a card (the device check mocked) it goes to the kernel's
+  wrapper, which refuses a camera that requires grad under grad mode;
+- a crop pass takes ``band_rays`` on the window's columns, a call a
+  sample, and splats what ``render_wave`` on its pixels splats.
 """
 
 import collections
@@ -23,6 +29,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from gopbrt_tpu_torch.models import demo, integrators, render
+from gopbrt_tpu_torch.models import film as film_mod
+from gopbrt_tpu_torch.ops import camera_rays
 from gopbrt_tpu_torch.utils import trace
 
 W, H = 32, 16
@@ -207,3 +215,62 @@ def test_host_syncs_count_only_with_a_card(tracing):
         assert trace.to_host(torch.tensor(5)).item() == 5
         trace.synchronize("cpu")
     assert req.counter("host_syncs") == {}
+
+
+def test_band_rays_on_the_cpu_takes_the_plain_path(demo_scene, tracing):
+    _, cam = demo_scene
+    settings = _settings()
+    with trace.request() as req:
+        got = render.band_rays(cam, settings, 4, 8, 3)
+    assert req.counter("render.camera_bands") == {"plain": 1}
+    assert req.counter("host_syncs") == {}
+    n = W * 8
+    assert [(tuple(t.shape), t.dtype) for t in got] == [
+        ((n, 2), torch.float32), ((n, 3), torch.float32), ((n, 3), torch.float32),
+        ((n,), torch.int64), ((n,), torch.int64)]
+    for a, b in zip(got, render.band_rays_plain(cam, settings, 4, 8, 3)):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3], torch.arange(4 * W, 12 * W))
+    assert bool((got[4] == 3).all())
+
+
+def test_band_rays_on_a_card_goes_to_the_kernel(demo_scene, tracing, monkeypatch):
+    """With the device check saying "card", band_rays counts the band under
+    "kernel" and calls the wrapper, which refuses the camera's CPU
+    tensors: it never falls back to the plain version."""
+    _, cam = demo_scene
+    monkeypatch.setattr(camera_rays, "on_card", lambda camera: True)
+    with trace.request() as req:
+        with pytest.raises(ValueError, match="needs the camera on one card"):
+            render.band_rays(cam, _settings(), 0, 2, 0)
+    assert req.counter("render.camera_bands") == {"kernel": 1}
+
+
+def test_the_kernel_refuses_a_camera_that_requires_grad(demo_scene, monkeypatch):
+    _, cam = demo_scene
+    monkeypatch.setattr(camera_rays, "on_card", lambda camera: True)
+    grad_cam = cam._replace(camera_to_world=cam.camera_to_world.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        render.band_rays(grad_cam, _settings(), 0, 2, 0)
+    # without grad mode the wrapper takes it, and only the device stops it
+    with torch.no_grad(), pytest.raises(ValueError, match="needs the camera on one card"):
+        render.band_rays(grad_cam, _settings(), 0, 2, 0)
+
+
+def test_a_crop_takes_band_rays_on_its_window(demo_scene, tracing):
+    """A crop pass draws its rays from ``band_rays`` (the kernel on a card),
+    one call a sample for the window's columns, and renders the image the
+    crop rendered before: ``render_wave`` on the window's pixel ids."""
+    scene, cam = demo_scene
+    settings = _settings()._replace(crop=((0.25, 0.25), (0.75, 0.75)), samples_per_pass=2,
+                                    spp=2)
+    with trace.request() as req:
+        film = render._render_pass_crop(scene, cam, film_mod.new_film(W, H, device="cpu"),
+                                        settings, 0, device="cpu")
+    assert req.counter("render.camera_bands") == {"plain": 2}
+    x0, x1, y0, y1 = render.crop_pixel_bounds(settings)
+    pix = (torch.arange(y0, y1)[:, None] * W + torch.arange(x0, x1)[None, :]).reshape(-1)
+    want = film_mod.new_film(W, H, device="cpu")
+    for s in range(2):
+        want = render.render_wave(scene, cam, want, settings, pix, torch.full_like(pix, s))
+    assert torch.equal(film.rgb, want.rgb) and torch.equal(film.weight, want.weight)
