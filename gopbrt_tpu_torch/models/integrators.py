@@ -1009,15 +1009,20 @@ def li(scene, o: torch.Tensor, d: torch.Tensor, pixel, sample, seed,
     the mesh megakernel (:123-141); both need a static scene and neither
     compaction nor ``early_exit``, and NEE with MIS (``cfg.nee`` and
     ``cfg.mis``), which the kernels bake in.  Every other run takes the
-    general wavefront loop (integrators.py:1059-1069).
+    general wavefront loop (integrators.py:1059-1069).  The counter
+    ``li.route`` counts each call under the way it took:
+    ``brute_megakernel``, ``bvh_megakernel`` or ``chain``.
     """
     fi = scene.fastinfo
     if (fi is not None and scene.prims.anim is None and cfg.nee and cfg.mis
             and not cfg.compaction and not cfg.early_exit):
         if fi.ok and scene.prims.count <= BRUTE_FORCE_CUTOFF:
+            trace.count("li.route", 1, key="brute_megakernel")
             return megakernel.path_li_fused(scene, o, d, pixel, sample, seed, cfg,
                                             cone=cone)
         if mesh_megakernel.fits(scene):
+            trace.count("li.route", 1, key="bvh_megakernel")
             return mesh_megakernel.mesh_li_fused(scene, o, d, pixel, sample, seed, cfg,
                                                  cone=cone)
+    trace.count("li.route", 1, key="chain")
     return _li_wavefront(scene, o, d, pixel, sample, seed, cfg, cone=cone, time=time)

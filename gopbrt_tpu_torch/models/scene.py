@@ -733,10 +733,9 @@ class SceneBuilder:
             ok = False
         has_rough_glass = any(m["mat_type"] == GLASS and m["roughness"] > 1e-4
                               for m in self._materials)
+        # every prim sits in the one BVH, so the mesh megakernel takes any
+        # mix of triangles, spheres and disks
         mesh_ok = common and len(self._materials) <= 16 and not has_rough_glass
-        n_extras = sum(1 for t in self._prim_type if t != TRIANGLE)
-        if not any(t == TRIANGLE for t in self._prim_type) or n_extras > 32:
-            mesh_ok = False
         if any(m["mat_type"] not in (MATTE, MIRROR, GLASS, PLASTIC)
                for m in self._materials):
             mesh_ok = False

@@ -44,7 +44,9 @@ class FastPathInfo:
 
     mesh_ok: whether the scene fits the mesh megakernel
     (ops/mesh_megakernel.py), which gates on it: the conditions above on
-    kd, lights and transforms; triangles, with at most 32 other prims;
+    kd, lights and transforms; any mix of triangles, spheres and disks,
+    all in the one BVH (the JAX package's gate also asks for triangles and
+    at most 32 other prims, which its TPU kernel tests in a separate loop);
     matte (sigma 0), mirror, smooth glass or plastic, at most 16 materials.
     ``mesh_megakernel.fits`` also asks for a BVH and more prims than the
     brute kernel takes.

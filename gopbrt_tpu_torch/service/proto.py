@@ -6,8 +6,10 @@ Wire-compatible with ``proto/render/service.proto``:
                              int32 width = 3; int32 height = 4; }
     message RenderResponse { string path = 1; }
 
-plus two superset fields this server honours (unknown to the Go daemon,
-skipped by it per proto3 rules): int32 spp = 5; int32 max_depth = 6.
+plus three superset fields this server honours (unknown to the Go daemon,
+skipped by it per proto3 rules): int32 spp = 5; int32 max_depth = 6;
+int64 seed = 7 (the render's seed; 0, the default, renders as a request
+without it).
 
 (No protoc/grpc_tools code generation: these two messages are small
 enough that a direct proto3 wire implementation is simpler and dependency-
@@ -72,6 +74,7 @@ class RenderRequest:
     height: int = 0
     spp: int = 0
     max_depth: int = 0
+    seed: int = 0
 
     def SerializeToString(self) -> bytes:
         out = bytearray()
@@ -88,6 +91,8 @@ class RenderRequest:
             out += b"\x28" + _encode_varint(self.spp)
         if self.max_depth:
             out += b"\x30" + _encode_varint(self.max_depth)
+        if self.seed:
+            out += b"\x38" + _encode_varint(self.seed)
         return bytes(out)
 
     @classmethod
@@ -112,6 +117,9 @@ class RenderRequest:
                 msg.spp, i = _decode_varint(buf, i)
             elif field == 6 and wt == 0:
                 msg.max_depth, i = _decode_varint(buf, i)
+            elif field == 7 and wt == 0:
+                seed, i = _decode_varint(buf, i)
+                msg.seed = seed - (1 << 64) if seed >= 1 << 63 else seed
             else:
                 i = _skip_field(buf, i, wt)
         return msg

@@ -37,7 +37,7 @@ PROTO_FILE = "render/service.proto"
 
 def build_file_descriptor_proto() -> bytes:
     """FileDescriptorProto for render/service.proto (service.proto:1-19,
-    plus the spp/max_depth extension fields this server honours)."""
+    plus the spp/max_depth/seed extension fields this server honours)."""
     f = descriptor_pb2.FileDescriptorProto()
     f.name = PROTO_FILE
     f.package = "render"
@@ -60,6 +60,7 @@ def build_file_descriptor_proto() -> bytes:
     add(req, "height", 4, T.TYPE_INT32)
     add(req, "spp", 5, T.TYPE_INT32)
     add(req, "max_depth", 6, T.TYPE_INT32)
+    add(req, "seed", 7, T.TYPE_INT64)
 
     resp = f.message_type.add()
     resp.name = "RenderResponse"

@@ -9,12 +9,15 @@ Counterpart of ``gopbrt_tpu/service/server.py``:
     SIGINT / SIGTERM.
 
 As in the reference: ``scene_id`` selects demo, cornell (BASELINE config 2),
-mesh (config 3) or glass (config 4), an unknown id the demo; the request's
+mesh (config 3) or glass (config 4), and here also sphereflake (Haines'
+SPD ``balls``, ``models/spd.py``), an unknown id the demo; the request's
 ``time`` pins the camera shutter to that instant; the superset fields
-``spp`` (default 16) and ``max_depth`` set the sampling; an empty request is
-the reference's demo request, 1920x1080, 16 spp, path depth 10.  The PNG's
-name carries the request's number after the time stamp, so two requests in
-one second write two files.
+``spp`` (default 16) and ``max_depth`` set the sampling and ``seed`` the
+render's seed (default 0); an empty request is the reference's demo
+request, 1920x1080, 16 spp, path depth 10.  The PNG's name carries the
+request's number after the time stamp, so two requests in one second write
+two files.  A call is one request of the tracer (``utils/trace``): the
+render's spans, then ``service.png``, the PNG's encoding and write.
 
 More than one rank (``torchrun``): rank 0 serves; it broadcasts each
 request's bytes to the other ranks, which wait in ``follow()``, and all of
@@ -39,9 +42,11 @@ import torch.distributed as dist
 from gopbrt_tpu_torch.models import film, gallery, render
 from gopbrt_tpu_torch.models.demo import build_demo_camera, build_demo_scene, demo_settings
 from gopbrt_tpu_torch.models.meshes import mesh_camera
+from gopbrt_tpu_torch.models.spd import build_sphereflake_scene, sphereflake_camera
 from gopbrt_tpu_torch.parallel import shard
 from gopbrt_tpu_torch.parallel.dist import local_device
 from gopbrt_tpu_torch.service.proto import RenderRequest, RenderResponse
+from gopbrt_tpu_torch.utils import trace
 
 SERVICE_NAME = "render.Render"
 DEFAULT_PORT = 3001
@@ -65,12 +70,15 @@ class RenderService:
         return self.mesh is not None and self.mesh.world > 1
 
     def _build_scene(self, scene_id: str):
-        """The scene registry: id -> scene (the BASELINE gallery; "demo",
-        and any id not listed, is the reference's hard-coded scene)."""
+        """The scene registry: id -> scene (the BASELINE gallery, the SPD
+        sphereflake; "demo", and any id not listed, is the reference's
+        hard-coded scene)."""
         builders = {"cornell": gallery.config2, "mesh": gallery.config3,
                     "glass": gallery.config4}
         if scene_id in builders:
             return builders[scene_id](device=self.device)[0]
+        if scene_id == "sphereflake":
+            return build_sphereflake_scene(device=self.device)
         return build_demo_scene(device=self.device)
 
     def _get_scene(self, scene_id: str):
@@ -91,6 +99,8 @@ class RenderService:
             camera = mesh_camera(width, height, device=self.device)
         elif scene_id == "glass":
             camera = gallery.config4(width, height, device=self.device)[1]
+        elif scene_id == "sphereflake":
+            camera = sphereflake_camera(width, height, device=self.device)
         else:
             camera = build_demo_camera(width, height, device=self.device)
         if request.time:
@@ -98,7 +108,8 @@ class RenderService:
             # the reference daemon): the shutter pinned to that instant
             t = float(np.float32(min(max(request.time, 0.0), 1.0)))
             camera = camera._replace(shutter_open=t, shutter_close=t)
-        settings = demo_settings(width=width, height=height, spp=request.spp or 16)
+        settings = demo_settings(width=width, height=height, spp=request.spp or 16,
+                                 seed=int(request.seed))
         if request.max_depth:
             settings = settings._replace(max_depth=int(request.max_depth))
         return scene, camera, settings
@@ -119,12 +130,20 @@ class RenderService:
             return self._render(request)
 
     def render(self, request: RenderRequest, context) -> RenderResponse:
-        img = self.image(request)
-        with self._lock:
-            self._count += 1
-            name = f"render-{time.strftime('%Y-%m-%dT%H:%M:%S')}-{self._count:04d}.png"
-        os.makedirs(self.out_dir, exist_ok=True)
-        return RenderResponse(path=film.write_png(os.path.join(self.out_dir, name), img))
+        return self.render_image(request)[0]
+
+    def render_image(self, request: RenderRequest) -> tuple[RenderResponse, torch.Tensor]:
+        """The RPC's work -> (its response, the developed image f32[H,W,3]
+        that the response's PNG was written from)."""
+        with trace.request():
+            img = self.image(request)
+            with self._lock:
+                self._count += 1
+                name = f"render-{time.strftime('%Y-%m-%dT%H:%M:%S')}-{self._count:04d}.png"
+            os.makedirs(self.out_dir, exist_ok=True)
+            with trace.span("service.png"):
+                path = film.write_png(os.path.join(self.out_dir, name), img)
+        return RenderResponse(path=path), img
 
     def follow(self) -> None:
         """Ranks other than 0: render each request rank 0 broadcasts, until

@@ -2,7 +2,9 @@
 clock.
 
 ``request()`` opens a request (``models/render.render``: one a call) and
-its own span, ``render.request``; ``span(name)`` opens a span inside the
+its own span, ``render.request``; opened while a request is open on the
+thread (the service's handler around ``render``), it opens only that span,
+inside the open request; ``span(name)`` opens a span inside the
 request open on this thread; ``count(name, n, key=None)`` adds ``n`` to
 that request's counter ``name`` under ``key``.  A span records its name,
 start and end, its parent span and its request's id.
@@ -196,8 +198,11 @@ def disable() -> None:
 
 def request():
     """Context of one request and its own span, ``render.request``; ``as``
-    gives its Request (the shared no-op context where tracing is off)."""
-    return _Request(REQUEST) if (_forced or _profiling()) else _NULL
+    gives its Request (the shared no-op context where tracing is off).
+    Inside an open request it is a span of that request."""
+    if not (_forced or _profiling()):
+        return _NULL
+    return _Span(REQUEST) if getattr(_local, "request", None) is not None else _Request(REQUEST)
 
 
 def span(name: str):

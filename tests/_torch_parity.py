@@ -148,6 +148,27 @@ def rough_glass_scene(builder_cls, geom):
     return b
 
 
+def sphere_cloud(builder_cls, geom, n=300, seed=17):
+    """A seeded random cloud of ``n`` spheres and no triangle (radii
+    log-uniform in [0.02, 0.3], centres uniform in [-2, 2]^3, plastic and
+    matte in turn) under two point lights, on a builder of the port's
+    SceneBuilder kind (the port's, the benchmark reference's)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-2.0, 2.0, (n, 3))
+    radii = np.exp(rng.uniform(np.log(0.02), np.log(0.3), n))
+    b = builder_cls()
+    mats = (b.plastic(kd=(0.6, 0.3, 0.2), ks=(0.4, 0.4, 0.4), roughness=0.1),
+            b.matte(kd=(0.3, 0.5, 0.7)))
+    for i, (c, r) in enumerate(zip(centres, radii)):
+        b.sphere(np.asarray(geom.translate(c.tolist())), float(r), mats[i % 2])
+    b.point_light(p=(4.0, -5.0, 6.0), intensity=(60.0, 60.0, 60.0))
+    b.point_light(p=(-5.0, 3.0, 4.0), intensity=(30.0, 30.0, 30.0))
+    return b
+
+
+CLOUD_LOOK_AT = ([0.0, -7.0, 3.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0])
+
+
 def rough_glass_camera(width=48, height=48):
     from gopbrt_tpu.ops import geom
 

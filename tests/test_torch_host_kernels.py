@@ -27,10 +27,11 @@ without a C++ compiler the tests skip.
 - path_init / path_step / path_finish of csrc/bounce.cuh, driven as
   run_paths drives them (path_step is run_paths' own step: a trace, then
   the rest of the bounce or the shadow ray's contribution), against ``path_li_plain`` per lane on
-  the demo and the lobe scenes (brute instance) and on the mesh (BVH
-  instance) at 16x16, at the bars of tests/test_megakernel.py; and bit for
-  bit against themselves in another interleaving, so the order of refills
-  cannot change a lane's answer.
+  the demo and the lobe scenes (brute instance) and on the mesh, the SPD
+  sphereflake at size factor 3 and a random cloud of 300 spheres without
+  a triangle (BVH instance: sphere leaves) at 16x16, at the bars of
+  tests/test_megakernel.py; and bit for bit against themselves in another
+  interleaving, so the order of refills cannot change a lane's answer.
 - The camera-ray kernel's lane (csrc/camera_rays.cu) against
   ``render.band_rays_plain`` on bands of at most 64x16 lanes: stratified
   (1, 8 and 9 samples a pixel), random and Halton samplers, the demo's
@@ -51,8 +52,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (as_torch, camera_rays, carry, carry_prims, lane_agreement,
-                           rough_glass_camera, rough_glass_scene)
+from _torch_parity import (CLOUD_LOOK_AT, as_torch, camera_rays, carry, carry_prims,
+                           lane_agreement, rough_glass_camera, rough_glass_scene, sphere_cloud)
 from gopbrt_tpu.models import demo as jdemo
 from gopbrt_tpu.models import gallery as jgallery
 from gopbrt_tpu.models import meshes as jmeshes
@@ -66,6 +67,8 @@ from gopbrt_tpu_torch.models import gallery as tgallery
 from gopbrt_tpu_torch.models import integrators as tint
 from gopbrt_tpu_torch.models import meshes as tmeshes
 from gopbrt_tpu_torch.models import render as trender
+from gopbrt_tpu_torch.models import spd
+from gopbrt_tpu_torch.models.scene import SceneBuilder
 from gopbrt_tpu_torch.ops import brute_intersect as tbi
 from gopbrt_tpu_torch.ops import bvh as tbvh
 from gopbrt_tpu_torch.ops import camera_rays as tcr
@@ -385,12 +388,28 @@ SCENES = {
     "config4": (8, 0.98, 1e-2),
     "rough_glass": (5, 0.98, 1e-2),
     "mesh": (5, 0.98, 1e-2),
+    "sphereflake": (10, 0.98, 1e-2),
+    "sphere_cloud": (5, 0.98, 1e-2),
 }
+# the scenes of the BVH instance
+BVH_SCENES = ("mesh", "sphereflake", "sphere_cloud")
 
 
 @functools.lru_cache(maxsize=None)
 def _scene(name):
     """(port scene, rays, cone) of a scene at W x H."""
+    if name in ("sphereflake", "sphere_cloud"):
+        # the port's own scenes: the JAX package has neither
+        if name == "sphereflake":
+            ts = spd.build_sphereflake_scene(3, device="cpu")
+            camera = spd.sphereflake_camera(W, H, device="cpu")
+        else:
+            ts = sphere_cloud(SceneBuilder, tgeom).build(device="cpu")
+            camera = tcam.perspective_camera(tgeom.look_at(*CLOUD_LOOK_AT), W, H,
+                                             fov_deg=45.0, device="cpu")
+        st = trender.RenderSettings(width=W, height=H, spp=1, seed=SEED)
+        _, o, d, pixel, sample = trender.band_rays(camera, st, 0, H, 0)
+        return ts, (o, d, pixel, sample), (0.0, 0.004)
     if name == "demo":
         js, camera = jdemo.build_demo_scene(accelerator="none"), jdemo.build_demo_camera(W, H)
     elif name == "rough_glass":
@@ -417,7 +436,7 @@ def _host_paths(lib, name, lanes, order_seed):
             cfg.max_depth, cfg.rr_start_depth, cfg.rr_threshold,
             tmk.kernel_flags(ts, cone is not None), _ptr(o_), _ptr(d_), _ptr(pix), _ptr(smp),
             _ptr(L), n, lanes, order_seed)
-    if name == "mesh":
+    if name in BVH_SCENES:
         tables = _np(ts.mesh.tables, np.float32)
         bt = ts.bvh_tables
         nodes, recs = _np(bt.nodes, np.float32), _np(bt.records, np.float32)
@@ -432,11 +451,11 @@ def _host_paths(lib, name, lanes, order_seed):
 def test_bounce_skeleton_matches_path_li_plain(lib, name):
     """init / bounce / finish over lanes refilled in a shuffled order,
     per lane against path_li_plain (the brute instance on the demo and the
-    lobe scenes, the BVH instance on the mesh)."""
+    lobe scenes, the BVH instance on the mesh and the sphere scenes)."""
     depth, lane_bar, mean_bar = SCENES[name]
     ts, rays, cone = _scene(name)
     ref = tmk.path_li_plain(ts, *rays, SEED, tint.PathConfig(max_depth=depth), cone=cone,
-                            accel="bvh" if name == "mesh" else "brute").numpy()
+                            accel="bvh" if name in BVH_SCENES else "brute").numpy()
     got = _host_paths(lib, name, 7, 3)
     assert np.all(np.isfinite(got))
     frac, mean_rel = lane_agreement(got, ref)
@@ -445,7 +464,7 @@ def test_bounce_skeleton_matches_path_li_plain(lib, name):
     assert ref.mean() > 1e-3  # the image is not black
 
 
-@pytest.mark.parametrize("name", ["demo", "rough_glass", "mesh"])
+@pytest.mark.parametrize("name", ["demo", "rough_glass", "mesh", "sphereflake"])
 def test_bounce_skeleton_is_the_same_in_any_order(lib, name):
     """Paths on one lane, or refilled on many lanes, in three shuffled
     orders: the same radiance, bit for bit."""

@@ -119,11 +119,14 @@ def test_scenes_that_need_a_bvh_raise(bvh_backend):
     """A scene above 64 prims builds its SAH BVH: its tables, the tree
     included, equal the JAX builder's (both built by the builder the JAX
     side uses in this process), and the general chain on the BVH walk
-    gives the brute-force chain's radiance."""
+    gives the brute-force chain's radiance.  Its 65 spheres fit the mesh
+    megakernel, whose gate takes scenes without triangles (the JAX
+    package's does not), so the builder packs its tables."""
     build = _spheres_65
     want = build(JaxBuilder, jgeom)
     got = build(SceneBuilder, tgeom, device="cpu")
-    assert got.bvh_tables is not None and got.kernel is None and got.mesh is None
+    assert got.bvh_tables is not None and got.kernel is None and got.mesh is not None
+    assert got.fastinfo.mesh_ok and not want.fastinfo.mesh_ok
     assert_builder_tables_equal(got, want, bvh_backend)
     flat = build(SceneBuilder, tgeom, accelerator="none", device="cpu")
     assert flat.bvh is None and "bvh.node_lo" not in scene_to_arrays(flat)

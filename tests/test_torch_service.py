@@ -99,6 +99,17 @@ class TestProtoCodec:
         back = RenderRequest.FromString(mine.SerializeToString())
         assert back.spp == 7 and back.max_depth == 3
 
+    @pytest.mark.parametrize("seed", [0, 5, 2**31 + 77, -3])
+    def test_seed_superset_field(self, seed):
+        PbReq, _ = _dynamic_messages()
+        mine = RenderRequest(scene_id="demo", width=4, spp=7, seed=seed)
+        wire = mine.SerializeToString()
+        assert RenderRequest.FromString(wire) == mine
+        # field 7, unknown to the Go daemon's schema, skipped by it
+        assert PbReq.FromString(wire).width == 4
+        if seed == 0:  # the default is not on the wire: a request without it
+            assert wire == RenderRequest(scene_id="demo", width=4, spp=7).SerializeToString()
+
 
 @pytest.mark.parametrize("fields", [
     {}, dict(scene_id="cornell", time=0.25, width=1920, height=1080),
@@ -233,7 +244,8 @@ class TestReflection:
                 self._parse_response(resp[4])[1])
             assert fdp.package == "render" and fdp.service[0].name == "Render"
             names = [f.name for f in fdp.message_type[0].field]
-            assert names == ["scene_id", "time", "width", "height", "spp", "max_depth"]
+            assert names == ["scene_id", "time", "width", "height", "spp", "max_depth",
+                             "seed"]
         finally:
             server.stop(grace=None)
 
@@ -259,3 +271,80 @@ def test_world_two_serves_the_single_process_image(tmp_path):
         np.testing.assert_allclose(res[0][f"image{i}"].numpy(),
                                    svc.image(RenderRequest(**kw)).numpy(), rtol=0, atol=2e-5)
     assert _png_pixels(res[0]["path"]).shape == (6, 8, 3)
+
+
+def test_the_seed_is_the_renders_and_the_png_a_span_of_the_call(tmp_path):
+    """A request's seed is its render's seed (0, the default, renders as
+    before the field); ``render_image`` returns the image its PNG holds, and
+    the call is one request of the tracer: the render's spans, then
+    ``service.png``."""
+    from gopbrt_tpu_torch.utils import trace
+
+    svc = RenderService(device="cpu", out_dir=str(tmp_path))
+    scene, camera, settings = svc.job(RenderRequest(seed=12345, **SMALL))
+    assert settings.seed == 12345 and svc.job(RenderRequest(**SMALL))[2].seed == 0
+    trace.enable()
+    try:
+        resp, img = svc.render_image(RenderRequest(seed=12345, **SMALL))
+    finally:
+        trace.disable()
+    ref = trender.render(scene, camera, settings, device="cpu")
+    torch.testing.assert_close(img, ref, rtol=0, atol=0)
+    assert not torch.equal(img, svc.image(RenderRequest(**SMALL)))
+    np.testing.assert_array_equal(_png_pixels(resp.path),
+                                  torch.round(ref.clamp(0, 1) * 255).to(torch.uint8).numpy())
+    req = trace.requests()[-1]
+    names = [s.name for s in req.spans]
+    assert names[0] == names[1] == trace.REQUEST and names[-1] == "service.png"
+    assert "render.li" in names and req.spans[-1].parent == 0
+
+
+def test_sphereflake_id_is_the_spd_flake():
+    """The registry's ``sphereflake``: Haines' SPD balls at size factor 4
+    under balls.c's view, built once."""
+    from gopbrt_tpu_torch.models import spd
+
+    svc = RenderService(device="cpu")
+    scene, camera, settings = svc.job(RenderRequest(scene_id="sphereflake", **SMALL))
+    assert scene.prims.count == 7383 and scene.fastinfo.mesh_ok and scene.mesh is not None
+    want = spd.sphereflake_camera(8, 8, device="cpu")
+    torch.testing.assert_close(camera.camera_to_world, want.camera_to_world)
+    torch.testing.assert_close(camera.raster_to_camera, want.raster_to_camera)
+    assert svc.job(RenderRequest(scene_id="sphereflake"))[0] is scene
+
+
+def test_the_benchmark_client_reads_back_each_png(tmp_path, monkeypatch):
+    """The benchmark's request client (``portbench/clients/request.py``):
+    each response's PNG holds the 8-bit image of the developed one and is
+    deleted; a PNG that holds another image, or a damaged one, raises."""
+    import importlib.util
+    import json
+    import tempfile
+
+    from gopbrt_tpu_torch.models import film
+
+    path = os.path.join(REPO, "portbench", "clients", "request.py")
+    spec = importlib.util.spec_from_file_location("portbench_client_request", path)
+    client = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(client)
+    with open(os.path.join(REPO, "portbench", "traffic", "request-1080p-16spp-png.json")) as f:
+        settings = {**json.load(f)["settings"], **SMALL}
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    frame = client.connect({"name": "demo"}, settings, "cpu")
+    img = frame(12345)
+    assert img.shape == (8, 8, 3) and float(img.max()) > 0
+    (out_dir,) = tmp_path.iterdir()
+    assert list(out_dir.iterdir()) == []  # each PNG deleted once read back
+
+    png = film.write_png(str(tmp_path / "a.png"), img)
+    np.testing.assert_array_equal(client.png_pixels(png), film.to_uint8(img))
+    data = bytearray(open(png, "rb").read())
+    data[-20] ^= 1  # a byte of the compressed rows
+    open(png, "wb").write(bytes(data))
+    with pytest.raises(ValueError, match="CRC"):
+        client.png_pixels(png)
+
+    real = film.write_png
+    monkeypatch.setattr(film, "write_png", lambda p, im: real(p, im * 0.5))
+    with pytest.raises(ValueError, match="does not hold"):
+        frame(12345)

@@ -18,11 +18,20 @@ tiny sizes:
   camera lies on a card (the device check mocked) it goes to the kernel's
   wrapper, which refuses a camera that requires grad under grad mode;
 - a crop pass takes ``band_rays`` on the window's columns, a call a
-  sample, and splats what ``render_wave`` on its pixels splats.
+  sample, and splats what ``render_wave`` on its pixels splats;
+- a request opened inside an open request is a span of it;
+- the benchmark's readers of ``li.route`` (``li.chain_waves``), of the
+  span ``service.png`` (``service.png_host_ms``) and of the flake's and
+  the service request's rooflines (``mesh_megakernel_roofline.sphereflake``,
+  ``megakernel_roofline.request``), loaded from their files under
+  ``portbench/metrics/``, on synthetic requests and frames.
 """
 
 import collections
+import importlib.util
 import statistics
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -274,3 +283,105 @@ def test_a_crop_takes_band_rays_on_its_window(demo_scene, tracing):
     for s in range(2):
         want = render.render_wave(scene, cam, want, settings, pix, torch.full_like(pix, s))
     assert torch.equal(film.rgb, want.rgb) and torch.equal(film.weight, want.weight)
+
+
+def test_a_request_inside_a_request_is_a_span_of_it(tracing):
+    with trace.request() as outer:
+        with trace.request() as inner:
+            trace.count("n", 2)
+        with trace.span("service.png"):
+            pass
+    assert isinstance(outer, trace.Request) and not isinstance(inner, trace.Request)
+    assert trace.requests()[-1] is outer
+    assert [(s.name, s.parent) for s in outer.spans] == [
+        (trace.REQUEST, None), (trace.REQUEST, 0), ("service.png", 0)]
+    assert outer.counter("n") == {None: 2}
+
+
+# ---------------------------------------------------------------------------
+# The benchmark's readers of the records
+# ---------------------------------------------------------------------------
+
+PORTBENCH = Path(__file__).resolve().parent.parent / "portbench"
+MS = 1_000_000
+
+
+def _reader(name):
+    """The benchmark's reader ``metrics/<name>.py``, loaded from its file."""
+    if str(PORTBENCH) not in sys.path:
+        sys.path.insert(0, str(PORTBENCH))
+    spec = importlib.util.spec_from_file_location(f"reader_{name}",
+                                                  PORTBENCH / "metrics" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def clocked(monkeypatch, tracing):
+    """The tracer on with a ring of its own and a clock the test sets:
+    ``play(start_ms, end_ms, counts, spans)`` records one request with the
+    given counts and (name, start ms, end ms) spans inside it."""
+    monkeypatch.setattr(trace, "_ring", collections.deque(maxlen=trace.RING))
+    now = [0]
+    monkeypatch.setattr(trace, "_clock", lambda: now[0])
+
+    def play(a, b, counts=(), spans=()):
+        now[0] = a * MS
+        with trace.request() as req:
+            for args in counts:
+                trace.count(*args)
+            for name, sa, sb in spans:
+                now[0] = sa * MS
+                with trace.span(name):
+                    now[0] = sb * MS
+            now[0] = b * MS
+        return req
+
+    return play
+
+
+def _readings(*first_ops_ms, least_ms=None, li_ms=(1.0,)):
+    if str(PORTBENCH) not in sys.path:
+        sys.path.insert(0, str(PORTBENCH))
+    import devtrace
+    import harness
+
+    frames = [devtrace.Frame(wall_ms=100.0, host_ms={}, ops=[("k", t * MS, MS)],
+                             li_ops=1, li_device_ms=ms, busy_ms=1.0)
+              for t, ms in zip(first_ops_ms, li_ms * len(first_ops_ms))]
+    return harness.Readings(frames=frames, window=None, least_ms=least_ms)
+
+
+def test_chain_waves_reads_li_route(clocked):
+    read = _reader("li.chain_waves").read
+    clocked(0, 100, counts=[("li.route", 8, "bvh_megakernel")])
+    assert read(_readings(5)) == 0
+    clocked(200, 300, counts=[("li.route", 1, "brute_megakernel"), ("li.route", 3, "chain")])
+    assert read(_readings(205)) == 3
+    assert read(_readings(5, 205)) == 1.5
+    # a request without the counter (a program that keeps none), or no request
+    clocked(400, 500)
+    assert read(_readings(405)) is None
+    assert read(_readings(-5)) is None
+
+
+def test_png_host_ms_reads_the_service_span(clocked):
+    read = _reader("service.png_host_ms").read
+    clocked(0, 100, spans=[("render.li", 10, 60), ("service.png", 70, 85.5)])
+    assert read(_readings(5)) == pytest.approx(15.5)
+    clocked(200, 300, spans=[("service.png", 210, 220), ("service.png", 230, 232)])
+    assert read(_readings(5, 205)) == pytest.approx((15.5 + 12.0) / 2)
+    # a render without the service's span
+    clocked(400, 500, spans=[("render.li", 410, 460)])
+    assert read(_readings(405)) is None
+    assert read(_readings(5, 405)) is None
+
+
+@pytest.mark.parametrize("name", ["mesh_megakernel_roofline.sphereflake",
+                                  "megakernel_roofline.request"])
+def test_new_rooflines_read_the_counted_least_time(name):
+    mod = _reader(name)
+    assert mod.NEEDS_COUNTS
+    assert mod.read(_readings(5, 6, least_ms=0.5, li_ms=(2.0, 3.0))) == pytest.approx(20.0)
+    assert mod.read(_readings(5, least_ms=None)) is None
