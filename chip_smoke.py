@@ -23,6 +23,14 @@ non-zero and never prints the last line:
      band bit-equal to the band's lanes; the device ms of a launch (behind
      a spin kernel) beside its bound (48 B a lane written) and the plain
      version's ms;
+   - ``[splat]``: the splat kernel (csrc/splat_rows.cu) through
+     ``film.add_samples_rows`` against ``add_samples_rows_plain`` onto a
+     1080p film that holds data, on the second 1920x273 band and on the
+     last (12 rows past the image, a NaN in L there): the box filter at
+     radius 1, 0.5 and 2 bit-equal, triangle, Gaussian, Mitchell and
+     Lanczos within 1e-6; the device ms of a launch (behind a spin kernel)
+     beside its bound (20 B a sample, 32 B a film pixel) and the plain
+     version's ms a band;
    - the bounce megakernel on one 1920x273 band of the 1080p demo at depth
      10 (the main path's launch shape), and on a lobe scene (checker floor,
      matte, mirror, smooth and rough glass, sphere lamp) at 256x256, depth 8;
@@ -145,9 +153,10 @@ non-zero and never prints the last line:
      #2 / #3, configs 2 and 4 on #1, config 3 on #5;
 5. the kernels line: time per launch (the BVH walk's also on a band's
    last launch), launches, bound, plain time, device ms per pass from the
-   profiled passes; the camera-ray kernel's row: its launches in the
-   demo's main path (one a band), its ms from ``[camera-rays]`` (a launch
-   on the device, and a call's with the host's launch).  The brute kernels are timed on every launch of the
+   profiled passes; the camera-ray kernel's row and the splat kernel's:
+   their launches in the demo's main path (one a band), their ms from
+   ``[camera-rays]`` and ``[splat]`` (a launch on the device, and a call's
+   with the host's launch).  The brute kernels are timed on every launch of the
    config-1 band, beside the device ms of that launch in the profiled
    pass and its bound by two methods: the work the function needs (the
    tests of the lanes that are not dead, the bytes every lane moves) and
@@ -206,12 +215,13 @@ N_PASSES = 5
 INV_SIZE, INV_SPP, INV_STEPS = 64, 64, 40
 # __global__ functions of csrc/*.cu, as the profiler names their launches
 OWN_KERNELS = ("mega_kernel", "closest_hit_kernel", "any_hit_kernel",
-               "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel", "camera_rays_kernel")
+               "bvh_closest_kernel", "bvh_any_kernel", "mesh_kernel", "camera_rays_kernel",
+               "splat_rows_kernel")
 # the _build.LAUNCHES name of each of OWN_KERNELS
 LAUNCH_KEY = {"mega_kernel": "megakernel", "closest_hit_kernel": "intersect",
               "any_hit_kernel": "intersect_any", "bvh_closest_kernel": "bvh_intersect",
               "bvh_any_kernel": "bvh_intersect_any", "mesh_kernel": "mesh_megakernel",
-              "camera_rays_kernel": "camera_rays"}
+              "camera_rays_kernel": "camera_rays", "splat_rows_kernel": "splat_rows"}
 # profiled_pass: traces after the first one that dropped events
 PROFILE_RETRIES = 2
 # the compile-time instances of csrc/intersect.cu (brute_intersect.INSTANCE_*)
@@ -232,6 +242,14 @@ def camera_launches(settings, passes: int = 1) -> int:
     w, h = settings.width, settings.height
     band_rows = max(1, min((settings.chunk_pixels or w * h) // w, h))
     return math.ceil(h / band_rows) * settings.samples_per_pass * passes
+
+
+def loop_launches(settings, passes: int = 1) -> dict:
+    """The band loop's own launches in ``passes`` passes of ``render_pass``
+    on row bands: the camera-ray kernel and the splat kernel, one each a
+    band and sample."""
+    n = camera_launches(settings, passes)
+    return {"camera_rays": n, "splat_rows": n}
 
 
 def kernel_name(symbol: str):
@@ -769,6 +787,95 @@ def camera_rays_checks(dev, render, device_name: str, power_limit: str) -> dict:
     return out
 
 
+# bytes the splat kernel moves: a sample's jitter and L read once (20); a
+# film pixel the band reaches read and written, rgb and weight (16 each way)
+SPLAT_SAMPLE_BYTES, SPLAT_PIXEL_BYTES = 20, 32
+# the filters other than the box against add_samples_rows_plain, relative
+# to max(1, |value|): expf, sinf and the division by the radius are the
+# kernel's, not PyTorch's
+SPLAT_TOL = 1e-6
+
+
+def splat_checks(dev, film_mod, device_name: str, power_limit: str, rows: int = 273) -> dict:
+    """``[splat]``: the splat kernel through ``add_samples_rows`` against
+    ``add_samples_rows_plain`` on the card, onto a 1920x1080 film that holds
+    data, on the second 1920x273 band (``rows``: the main paths' band) and
+    on the last (rows 819-1091; rows 1080-1091 past the image, a NaN in L on
+    row 1080):
+    one launch each, synchronised; the box filter at radius 1 (every cell's)
+    and at 0.5 and 2 bit for bit, NaN where the plain film is NaN; the
+    triangle, Gaussian, Mitchell and Lanczos filters within SPLAT_TOL.
+    Then the device ms of a box launch on the second band (median of 50
+    single launches, each behind a sleeping kernel) beside its bound, the
+    ms of a call as the host's loop sees it, and the plain version's ms a
+    band. -> {"launches", "max_err", "ms", "call_ms", "plain_ms",
+    "bound_ms"}."""
+    from gopbrt_tpu_torch import _build
+    from gopbrt_tpu_torch.ops import filters
+
+    gen = torch.Generator(device=dev).manual_seed(2**31 + 19)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    base = film_mod.Film(rgb=rand(H, W, 3), weight=rand(H, W))
+    filts = {"box 1": (filters.box_filter(1.0), True), "box 0.5": (filters.box_filter(0.5), True),
+             "box 2": (filters.box_filter(2.0), True),
+             "triangle 2": (filters.triangle_filter(2.0), False),
+             "gaussian 2": (filters.gaussian_filter(2.0, 2.0), False),
+             "mitchell 2": (filters.mitchell_filter(2.0), False),
+             "lanczos 4": (filters.lanczos_filter(4.0, 3.0), False)}
+    out = {"launches": 0, "max_err": 0.0}
+    for row0 in (rows, (H - 1) // rows * rows):
+        jitter, L = rand(rows, W, 2), rand(rows, W, 3) * 4.0
+        past = max(0, row0 + rows - H)
+        if past:
+            L[H - row0, 7, 1] = float("nan")
+        for fname, (filt, exact) in filts.items():
+            got = film_mod.Film(base.rgb.clone(), base.weight.clone())
+            before = _build.LAUNCHES["splat_rows"]
+            film_mod.add_samples_rows(got, row0, jitter, L, filt)
+            torch.cuda.synchronize()
+            out["launches"] += _build.LAUNCHES["splat_rows"] - before
+            if _build.LAUNCHES["splat_rows"] != before + 1:
+                raise AssertionError(f"[splat] {fname}: add_samples_rows made "
+                                     f"{_build.LAUNCHES['splat_rows'] - before} launches")
+            want = film_mod.add_samples_rows_plain(
+                film_mod.Film(base.rgb.clone(), base.weight.clone()), row0, jitter, L, filt)
+            torch.cuda.synchronize()
+            same_nan, bits, err = True, True, 0.0
+            for g, w in ((got.rgb, want.rgb), (got.weight, want.weight)):
+                nan = torch.isnan(w)
+                same_nan &= torch.equal(torch.isnan(g), nan)
+                bits &= torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32))
+                err = max(err, float(((g[~nan] - w[~nan]).abs()
+                                      / w[~nan].abs().clamp(min=1.0)).max()))
+            nan_rows = int(torch.isnan(want.rgb).any(dim=2).any(dim=1).sum())
+            out["max_err"] = max(out["max_err"], err)
+            phase("splat", f"{fname}, band of rows {row0}-{row0 + rows - 1} ({past} past the "
+                  f"image): bit-equal {bits}, NaN where the plain film is NaN {same_nan} "
+                  f"({nan_rows} film rows hold a NaN), max error {err:.3e} of max(1, |value|)")
+            if not (same_nan and (bits if exact else err <= SPLAT_TOL)
+                    and (nan_rows > 0) == (past > 0)):
+                raise AssertionError(f"[splat] {fname}, rows from {row0}: the kernel "
+                                     "disagrees with add_samples_rows_plain")
+    jitter, L = rand(rows, W, 2), rand(rows, W, 3)
+    film, box = film_mod.Film(base.rgb.clone(), base.weight.clone()), filters.box_filter(1.0)
+    before = _build.LAUNCHES["splat_rows"]
+    out["ms"] = cuda_ms(lambda: film_mod.add_samples_rows(film, rows, jitter, L, box), 50,
+                        spin=True)
+    out["call_ms"] = cuda_ms(lambda: film_mod.add_samples_rows(film, rows, jitter, L, box), 50)
+    out["launches"] += _build.LAUNCHES["splat_rows"] - before
+    out["plain_ms"] = cuda_ms(
+        lambda: film_mod.add_samples_rows_plain(film, rows, jitter, L, box), 10)
+    nbytes = rows * W * SPLAT_SAMPLE_BYTES + (rows + 2) * W * SPLAT_PIXEL_BYTES
+    out["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    phase("splat", f"box 1, band {W}x{rows}: {out['ms']:.4f} ms a launch on the device "
+          f"(median of 50 single launches, each behind a sleeping kernel; bound "
+          f"{out['bound_ms']:.4f} ms: {nbytes / 1e6:.1f} MB at 3.35 TB/s, share "
+          f"{out['bound_ms'] / out['ms']:.3f}); {out['call_ms']:.4f} ms an add_samples_rows "
+          f"call between events with the host's launch; add_samples_rows_plain "
+          f"{out['plain_ms']:.3f} ms; {out['launches']} launches ({device_name}, {power_limit})")
+    return out
+
+
 # spin kernels (torch.cuda._sleep) that open each profiler session of _trace
 PRIMER_SPINS = 4
 # a device event of a trace: its name, start and duration in microseconds
@@ -1052,7 +1159,7 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
     counts of each."""
     scene, metal, cam, settings = m["scene"], m["metal"], m["cam"], m["settings"]
     dt, launches, film = timed_passes(render, film_mod, scene, cam, settings, dev)
-    want = {"mesh_megakernel": 4 * N_PASSES, "camera_rays": camera_launches(settings, N_PASSES)}
+    want = {"mesh_megakernel": 4 * N_PASSES, **loop_launches(settings, N_PASSES)}
     if launches != want:
         raise AssertionError(f"mesh main path launched {launches} in {N_PASSES} passes, "
                              f"expected {want}")
@@ -1073,8 +1180,9 @@ def mesh_main_paths(render, film_mod, m: dict, dev, device_name: str, power_limi
 
     dtc, launches_c, film_c = timed_passes(render, film_mod, metal, cam, settings, dev)
     if not (launches_c.get("bvh_intersect", 0) > 0 and launches_c.get("bvh_intersect_any", 0) > 0
-            and set(launches_c) == {"bvh_intersect", "bvh_intersect_any", "camera_rays"}
-            and launches_c["camera_rays"] == camera_launches(settings, N_PASSES)):
+            and set(launches_c) == {"bvh_intersect", "bvh_intersect_any", "camera_rays",
+                                    "splat_rows"}
+            and all(launches_c[k] == n for k, n in loop_launches(settings, N_PASSES).items())):
         raise AssertionError(f"the BVH chain main path launched {launches_c}")
     img_c = film_mod.develop(film_c)
     if not (bool(torch.isfinite(img_c).all()) and float(img_c.mean()) > 0.01):
@@ -1148,7 +1256,7 @@ def family_pass(name, render, film_mod, scene, camera, settings, dev, out: dict,
     ``out["launches"]``."""
     dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
     want = {k: v * N_PASSES for k, v in FAMILY_LAUNCHES[name].items()}
-    want["camera_rays"] = camera_launches(settings, N_PASSES)
+    want.update(loop_launches(settings, N_PASSES))
     if launches != want:
         raise AssertionError(f"{name} main path launched {launches} in {N_PASSES} "
                              f"passes, expected {want}")
@@ -1426,7 +1534,7 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
         out["launches"].update(launches)
         img = film_mod.develop(film)
         mean = float(img.mean())
-        want = {"megakernel": 4 * N_PASSES, "camera_rays": camera_launches(opt, N_PASSES)}
+        want = {"megakernel": 4 * N_PASSES, **loop_launches(opt, N_PASSES)}
         if launches != want or not (
                 bool(torch.isfinite(img).all()) and mean > 0.01):
             raise AssertionError(f"{what}: launches {launches}, image mean {mean}")
@@ -1585,8 +1693,8 @@ def compaction_checks(dev, render, film_mod, runs, device_name: str, power_limit
         out["launches"].update(launches_c)
         img = film_mod.develop(film)
         if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01
-                and set(launches_c) == want | {"camera_rays"}
-                and launches_c["camera_rays"] == camera_launches(settings)):
+                and set(launches_c) == want | set(loop_launches(settings))
+                and all(launches_c[k] == n for k, n in loop_launches(settings).items())):
             raise AssertionError(f"{name}: compacted render_pass launched {launches_c}, "
                                  f"image mean {float(img.mean())}")
         for mode, c, dt, launches, st in (("uncompacted chain", cfg, dt_u, launches_u, False),
@@ -1675,7 +1783,7 @@ def motion_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
         dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
         img = film_mod.develop(film)
         mean = float(img.mean())
-        if launches != {"camera_rays": camera_launches(settings, N_PASSES)} or not (
+        if launches != loop_launches(settings, N_PASSES) or not (
                 bool(torch.isfinite(img).all()) and mean > 0.01):
             raise AssertionError(f"{what}: launches {launches}, image mean {mean}")
         cfg = render.path_config(settings)
@@ -2163,12 +2271,16 @@ def shard_checks(dev, device_name: str, power_limit: str) -> dict:
         for mode, r in modes.items():
             if not (r["finite"] and r["max_abs_err"] <= 2e-5):
                 bad.append(f"{where} {mode}: {r['max_abs_err']:.3e}")
-    # 4 bands of the image a sample, a camera-ray launch and a megakernel one each
-    want = {"megakernel": 4 * SHARD_SPP, "camera_rays": 4 * SHARD_SPP}
+    # 4 bands of the image a sample, a camera-ray launch and a megakernel one
+    # each, and on the replicated film a splat launch (the band film splats
+    # with splat_band_halo)
     launches = {mode: _sum_launches([one[mode]["launches"]]
                                     + [r["shard"][mode]["launches"] for r in ranks])
                 for mode in one}
     for mode in one:
+        want = {"megakernel": 4 * SHARD_SPP, "camera_rays": 4 * SHARD_SPP}
+        if mode == "replicated":
+            want["splat_rows"] = 4 * SHARD_SPP
         got = [one[mode]["launches"], _sum_launches(r["shard"][mode]["launches"] for r in ranks)]
         if any(g != want for g in got):
             bad.append(f"{mode} film launched {got}, expected {want} a render")
@@ -2245,8 +2357,10 @@ def service_checks(dev, device_name: str, power_limit: str) -> dict:
                   f"bytes, {px.shape[1]}x{px.shape[0]}, equal to "
                   + ("render's" if sid == "demo" else "the handler's image once more")
                   + f": {same}; image mean {mean:.4f}; {device_name}, {power_limit}")
-            # 4 bands of the image a sample, a camera-ray launch and an integrator one each
-            want = {kernel[sid]: 4 * settings.spp, "camera_rays": 4 * settings.spp}
+            # 4 bands of the image a sample, a camera-ray, an integrator and a
+            # splat launch each
+            want = {kernel[sid]: 4 * settings.spp, "camera_rays": 4 * settings.spp,
+                    "splat_rows": 4 * settings.spp}
             if not (finite and same and mean > 0.01 and launches == want
                     and px.shape == (settings.height, settings.width, 3)):
                 bad.append(f"{sid}: finite {finite}, PNG equal {same}, mean {mean}, "
@@ -2279,11 +2393,12 @@ def service_checks(dev, device_name: str, power_limit: str) -> dict:
 # [cross-validate]: the kernels each golden config's render must launch
 # (and no other): #2 / #3 for config 1's direct lighting, #1 for the brute
 # fast-path configs 2 and 4, #5 for the mesh of config 3; the camera rays'
-# (#6) in every one
-VAL_KERNELS = {"config1_demo_direct": {"intersect", "intersect_any", "camera_rays"},
-               "config2_cornell_mirror": {"megakernel", "camera_rays"},
-               "config3_mesh_bvh": {"mesh_megakernel", "camera_rays"},
-               "config4_arealights_glass": {"megakernel", "camera_rays"}}
+# (#6) and the splat's (#7) in every one
+VAL_KERNELS = {"config1_demo_direct": {"intersect", "intersect_any", "camera_rays",
+                                       "splat_rows"},
+               "config2_cornell_mirror": {"megakernel", "camera_rays", "splat_rows"},
+               "config3_mesh_bvh": {"mesh_megakernel", "camera_rays", "splat_rows"},
+               "config4_arealights_glass": {"megakernel", "camera_rays", "splat_rows"}}
 # [baseline]: the mesh scene's size and depth in --scene mode
 # (benchmarks/cross_validate.py --mesh-baseline)
 MESH_BASE_W, MESH_BASE_H, MESH_BASE_DEPTH = 960, 544, 5
@@ -2442,7 +2557,8 @@ def path_config_checks(dev, render, film_mod, runs, device_name: str, power_limi
             launches = dict(_build.LAUNCHES)
             out["launches"].update(launches)
             want = ({control} if gate == "default"
-                    else {closest, closest + "_any"} if nee else {closest}) | {"camera_rays"}
+                    else {closest, closest + "_any"} if nee else {closest}) | {"camera_rays",
+                                                                                "splat_rows"}
             img = film_mod.develop(film)
             linear = float(film_mod.develop(film, gamma=False).mean())
             means[gate] = linear
@@ -2526,8 +2642,8 @@ def null_passes_checks(dev, render, film_mod, device_name: str, power_limit: str
               + f"); image mean {float(img.mean()):.6f} against the default cfg's "
               f"{mean0:.6f} through render_pass" + (", bit-equal to it" if same else "")
               + f" ({device_name}, {power_limit})")
-        if launches != {**want, "camera_rays": camera_launches(settings._replace(
-                samples_per_pass=1))} or kinds != want or not bool(torch.isfinite(img).all()):
+        if launches != {**want, **loop_launches(settings._replace(samples_per_pass=1))} \
+                or kinds != want or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"null_passes {k}: launched {launches}, expected {want}")
         if k == 2 and not same:
             raise AssertionError("null_passes 2 differs from the default cfg's pass")
@@ -2764,6 +2880,7 @@ def main() -> int:
 
     # ---- 3. kernel vs plain ---------------------------------------------
     cam_rays = camera_rays_checks(dev, render, device_name, power_limit)
+    splats = splat_checks(dev, film_mod, device_name, power_limit)
     scene = build_demo_scene(device=dev)
     camera = build_demo_camera(W, H, device=dev)
     settings = demo_settings(W, H, spp=1, samples_per_pass=1)
@@ -2965,11 +3082,12 @@ def main() -> int:
     # ---- 4. main paths --------------------------------------------------
     # the demo, path depth 10: the megakernel only
     dt, launches, film = timed_passes(render, film_mod, scene, camera, settings, dev)
-    want = {"megakernel": 4 * N_PASSES, "camera_rays": camera_launches(settings, N_PASSES)}
+    want = {"megakernel": 4 * N_PASSES, **loop_launches(settings, N_PASSES)}
     if launches != want:
         raise AssertionError(f"demo main path launched {launches} in {N_PASSES} passes, "
                              f"expected {want}")
     mega_launches, cam_launches = launches["megakernel"], launches["camera_rays"]
+    splat_launches = launches["splat_rows"]
     phase("main-path", f"demo: {N_PASSES} passes of {W}x{H} 1 spp depth {DEPTH}: "
           f"{dt:.2f} ms per pass, launches {launches}")
     print(json.dumps({
@@ -3006,7 +3124,7 @@ def main() -> int:
     # config 1: direct lighting depth 3, one light per vertex
     dt1, launches1, film1 = timed_passes(render, film_mod, scene1, camera1, set1, dev)
     want = {"intersect": 16 * N_PASSES, "intersect_any": 12 * N_PASSES,
-            "camera_rays": camera_launches(set1, N_PASSES)}
+            **loop_launches(set1, N_PASSES)}
     if launches1 != want:
         raise AssertionError(f"config-1 main path launched {launches1} in {N_PASSES} "
                              f"passes, expected {want}")
@@ -3052,7 +3170,7 @@ def main() -> int:
     imgf = film_mod.develop(filmf)
     if not (launchesf.get("intersect", 0) > 0 and launchesf.get("intersect_any", 0) > 0
             and "megakernel" not in launchesf
-            and launchesf.get("camera_rays") == camera_launches(fset, N_PASSES)):
+            and all(launchesf.get(k) == n for k, n in loop_launches(fset, N_PASSES).items())):
         raise AssertionError(f"feature scene launched {launchesf}")
     if not (bool(torch.isfinite(imgf).all()) and float(imgf.mean()) > 0.01):
         raise AssertionError(f"feature scene: bad image (mean {float(imgf.mean())})")
@@ -3198,6 +3316,16 @@ def main() -> int:
         "call_ms": cam_rays["call_ms"], "plain_ms": cam_rays["plain_ms"],
         "bound_ms": cam_rays["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "ms_per_pass": per_pass.get("camera_rays_kernel"),
+    })
+    # the splat (no TPU kernel): the demo main path's launches, one a band
+    # of every pass; [splat]'s own launches apart
+    line.append({
+        "name": "splat_rows", "route": "cuda", "source": "gopbrt_tpu_torch/csrc/splat_rows.cu",
+        "replaces": None, "launches": splat_launches,
+        "launches_per_pass": splat_launches // N_PASSES, "launches_splat": splats["launches"],
+        "max_abs_err": splats["max_err"], "ms": splats["ms"], "call_ms": splats["call_ms"],
+        "plain_ms": splats["plain_ms"], "bound_ms": splats["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ms_per_pass": own_d.get("splat_rows_kernel"),
     })
     for row in line:  # the [grad] and [inverse] paths' launches of each kernel
         row["launches_grad_inverse"] = slice_launches.get(row["name"], 0)

@@ -33,12 +33,14 @@ SOURCE_FLAGS = {
     # no fused multiply-adds: every product and sum rounds on its own, as
     # the plain version's PyTorch operations round them
     "camera_rays": ["-fmad=false"],
+    "splat_rows": ["-fmad=false"],
 }
 
 # Launches of the CUDA kernels, by kernel name ("megakernel", "intersect",
 # "intersect_any", "bvh_intersect", "bvh_intersect_any", "mesh_megakernel",
-# "camera_rays"); a name not in portbench's KERNEL_SYMBOL is a substring of
-# its kernel's device symbol (camera_rays_kernel).
+# "camera_rays", "splat_rows"); a name not in portbench's KERNEL_SYMBOL is a
+# substring of its kernel's device symbol (camera_rays_kernel,
+# splat_rows_kernel).
 # Each wrapper adds one where it launches its kernel and nowhere else;
 # callers reset it with LAUNCHES.clear().
 LAUNCHES: collections.Counter = collections.Counter()
@@ -82,6 +84,11 @@ _SIGNATURES = {
         "gopbrt_camera_rays":
             [_P, _P, _I, _I, _I, _I, _I, ctypes.c_uint, ctypes.c_longlong, _I, _I, _I, _I]
             + [ctypes.c_float] * 2 + [_P] * 6,
+    },
+    "splat_rows": {
+        # rgb, wsum, jitter, L, height, width, row0, rows, kind, radius,
+        # alpha, b, c, stream
+        "gopbrt_splat_rows": [_P] * 4 + [_I] * 5 + [ctypes.c_double] * 4 + [_P],
     },
 }
 

@@ -5,8 +5,10 @@ Counterpart of ``gopbrt_tpu/models/film.py`` (``Film``, ``new_film``,
 ``develop``, ``srgb_encode``, ``to_uint8``, ``write_png``).  Unlike the JAX
 version, ``add_samples_rows`` accumulates into the film's tensors in place
 (one 1080p film is 33 MB; a pass makes no copy of it) and returns the same
-film; autograd records the in-place fold, so the film carries a gradient to
-L where L has one.
+film: on a card, with no gradient recorded, in one launch of
+``csrc/splat_rows.cu`` (``ops/splat_rows.py``), otherwise with
+``add_samples_rows_plain``, whose in-place fold autograd records, so the
+film carries a gradient to L where L has one.
 ``add_samples`` is out of place, as the reference's scatter.
 """
 
@@ -21,7 +23,9 @@ import numpy as np
 import torch
 
 from gopbrt_tpu_torch import resolve_device
+from gopbrt_tpu_torch.ops import splat_rows
 from gopbrt_tpu_torch.ops.filters import Filter, box_filter, evaluate
+from gopbrt_tpu_torch.utils import trace
 
 
 class Film(NamedTuple):
@@ -79,13 +83,33 @@ def add_samples(film: Film, p_film: torch.Tensor, L: torch.Tensor,
 def add_samples_rows(film: Film, row0: int, jitter: torch.Tensor,
                      L: torch.Tensor, filt: Filter = box_filter(1.0)) -> Film:
     """Row-aligned dense splat of one sample per pixel for the band of image
-    rows starting at ``row0`` (film.go:211-248 AddSample, as shifted dense
-    adds).  Taps outside the image and samples on rows at or past the
+    rows starting at ``row0`` (film.go:211-248 AddSample), into the film in
+    place.  Taps outside the image and samples on rows at or past the
     image's last row are dropped.
 
     jitter: f32[rows, W, 2] sample offset within each pixel in [0, 1)^2.
     L:      f32[rows, W, 3].
+
+    A film on a card, where no gradient is recorded (grad mode off, or
+    neither the band nor the film requires grad), takes one launch of the
+    splat kernel (``ops/splat_rows.py``); anything else
+    ``add_samples_rows_plain``.  The tracer counts which in
+    ``film.splat_bands`` (``kernel`` / ``plain``).
     """
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (jitter, L, film.rgb, film.weight))
+    if splat_rows.on_card(film) and not recording:
+        trace.count("film.splat_bands", 1, key="kernel")
+        return splat_rows.splat_rows(film, row0, jitter, L, filt)
+    trace.count("film.splat_bands", 1, key="plain")
+    return add_samples_rows_plain(film, row0, jitter, L, filt)
+
+
+def add_samples_rows_plain(film: Film, row0: int, jitter: torch.Tensor,
+                           L: torch.Tensor, filt: Filter = box_filter(1.0)) -> Film:
+    """``add_samples_rows`` in PyTorch operations (as shifted dense adds):
+    ``splat_band_halo``'s accumulators folded into the film in place;
+    differentiable in L."""
     rows, w_img = L.shape[0], L.shape[1]
     h_img = film.weight.shape[0]
     if film.weight.shape[1] != w_img:

@@ -11,7 +11,9 @@
 // ends: the refill of the bounce skeleton's persistent loop (csrc/bounce.cuh
 // run_paths), in another order.  Each writes path i's
 // radiance at row i.  The camera-ray entry runs csrc/camera_rays.cu's lane
-// function on every lane of a band, as its kernel's threads do.
+// function on every lane of a band, as its kernel's threads do; the splat
+// entry csrc/splat_rows.cu's pixel function on every film pixel a band
+// reaches.
 #include <algorithm>
 #include <numeric>
 #include <random>
@@ -21,6 +23,7 @@
 #include "intersect.cu"
 #include "megakernel.cu"
 #include "mesh_megakernel.cu"
+#include "splat_rows.cu"
 
 namespace {
 
@@ -229,6 +232,26 @@ void host_camera_rays(const float* r2c, const float* c2w, int width, int row0, i
                                lens_radius, focal_distance};
   for (int lane = 0; lane < n; ++lane)
     gopbrt::camera_ray(P, r2c, c2w, lane, jitter, o, d, pixel, sample_out);
+}
+
+// The row splat of a band (csrc/splat_rows.cu): the pixel function on every
+// film pixel the band reaches, as the kernel's threads run it; the
+// arguments are gopbrt_splat_rows'.  -1 where splat_params refuses them.
+int host_splat_rows(float* rgb, float* wsum, const float* jitter, const float* L, int height,
+                    int width, int row0, int rows, int kind, double radius, double alpha,
+                    double b, double c) {
+  using namespace gopbrt;
+  SplatParams P;
+  if (!splat_params(height, width, row0, rows, kind, radius, alpha, b, c, P)) return -1;
+  for (int y = P.y_lo; y < P.y_hi; ++y)
+    for (int x = 0; x < width; ++x) {
+      if (kind == FILTER_BOX) splat_pixel<FILTER_BOX>(P, jitter, L, rgb, wsum, y, x);
+      if (kind == FILTER_TRIANGLE) splat_pixel<FILTER_TRIANGLE>(P, jitter, L, rgb, wsum, y, x);
+      if (kind == FILTER_GAUSSIAN) splat_pixel<FILTER_GAUSSIAN>(P, jitter, L, rgb, wsum, y, x);
+      if (kind == FILTER_MITCHELL) splat_pixel<FILTER_MITCHELL>(P, jitter, L, rgb, wsum, y, x);
+      if (kind == FILTER_LANCZOS) splat_pixel<FILTER_LANCZOS>(P, jitter, L, rgb, wsum, y, x);
+    }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,4 +1,7 @@
-"""The port's camera and film against gopbrt_tpu's."""
+"""The port's camera and film against gopbrt_tpu's, and the row splat's
+route: ``add_samples_rows`` on the CPU is ``add_samples_rows_plain``; with
+a film on a card and no gradient recorded it goes to the kernel's wrapper
+(``ops/splat_rows.py``), which refuses what the kernel does not take."""
 
 import struct
 import zlib
@@ -17,7 +20,10 @@ from gopbrt_tpu_torch.models import camera as tcam
 from gopbrt_tpu_torch.models import demo as tdemo
 from gopbrt_tpu_torch.models import film as tfilm
 from gopbrt_tpu_torch.models import render as trender
+from gopbrt_tpu_torch.ops import filters as tfilters
 from gopbrt_tpu_torch.ops import geom as tgeom
+from gopbrt_tpu_torch.ops import splat_rows
+from gopbrt_tpu_torch.utils import trace
 
 W, H = 64, 36
 
@@ -88,6 +94,85 @@ def test_add_samples_rows_matches_jax(row0, rows):
         row0, torch.tensor(jitter), torch.tensor(L))
     _close(tf.rgb, jf.rgb, atol=1e-5, rtol=1e-5)
     _close(tf.weight, jf.weight, atol=1e-5, rtol=1e-5)
+
+
+def _band(rows=5, width=W):
+    r = np.random.default_rng(rows + width)
+    return (torch.tensor(r.random((rows, width, 2)).astype(np.float32)),
+            torch.tensor((r.random((rows, width, 3)) * 4.0).astype(np.float32)))
+
+
+@pytest.fixture
+def tracing():
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+
+
+def test_add_samples_rows_on_the_cpu_takes_the_plain_path(tracing):
+    jitter, L = _band()
+    with trace.request() as req:
+        got = tfilm.add_samples_rows(tfilm.new_film(W, H, device="cpu"), 3, jitter, L)
+    assert req.counter("film.splat_bands") == {"plain": 1}
+    want = tfilm.add_samples_rows_plain(tfilm.new_film(W, H, device="cpu"), 3, jitter, L)
+    assert torch.equal(got.rgb, want.rgb) and torch.equal(got.weight, want.weight)
+
+
+def test_add_samples_rows_on_a_card_goes_to_the_kernel(tracing, monkeypatch):
+    """With the device check saying "card", the band counts under "kernel"
+    and goes to the wrapper, which refuses the CPU tensors: no fallback to
+    the plain version.  A band that requires grad under grad mode takes the
+    plain version; under no_grad the kernel again."""
+    monkeypatch.setattr(splat_rows, "on_card", lambda film: True)
+    jitter, L = _band()
+    film = tfilm.new_film(W, H, device="cpu")
+    L_grad = L.clone().requires_grad_()
+    with trace.request() as req:
+        with pytest.raises(ValueError, match="on one card"):
+            tfilm.add_samples_rows(film, 3, jitter, L)
+        out = tfilm.add_samples_rows(film, 3, jitter, L_grad)
+        assert out.rgb.requires_grad
+        with torch.no_grad(), pytest.raises(ValueError, match="on one card"):
+            tfilm.add_samples_rows(film, 3, jitter, L_grad)
+    assert req.counter("film.splat_bands") == {"kernel": 2, "plain": 1}
+
+
+# what the wrapper refuses -> (error, message)
+SPLAT_REFUSALS = {
+    "cpu tensors": (ValueError, "on one card"),
+    "float64 radiance": (ValueError, "float32"),
+    "film of two channels": (ValueError, "a film is"),
+    "radiance of two channels": (ValueError, "a band is"),
+    "band wider than the film": (ValueError, "band width 65 differs from the film width 64"),
+    "strided film": (ValueError, "contiguous"),
+    "radius past the kernel's": (ValueError, "radius"),
+    "radiance that requires grad": (RuntimeError, "not differentiable"),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLAT_REFUSALS))
+def test_splat_rows_refuses_what_the_kernel_does_not_take(case):
+    jitter, L = _band()
+    film, filt = tfilm.new_film(W, H, device="cpu"), tfilters.box_filter(1.0)
+    if case == "float64 radiance":
+        L = L.double()
+    elif case == "film of two channels":
+        film = film._replace(rgb=film.rgb[..., :2])
+    elif case == "radiance of two channels":
+        L = L[..., :2]
+    elif case == "band wider than the film":
+        jitter, L = _band(width=W + 1)
+    elif case == "strided film":
+        film = film._replace(rgb=torch.zeros((W, H, 3)).transpose(0, 1))
+    elif case == "radius past the kernel's":
+        filt = tfilters.box_filter(splat_rows.MAX_RADIUS + 1.0)
+    elif case == "radiance that requires grad":
+        L.requires_grad_()
+    error, match = SPLAT_REFUSALS[case]
+    with pytest.raises(error, match=match):
+        splat_rows.splat_rows(film, 3, jitter, L, filt)
 
 
 @pytest.mark.parametrize("gamma,compat_go", [(True, False), (False, False), (True, True)])

@@ -38,6 +38,12 @@ without a C++ compiler the tests skip.
   and the mesh's cameras, an orthographic and a thin-lens camera, a band
   whose last rows lie past the image, a crop window's columns; pixel,
   sample and jitter bit for bit, o and d within 2e-7.
+- The splat kernel's pixel function (csrc/splat_rows.cu) on every film
+  pixel a band reaches against ``film.add_samples_rows_plain``, on a 37
+  pixel wide film (not a multiple of the kernel's 32-wide tiles) that holds
+  data before the fold: the box filter at radius 0.5, 1 and 2 bit for bit,
+  triangle, Gaussian, Mitchell and Lanczos within 1e-6; bands at the first
+  row, inside, and past the last row with a NaN in L there.
 """
 
 import ctypes
@@ -62,6 +68,7 @@ from gopbrt_tpu.ops import geom as jgeom
 from gopbrt_tpu.ops import intersect as jisect
 from gopbrt_tpu_torch._build import BUILD_ROOT, CSRC
 from gopbrt_tpu_torch.models import camera as tcam
+from gopbrt_tpu_torch.models import film as tfilm
 from gopbrt_tpu_torch.models import demo as tdemo
 from gopbrt_tpu_torch.models import gallery as tgallery
 from gopbrt_tpu_torch.models import integrators as tint
@@ -72,6 +79,7 @@ from gopbrt_tpu_torch.models.scene import SceneBuilder
 from gopbrt_tpu_torch.ops import brute_intersect as tbi
 from gopbrt_tpu_torch.ops import bvh as tbvh
 from gopbrt_tpu_torch.ops import camera_rays as tcr
+from gopbrt_tpu_torch.ops import filters as tfilters
 from gopbrt_tpu_torch.ops import geom as tgeom
 from gopbrt_tpu_torch.ops import megakernel as tmk
 from tests.test_bvh import random_rays
@@ -122,6 +130,8 @@ def lib():
     lib.host_paths_brute.argtypes = [_P, _I] + _PATH_ARGS
     lib.host_paths_mesh.argtypes = [_P, _P, _P, _I] + _PATH_ARGS
     lib.host_camera_rays.argtypes = _CAMERA_ARGS
+    lib.host_splat_rows.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_double] * 4
+    lib.host_splat_rows.restype = _I
     for fn in (lib.host_bvh_walk, lib.host_intersect, lib.host_plane_test,
                lib.host_paths_brute, lib.host_paths_mesh, lib.host_camera_rays):
         fn.restype = None
@@ -549,3 +559,71 @@ def test_camera_ray_lane_matches_band_rays_plain(lib, case):
     assert (np.abs(o - want[1]) <= 2e-7 * scale).all()
     assert np.abs(d - want[2]).max() <= 2e-7
     assert np.abs(np.linalg.norm(d.astype(np.float64), axis=1) - 1.0).max() <= 2.4e-7
+
+
+# ---------------------------------------------------------------------------
+# The row splat
+# ---------------------------------------------------------------------------
+
+SPLAT_W, SPLAT_H, SPLAT_ROWS = 37, 40, 16
+# name -> (filter, bit for bit)
+SPLAT_FILTERS = {
+    "box-0.5": (tfilters.box_filter(0.5), True),
+    "box-1": (tfilters.box_filter(1.0), True),
+    "box-2": (tfilters.box_filter(2.0), True),
+    "triangle-2": (tfilters.triangle_filter(2.0), False),
+    "gaussian-2": (tfilters.gaussian_filter(2.0, 2.0), False),
+    "mitchell-2": (tfilters.mitchell_filter(2.0), False),
+    "lanczos-4": (tfilters.lanczos_filter(4.0, 3.0), False),
+}
+# name -> first row of a 16-row band: the first band, one inside, and the
+# last, whose rows 40-47 lie past the image
+SPLAT_BANDS = {"first": 0, "inner": 13, "past-the-image": 32}
+
+
+def _splat_band(row0):
+    rng = np.random.default_rng(row0 + 1)
+    jitter = rng.random((SPLAT_ROWS, SPLAT_W, 2)).astype(np.float32)
+    jitter[0, :4] = [[0.0, 0.0], [0.5, 0.5], [0.0, 0.5], [0.5, 0.0]]  # support edges
+    L = (rng.random((SPLAT_ROWS, SPLAT_W, 3)) * 4.0).astype(np.float32)
+    if row0 + SPLAT_ROWS > SPLAT_H:  # a NaN on the first row past the image
+        L[SPLAT_H - row0, 5, 1] = np.nan
+    rgb = rng.random((SPLAT_H, SPLAT_W, 3)).astype(np.float32)
+    w = rng.random((SPLAT_H, SPLAT_W)).astype(np.float32)
+    return jitter, L, rgb, w
+
+
+@pytest.mark.parametrize("band", list(SPLAT_BANDS))
+@pytest.mark.parametrize("filt_name", list(SPLAT_FILTERS))
+def test_splat_pixel_matches_add_samples_rows_plain(lib, filt_name, band):
+    """The kernel's pixel function on every film pixel the band reaches
+    against the plain splat, folded into a film that holds data: the box
+    filter bit for bit (NaN where the plain film is NaN), the others within
+    1e-6 of max(1, |value|).  A NaN in L on a row past the image spreads
+    (its 0 * L is added) into the last rows, as in the plain version."""
+    filt, exact = SPLAT_FILTERS[filt_name]
+    row0 = SPLAT_BANDS[band]
+    jitter, L, rgb, w = _splat_band(row0)
+    want = tfilm.add_samples_rows_plain(
+        tfilm.Film(rgb=torch.tensor(rgb), weight=torch.tensor(w)), row0,
+        torch.tensor(jitter), torch.tensor(L), filt)
+    got_rgb, got_w = rgb.copy(), w.copy()
+    assert lib.host_splat_rows(_ptr(got_rgb), _ptr(got_w), _ptr(jitter), _ptr(L), SPLAT_H,
+                               SPLAT_W, row0, SPLAT_ROWS, filt.kind, filt.radius, filt.alpha,
+                               filt.b, filt.c) == 0
+    rr = int(np.ceil(filt.radius))
+    nan_rows = np.isnan(want.rgb.numpy()).any(axis=(1, 2)).nonzero()[0]
+    assert list(nan_rows) == (list(range(SPLAT_H - rr, SPLAT_H))
+                              if band == "past-the-image" else [])
+    for got, ref in ((got_rgb, want.rgb.numpy()), (got_w, want.weight.numpy())):
+        nan = np.isnan(ref)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        if exact:
+            np.testing.assert_array_equal(got.view(np.int32)[~nan], ref.view(np.int32)[~nan])
+        else:
+            err = np.abs(got[~nan] - ref[~nan]) / np.maximum(1.0, np.abs(ref[~nan]))
+            assert err.max() <= 1e-6
+    # rows the band does not reach keep the film's data
+    untouched = np.ones(SPLAT_H, bool)
+    untouched[max(0, row0 - rr):row0 + SPLAT_ROWS + rr] = False
+    np.testing.assert_array_equal(got_rgb[untouched], rgb[untouched])

@@ -7,8 +7,10 @@ Runs ``path_config_checks``, ``null_passes_checks``, ``hlbvh_checks`` and
 ``goldens_checks`` of chip_smoke.py (all four without arguments) on CPU
 tensors before a chip call: the kernels' wrappers run their plain
 versions there, so each is wrapped to count its launch in
-``_build.LAUNCHES``; ``torch.cuda.synchronize`` and ``cuda_ms`` are
-faked.  Sizes: the demo and the 16x16 mesh at 64x36 in bands of 9 rows,
+``_build.LAUNCHES``, and so are ``render.band_rays`` and
+``film.add_samples_rows``, which take their plain versions on the CPU
+(the camera-ray and splat kernels' launches); ``torch.cuda.synchronize``
+and ``cuda_ms`` are faked.  Sizes: the demo and the 16x16 mesh at 64x36 in bands of 9 rows,
 bounded media at 48x27, the 10,224-triangle mesh's bounds with a 64x9
 band; the goldens at their own sizes, but configs 2 and 4 at 8 spp, so
 those two miss their goldens and exercise the phase's miss report (the
@@ -63,7 +65,9 @@ def main(phases) -> None:
                            (bvh, "bvh_intersect_fused", "bvh_intersect"),
                            (bvh, "bvh_intersect_p_fused", "bvh_intersect_any"),
                            (megakernel, "path_li_fused", "megakernel"),
-                           (mesh_megakernel, "mesh_li_fused", "mesh_megakernel")):
+                           (mesh_megakernel, "mesh_li_fused", "mesh_megakernel"),
+                           (render, "band_rays", "camera_rays"),
+                           (film_mod, "add_samples_rows", "splat_rows")):
         counted(mod, name, key)
     for phase in phases:
         t0 = time.perf_counter()

@@ -133,7 +133,7 @@ def main(argv=None) -> int:
              f"finite {bool(torch.isfinite(img).all())}")
     waves = HEIGHT // rows * SPP
     ok = (ok and route == {"bvh_megakernel": waves} and set(launched) <= {
-        "mesh_megakernel", "camera_rays"} and launched.get("mesh_megakernel") == waves)
+        "mesh_megakernel", "camera_rays", "splat_rows"} and launched.get("mesh_megakernel") == waves)
     cs.phase("flake", "ok" if ok else "FAILED")
     return 0 if ok else 1
 
