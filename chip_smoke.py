@@ -1073,7 +1073,8 @@ def mesh_checks(dev, band_rows: int) -> dict:
 
     # kernel #5 against its plain version and against the general chain
     out = torch.empty_like(o)
-    launch = mesh_megakernel.make_launch(scene, o, d, pix, smp, settings.seed, cfg, cone, out)
+    launch = megakernel.make_launch(mesh_megakernel.MESH, scene, o, d, pix, smp, settings.seed,
+                                    cfg, cone, out)
     mesh_out = launch().clone()
     torch.cuda.synchronize()
     counts, bounces = {}, torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -1093,7 +1094,8 @@ def mesh_checks(dev, band_rows: int) -> dict:
     # a light edit by _replace: the light rows packed from the new scene
     rmesh = scene._replace(lights=scene.lights._replace(intensity=scene.lights.intensity * 2.0))
     _build.LAUNCHES.clear()
-    r_out = mesh_megakernel.mesh_li_fused(rmesh, o, d, pix, smp, settings.seed, cfg, cone=cone)
+    r_out = integrators.li_fused(mesh_megakernel.MESH, rmesh, o, d, pix, smp, settings.seed, cfg,
+                                 cone=cone)
     r_launches = dict(_build.LAUNCHES)
     r_ref = megakernel.path_li_plain(rmesh, o, d, pix, smp, settings.seed, cfg, cone=cone,
                                      accel="bvh")
@@ -1319,7 +1321,8 @@ def family_checks(dev, render, film_mod, device_name: str, power_limit: str) -> 
         if "megakernel" in FAMILY_LAUNCHES[name]:
             if not megakernel.fits(scene):
                 raise AssertionError(f"{name} should lie on the megakernel's fast path")
-            got = megakernel.path_li_fused(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
+            got = integrators.li_fused(megakernel.BRUTE, scene, o, d, pix, smp, settings.seed,
+                                       cfg, cone=cone)
             ref = megakernel.path_li_plain(scene, o, d, pix, smp, settings.seed, cfg, cone=cone)
             frac, mean_rel, max_abs = agreement(got, ref)
             phase("kernel-vs-plain", f"megakernel, {name} band {settings.width}x"
@@ -1466,6 +1469,7 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
     agreement, max abs err) of #1}."""
     from gopbrt_tpu_torch import _build
     from gopbrt_tpu_torch.models import camera as cam_mod
+    from gopbrt_tpu_torch.models import integrators
     from gopbrt_tpu_torch.ops import filters, megakernel
 
     out = {"launches": collections.Counter(), "worst": (1.0, 0.0)}
@@ -1483,7 +1487,8 @@ def options_checks(dev, render, film_mod, scene, camera, settings, device_name: 
         return res, (time.perf_counter() - t0) * 1e3, launches
 
     def kernel_vs_plain(what, o, d, pix, smp):
-        got = megakernel.path_li_fused(scene, o, d, pix, smp, base.seed, cfg, cone=cone)
+        got = integrators.li_fused(megakernel.BRUTE, scene, o, d, pix, smp, base.seed, cfg,
+                                   cone=cone)
         ref = megakernel.path_li_plain(scene, o, d, pix, smp, base.seed, cfg, cone=cone)
         frac, mean_rel, max_abs = agreement(got, ref)
         phase("kernel-vs-plain", f"megakernel, {what} ({o.shape[0]} lanes), depth "
@@ -2750,24 +2755,20 @@ TOLS = {
 def plain_kernels():
     """The plain versions of all five kernels on the card's tensors, in
     place of the kernels, for the duration."""
+    from gopbrt_tpu_torch.models import integrators
     from gopbrt_tpu_torch.ops import megakernel as mk
-    from gopbrt_tpu_torch.ops import mesh_megakernel as mm
 
-    def mega(scene, o, d, pixel, sample, seed, cfg, cone=None):
-        return mk.path_li_plain(scene, o, d, *mk.check_inputs(scene, o, d, pixel, sample),
-                                seed, cfg, cone=cone)
+    def plain(kernel, scene, o, d, pixel, sample, seed, cfg, cone=None):
+        p, s = mk.check_inputs(kernel, scene, o, d, pixel, sample)
+        return mk.path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone, accel=kernel.accel)
 
-    def mesh(scene, o, d, pixel, sample, seed, cfg, cone=None):
-        p, s = mk.check_inputs(scene, o, d, pixel, sample, mm.fits, mm._WHY)
-        return mk.path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone, accel="bvh")
-
-    saved = mk.path_li_fused, mm.mesh_li_fused
-    mk.path_li_fused, mm.mesh_li_fused = mega, mesh
+    saved = integrators.li_fused
+    integrators.li_fused = plain
     try:
         with plain_intersection(), plain_intersection("bvh"):
             yield
     finally:
-        mk.path_li_fused, mm.mesh_li_fused = saved
+        integrators.li_fused = saved
 
 
 def goldens_checks(dev, render, device_name: str, power_limit: str) -> dict:
@@ -2890,8 +2891,8 @@ def main() -> int:
     _, o, d, pixel, sample = render.band_rays(camera, settings, band_rows, band_rows, 0)
     n_band = o.shape[0]
     out = torch.empty_like(o)
-    launch = megakernel.make_launch(scene, o, d, pixel, sample, settings.seed, cfg,
-                                    cone, out)
+    launch = megakernel.make_launch(megakernel.BRUTE, scene, o, d, pixel, sample, settings.seed,
+                                    cfg, cone, out)
     mega = launch().clone()
     torch.cuda.synchronize()
     counts, bounces = {}, torch.zeros((n_band,), dtype=torch.int64, device=dev)
@@ -2911,7 +2912,8 @@ def main() -> int:
     _, lo, ld, lpix, lsmp = render.band_rays(lcam, lset, 0, 256, 0)
     lcfg = render.path_config(lset)
     lcone = render._cone(lcam, lset)
-    lgot = megakernel.path_li_fused(ls, lo, ld, lpix, lsmp, lset.seed, lcfg, cone=lcone)
+    lgot = integrators.li_fused(megakernel.BRUTE, ls, lo, ld, lpix, lsmp, lset.seed, lcfg,
+                                cone=lcone)
     lref = megakernel.path_li_plain(ls, lo, ld, lpix, lsmp, lset.seed, lcfg, cone=lcone)
     if not bool(torch.isfinite(lgot).all()):
         raise AssertionError("lobe scene: non-finite kernel output")
@@ -2983,7 +2985,8 @@ def main() -> int:
         materials=scene.materials._replace(kd=scene.materials.kd * 0.5),
         lights=scene.lights._replace(intensity=scene.lights.intensity * 3.0))
     _build.LAUNCHES.clear()
-    r_k = megakernel.path_li_fused(rscene, o, d, pixel, sample, settings.seed, cfg, cone=cone)
+    r_k = integrators.li_fused(megakernel.BRUTE, rscene, o, d, pixel, sample, settings.seed, cfg,
+                               cone=cone)
     r_launches = dict(_build.LAUNCHES)
     r_p = megakernel.path_li_plain(rscene, o, d, pixel, sample, settings.seed, cfg, cone=cone)
     rfrac, rmean, rmax = agreement(r_k, r_p)

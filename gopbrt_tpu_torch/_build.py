@@ -6,6 +6,11 @@ runs at first use, from the package's own sources, into
 ``build/gopbrt_tpu_torch/<hash of the sources>/`` at the root of the
 checkout; a source edit changes the hash and rebuilds.  Sources build in
 parallel, one ``nvcc`` each.  A failed build raises.
+
+Every launch goes through ``launch``, on an ``Entry`` that the kernel's
+wrapper under ``ops/`` declares beside the arguments it passes: its
+library, symbol, ``LAUNCHES`` key and ctypes signature.  ``check_rays`` is
+what the wrappers of kernels #1-#5 ask of their rays.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -41,56 +47,9 @@ SOURCE_FLAGS = {
 # "camera_rays", "splat_rows"); a name not in portbench's KERNEL_SYMBOL is a
 # substring of its kernel's device symbol (camera_rays_kernel,
 # splat_rows_kernel).
-# Each wrapper adds one where it launches its kernel and nowhere else;
-# callers reset it with LAUNCHES.clear().
+# ``launch`` adds one a launch and nothing else does; callers reset it with
+# LAUNCHES.clear().
 LAUNCHES: collections.Counter = collections.Counter()
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# ctypes signature of each library's entry points, by library (source stem).
-# The bounce kernels, on persistent lanes (csrc/lanes.cuh), take one int of
-# device memory for their path counter after the stream, then an int flag:
-# nonzero for the counting instance, which fills the three ints after the
-# path counter.
-_SIGNATURES = {
-    "megakernel": {
-        "gopbrt_path_li":
-            [_P] * 5 + [_I, _P, _I, _I, _I, ctypes.c_uint]
-            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P, _I],
-    },
-    "intersect": {
-        # o, d, t_max, n, rec, n_prims, dead_d2, instance, flags, outputs,
-        # stream
-        "gopbrt_intersect": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
-        "gopbrt_intersect_any": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
-    },
-    "bvh_intersect": {
-        # o, d, t_max, n, nodes, records, (prim_order,) flags, outputs, stream
-        "gopbrt_bvh_intersect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
-        "gopbrt_bvh_intersect_any": [_P, _P, _P, _I, _P, _P, _I, _P, _P],
-    },
-    "mesh_megakernel": {
-        # o, d, pixel, sample, L, n, tables, table_words, nodes, records,
-        # bvh_flags, n_mats, n_lights, seed, func_int, world_radius, cone_w0,
-        # cone_sp, max_depth, rr_start, rr_threshold, flags, stream, counter,
-        # count
-        "gopbrt_mesh_li":
-            [_P] * 5 + [_I, _P, _I, _P, _P, _I, _I, _I, ctypes.c_uint]
-            + [ctypes.c_float] * 4 + [_I, _I, ctypes.c_float, _I, _P, _P, _I],
-    },
-    "camera_rays": {
-        # r2c, c2w, width, row0, col0, cols, n, seed, sample, sampler, nx,
-        # ny, kind, lens_radius, focal_distance, jitter, o, d, pixel,
-        # sample_out, stream
-        "gopbrt_camera_rays":
-            [_P, _P, _I, _I, _I, _I, _I, ctypes.c_uint, ctypes.c_longlong, _I, _I, _I, _I]
-            + [ctypes.c_float] * 2 + [_P] * 6,
-    },
-    "splat_rows": {
-        # rgb, wsum, jitter, L, height, width, row0, rows, kind, radius,
-        # alpha, b, c, stream
-        "gopbrt_splat_rows": [_P] * 4 + [_I] * 5 + [ctypes.c_double] * 4 + [_P],
-    },
-}
 
 
 def _nvcc() -> str:
@@ -152,11 +111,83 @@ def counter(device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str = "megakernel") -> ctypes.CDLL:
-    """The built library ``name`` with its entry points' ctypes signatures."""
-    lib = ctypes.CDLL(build()[name]["path"])
-    for fn_name, argtypes in _SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def load(name: str) -> ctypes.CDLL:
+    """The built library ``name`` (a source stem)."""
+    return ctypes.CDLL(build()[name]["path"])
+
+
+class Entry(NamedTuple):
+    """A kernel's C entry point: its library (source stem), its symbol, its
+    key in LAUNCHES, and the ctypes types of the arguments it takes before
+    the stream (``args``) and after it (``after``).  Each entry returns its
+    cudaError_t."""
+
+    lib: str
+    symbol: str
+    key: str
+    args: tuple
+    after: tuple = ()
+
+
+@functools.lru_cache(maxsize=None)
+def _function(entry: Entry):
+    fn = getattr(load(entry.lib), entry.symbol)
+    fn.argtypes = [*entry.args, ctypes.c_void_p, *entry.after]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(entry: Entry, device, args: tuple, *after) -> None:
+    """Runs ``entry`` on ``device``'s current stream: ``args``, the stream,
+    then ``after``.  Raises on a nonzero cudaError_t; counts one launch in
+    ``LAUNCHES[entry.key]``."""
+    err = _function(entry)(*args, torch.cuda.current_stream(device).cuda_stream, *after)
+    if err != 0:
+        raise RuntimeError(f"{entry.key} launch failed: cudaError_t {err}")
+    LAUNCHES[entry.key] += 1
+
+
+def launch_lanes(entry: Entry, device, n: int, args: tuple, *dtypes) -> tuple:
+    """Outputs of ``n`` lanes, one fresh [n] tensor of each of ``dtypes`` on
+    ``device``, filled by a launch of ``entry`` with ``args`` then their
+    pointers; no launch where ``n`` is 0."""
+    outs = tuple(torch.empty((n,), dtype=t, device=device) for t in dtypes)
+    if n:
+        launch(entry, device, (*args, *(x.data_ptr() for x in outs)))
+    return outs
+
+
+def check_rays(o, d, t_max=None, *, device, card: bool, out=None, bvh=None,
+               animated=False) -> None:
+    """What the wrappers of kernels #1-#5 ask of their rays: o and d float32
+    [N, 3] (and t_max float32 [N]) on ``device``, the device of the tables
+    they read, which are not ``animated``.  ``card``: also what a launch
+    asks: the rays on a card and contiguous, ``out`` float32 [N, 3] beside
+    them and contiguous, and the BVH table ``bvh``'s nodes 64-byte and
+    records 16-byte aligned."""
+    if animated:
+        raise ValueError("the intersection kernels take no animated table: its moving prims "
+                         "need each lane's transform (the plain versions at the lanes' times)")
+    lanes = (o, d) if t_max is None else (o, d, t_max)
+    names = "o and d" if t_max is None else "o, d and t_max"
+    if any(x.dtype != torch.float32 for x in lanes):
+        raise TypeError(f"{names} must be float32")
+    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape or (
+            t_max is not None and t_max.shape != o.shape[:1]):
+        raise ValueError(f"o and d must be [N, 3] (t_max [N]), got "
+                         f"{[tuple(x.shape) for x in lanes]}")
+    if any(x.device != device for x in lanes):
+        raise ValueError(f"{names} must lie on the tables' device {device}")
+    if not card:
+        return
+    if o.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
+    if out is not None:
+        if out.shape != o.shape or out.dtype != torch.float32 or out.device != o.device:
+            raise ValueError("out must be float32 [N, 3] on the rays' device")
+        lanes += (out,)
+    if not all(x.is_contiguous() for x in lanes):
+        raise ValueError("the rays and the output must be contiguous")
+    if bvh is not None and (bvh.nodes.data_ptr() % 64 or bvh.records.data_ptr() % 16):
+        raise ValueError("the BVH nodes must be 64-byte and the records 16-byte aligned "
+                         "(bvh_table packs them so)")

@@ -35,9 +35,10 @@ above BRUTE_FORCE_CUTOFF prims with a BVH, those of ``csrc/intersect.cu``
 ``intersect_p_brute_fused``) on the others; on CPU tensors they run the
 plain versions.  An animated scene runs the plain, time-aware versions
 on either device, as the reference turns Pallas off for it
-(integrators.py:154-204).  Under ``li``, fast-path scenes run the bounce megakernel
-(``ops/megakernel.path_li_fused``) and mesh fast-path scenes above the
-cutoff the mesh megakernel (``ops/mesh_megakernel.mesh_li_fused``).
+(integrators.py:154-204).  Under ``li``, fast-path scenes run a bounce
+megakernel through ``li_fused``: the brute one
+(``ops/megakernel.BRUTE``) up to the cutoff, the mesh one
+(``ops/mesh_megakernel.MESH``) above it.
 """
 
 from __future__ import annotations
@@ -997,32 +998,65 @@ def li_direct(scene, o, d, pixel, sample, seed, max_depth: int = 5, cone=None,
 # ---------------------------------------------------------------------------
 
 
+def li_fused(kernel: megakernel.Kernel, scene, o, d, pixel, sample, seed, cfg: PathConfig,
+             cone=None) -> torch.Tensor:
+    """Drop-in for ``li`` on the scenes the bounce megakernel ``kernel``
+    (``megakernel.BRUTE`` or ``mesh_megakernel.MESH``) takes: radiance
+    f32[N,3].  CUDA tensors launch it on the current stream
+    (``megakernel.make_launch``); CPU tensors run its plain twin,
+    ``megakernel.path_li_plain``.  cone: optional (width0, spread) ray-cone
+    floats, with no gradient.  The result carries a gradient to o, d and
+    the scene's float tensors by path replay through ``_li_wavefront``
+    (``megakernel.replayed``; pallas_mesh_megakernel.py:1521-1556: the mesh
+    kernel reads the build's material rows, the replay
+    ``scene.materials``).  A cfg with nee or mis off raises."""
+    megakernel.check_cfg(cfg)
+    if cone is not None and any(torch.is_tensor(c) and c.requires_grad for c in cone):
+        raise ValueError("the ray cone is a pair of floats: no gradient reaches it")
+
+    def run():
+        if o.device.type == "cpu":
+            p, s = megakernel.check_inputs(kernel, scene, o, d, pixel, sample)
+            return megakernel.path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone,
+                                            accel=kernel.accel)
+        out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
+        if o.shape[0] == 0:
+            return out
+        return megakernel.make_launch(kernel, scene, o, d, pixel, sample, seed, cfg, cone, out)()
+
+    def replay(scene_, o_, d_):
+        return _li_wavefront(scene_, o_, d_, pixel, sample, seed, cfg, cone=cone)
+
+    return megakernel.replayed(run, replay, scene, o, d)
+
+
 def li(scene, o: torch.Tensor, d: torch.Tensor, pixel, sample, seed,
        cfg: PathConfig = PathConfig(), cone=None, time=None) -> torch.Tensor:
     """Path.Li (path.go:32-157): radiance f32[N,3] for rays (o, d)[N].
 
     pixel/sample: uint32 counters (int64 tensors) feeding the stateless
     sampler; cone: optional (width0, spread) ray-cone floats; time: the
-    rays' shutter times f32[N] on an animated scene.  Scenes inside the
-    fast-path set, up to the brute-force cutoff, run the bounce megakernel
-    (integrators.py:103-120); mesh fast-path scenes above it with a BVH run
-    the mesh megakernel (:123-141); both need a static scene and neither
-    compaction nor ``early_exit``, and NEE with MIS (``cfg.nee`` and
-    ``cfg.mis``), which the kernels bake in.  Every other run takes the
-    general wavefront loop (integrators.py:1059-1069).  The counter
-    ``li.route`` counts each call under the way it took:
-    ``brute_megakernel``, ``bvh_megakernel`` or ``chain``.
+    rays' shutter times f32[N] on an animated scene.  The route, read here
+    alone: scenes inside the fast-path set, up to the brute-force cutoff,
+    run the brute megakernel (integrators.py:103-120; its launch refuses a
+    scene it does not fit); mesh fast-path scenes above it with a BVH run
+    the mesh megakernel (:123-141); both through ``li_fused``, and both
+    need a static scene and neither compaction nor ``early_exit``, and NEE
+    with MIS (``cfg.nee`` and ``cfg.mis``), which the kernels bake in.
+    Every other run takes the general wavefront loop
+    (integrators.py:1059-1069).  The counter ``li.route`` counts each call
+    under the way it took: ``brute_megakernel``, ``bvh_megakernel`` or
+    ``chain``.
     """
-    fi = scene.fastinfo
+    fi, kernel = scene.fastinfo, None
     if (fi is not None and scene.prims.anim is None and cfg.nee and cfg.mis
             and not cfg.compaction and not cfg.early_exit):
         if fi.ok and scene.prims.count <= BRUTE_FORCE_CUTOFF:
-            trace.count("li.route", 1, key="brute_megakernel")
-            return megakernel.path_li_fused(scene, o, d, pixel, sample, seed, cfg,
-                                            cone=cone)
-        if mesh_megakernel.fits(scene):
-            trace.count("li.route", 1, key="bvh_megakernel")
-            return mesh_megakernel.mesh_li_fused(scene, o, d, pixel, sample, seed, cfg,
-                                                 cone=cone)
-    trace.count("li.route", 1, key="chain")
-    return _li_wavefront(scene, o, d, pixel, sample, seed, cfg, cone=cone, time=time)
+            kernel = megakernel.BRUTE
+        elif mesh_megakernel.fits(scene):
+            kernel = mesh_megakernel.MESH
+    if kernel is None:
+        trace.count("li.route", 1, key="chain")
+        return _li_wavefront(scene, o, d, pixel, sample, seed, cfg, cone=cone, time=time)
+    trace.count("li.route", 1, key=f"{kernel.accel}_megakernel")
+    return li_fused(kernel, scene, o, d, pixel, sample, seed, cfg, cone=cone)

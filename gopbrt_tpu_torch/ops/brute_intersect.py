@@ -30,6 +30,7 @@ the TPU kernel's SMEM scalars do.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -400,34 +401,20 @@ def intersect_p_brute(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_rays(table: BruteTable, o, d, t_max):
-    if table.animated:
-        raise ValueError("the brute intersection kernels take no animated table: its moving "
-                         "prims need each lane's transform (intersect_brute with moving_rows)")
-    if o.dtype != torch.float32 or d.dtype != torch.float32 or t_max.dtype != torch.float32:
-        raise TypeError("o, d and t_max must be float32")
-    n = o.shape[0]
-    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape or t_max.shape != (n,):
-        raise ValueError(f"o, d must be [N, 3] and t_max [N], got {tuple(o.shape)}, "
-                         f"{tuple(d.shape)}, {tuple(t_max.shape)}")
-    dev = o.device
-    if d.device != dev or t_max.device != dev or table.params.device != dev:
-        raise ValueError("rays, t_max and the primitive table must lie on one device")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# o, d, t_max, n, rec, n_prims, dead_d2, instance, flags, then the outputs
+_ARGS = (_P, _P, _P, _I, _P, _I, _P, _I, _I)
+HIT = _build.Entry("intersect", "gopbrt_intersect", "intersect", _ARGS + (_P,) * 3)
+ANY = _build.Entry("intersect", "gopbrt_intersect_any", "intersect_any", _ARGS + (_P,))
 
 
-def _kernel_args(table: BruteTable, o, d, t_max):
-    """Pointers and scalars of a launch, all from tensors the caller holds
-    across the launch."""
-    if o.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
-    if not (o.is_contiguous() and d.is_contiguous() and t_max.is_contiguous()):
-        raise ValueError("o, d and t_max must be contiguous")
+def _launch_args(table: BruteTable, o, d, t_max) -> tuple:
+    """Checks the rays (on the CPU too); the pointers and scalars of a
+    launch on them, from tensors the caller holds across the launch."""
+    _build.check_rays(o, d, t_max, device=table.params.device, card=o.device.type != "cpu",
+                      animated=table.animated)
     return (o.data_ptr(), d.data_ptr(), t_max.data_ptr(), o.shape[0], table.rec.data_ptr(),
             table.count, table.dead_d2.data_ptr(), table.instance, table.flags)
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def intersect_brute_fused(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
@@ -436,22 +423,11 @@ def intersect_brute_fused(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
     prim 0 on a miss.  CUDA tensors launch ``gopbrt_intersect`` of
     csrc/intersect.cu on the current stream; CPU tensors run
     ``intersect_brute``."""
-    _check_rays(table, o, d, t_max)
+    args = _launch_args(table, o, d, t_max)
     if o.device.type == "cpu":
         return intersect_brute(table, o, d, t_max)
-    n = o.shape[0]
-    hit = torch.empty((n,), dtype=torch.bool, device=o.device)
-    t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=o.device)
-    if n == 0:
-        return hit, t, idx
-    fn = _build.load("intersect").gopbrt_intersect
-    err = fn(*_kernel_args(table, o, d, t_max), hit.data_ptr(), t.data_ptr(),
-             idx.data_ptr(), _stream(o.device))
-    if err != 0:
-        raise RuntimeError(f"intersect launch failed: cudaError_t {err}")
-    _build.LAUNCHES["intersect"] += 1
-    return hit, t, idx
+    return _build.launch_lanes(HIT, o.device, o.shape[0], args, torch.bool, torch.float32,
+                               torch.int32)
 
 
 def intersect_p_brute_fused(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
@@ -459,16 +435,7 @@ def intersect_p_brute_fused(table: BruteTable, o: torch.Tensor, d: torch.Tensor,
     """Any hit closer than t_max (bool[N]).  CUDA tensors launch
     ``gopbrt_intersect_any`` of csrc/intersect.cu on the current stream;
     CPU tensors run ``intersect_p_brute``."""
-    _check_rays(table, o, d, t_max)
+    args = _launch_args(table, o, d, t_max)
     if o.device.type == "cpu":
         return intersect_p_brute(table, o, d, t_max)
-    n = o.shape[0]
-    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
-    fn = _build.load("intersect").gopbrt_intersect_any
-    err = fn(*_kernel_args(table, o, d, t_max), occ.data_ptr(), _stream(o.device))
-    if err != 0:
-        raise RuntimeError(f"intersect_any launch failed: cudaError_t {err}")
-    _build.LAUNCHES["intersect_any"] += 1
-    return occ
+    return _build.launch_lanes(ANY, o.device, o.shape[0], args, torch.bool)[0]

@@ -25,6 +25,7 @@ reads contiguous rows.  ``bvh_intersect_fused`` /
 
 from __future__ import annotations
 
+import ctypes
 import sys
 import time
 from typing import NamedTuple, Optional
@@ -543,30 +544,20 @@ def bvh_intersect_p(table: BVHTable, o: torch.Tensor, d: torch.Tensor, t_max: to
 # ---------------------------------------------------------------------------
 
 
-def _refuse_animated(table: BVHTable):
-    if table.animated:
-        raise ValueError("the BVH walk kernels take no animated table: its moving prims "
-                         "need each lane's transform (bvh_intersect with anim and time)")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# o, d, t_max, n, nodes, records, (prim_order,) flags, then the outputs
+HIT = _build.Entry("bvh_intersect", "gopbrt_bvh_intersect", "bvh_intersect",
+                   (_P,) * 3 + (_I, _P, _P, _P, _I) + (_P,) * 3)
+ANY = _build.Entry("bvh_intersect", "gopbrt_bvh_intersect_any", "bvh_intersect_any",
+                   (_P,) * 3 + (_I, _P, _P, _I, _P))
 
 
-def _kernel_args(table: BVHTable, o, d, t_max):
-    """Pointers and scalars of a launch, from tensors the caller holds."""
-    if o.dtype != torch.float32 or d.dtype != torch.float32 or t_max.dtype != torch.float32:
-        raise TypeError("o, d and t_max must be float32")
-    n = o.shape[0]
-    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape or t_max.shape != (n,):
-        raise ValueError(f"o, d must be [N, 3] and t_max [N], got {tuple(o.shape)}, "
-                         f"{tuple(d.shape)}, {tuple(t_max.shape)}")
-    if d.device != o.device or t_max.device != o.device or table.nodes.device != o.device:
-        raise ValueError("rays, t_max and the BVH tables must lie on one device")
-    if o.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
-    if not (o.is_contiguous() and d.is_contiguous() and t_max.is_contiguous()):
-        raise ValueError("o, d and t_max must be contiguous")
-    if table.nodes.data_ptr() % 64 or table.records.data_ptr() % 16:
-        raise ValueError("the BVH nodes must be 64-byte and the records 16-byte aligned "
-                         "(bvh_table packs them so)")
-    return (o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, table.nodes.data_ptr(),
+def _launch_args(table: BVHTable, o, d, t_max) -> tuple:
+    """Checks the rays (on the CPU too); the pointers and scalars of a
+    launch on them, from tensors the caller holds across the launch."""
+    _build.check_rays(o, d, t_max, device=table.nodes.device, card=o.device.type != "cpu",
+                      bvh=table, animated=table.animated)
+    return (o.data_ptr(), d.data_ptr(), t_max.data_ptr(), o.shape[0], table.nodes.data_ptr(),
             table.records.data_ptr())
 
 
@@ -575,23 +566,12 @@ def bvh_intersect_fused(table: BVHTable, o: torch.Tensor, d: torch.Tensor,
     """Closest hit (hit bool[N], t f32[N], prim int32[N]).  CUDA tensors
     launch ``gopbrt_bvh_intersect`` of csrc/bvh_intersect.cu on the current
     stream; CPU tensors run ``bvh_intersect``."""
-    _refuse_animated(table)
+    args = _launch_args(table, o, d, t_max)
     if o.device.type == "cpu":
         return bvh_intersect(table, o, d, t_max)
-    args = _kernel_args(table, o, d, t_max)
-    n = o.shape[0]
-    hit = torch.empty((n,), dtype=torch.bool, device=o.device)
-    t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    prim = torch.empty((n,), dtype=torch.int32, device=o.device)
-    if n == 0:
-        return hit, t, prim
-    err = _build.load("bvh_intersect").gopbrt_bvh_intersect(
-        *args, table.bvh.prim_order.data_ptr(), table.flags, hit.data_ptr(), t.data_ptr(),
-        prim.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bvh_intersect launch failed: cudaError_t {err}")
-    _build.LAUNCHES["bvh_intersect"] += 1
-    return hit, t, prim
+    return _build.launch_lanes(HIT, o.device, o.shape[0],
+                               (*args, table.bvh.prim_order.data_ptr(), table.flags),
+                               torch.bool, torch.float32, torch.int32)
 
 
 def bvh_intersect_p_fused(table: BVHTable, o: torch.Tensor, d: torch.Tensor,
@@ -599,17 +579,7 @@ def bvh_intersect_p_fused(table: BVHTable, o: torch.Tensor, d: torch.Tensor,
     """Any hit closer than t_max (bool[N]).  CUDA tensors launch
     ``gopbrt_bvh_intersect_any`` of csrc/bvh_intersect.cu on the current
     stream; CPU tensors run ``bvh_intersect_p``."""
-    _refuse_animated(table)
+    args = _launch_args(table, o, d, t_max)
     if o.device.type == "cpu":
         return bvh_intersect_p(table, o, d, t_max)
-    args = _kernel_args(table, o, d, t_max)
-    n = o.shape[0]
-    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
-    err = _build.load("bvh_intersect").gopbrt_bvh_intersect_any(
-        *args, table.flags, occ.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bvh_intersect_any launch failed: cudaError_t {err}")
-    _build.LAUNCHES["bvh_intersect_any"] += 1
-    return occ
+    return _build.launch_lanes(ANY, o.device, o.shape[0], (*args, table.flags), torch.bool)[0]

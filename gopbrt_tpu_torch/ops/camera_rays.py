@@ -12,12 +12,21 @@ ulps, since the plain version's transforms are matrix products in
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from gopbrt_tpu_torch import _build
 
 # the samplers of render.camera_samples, as csrc/camera_rays.cu numbers them
 SAMPLERS = {"stratified": 0, "random": 1, "halton": 2}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# r2c, c2w, width, row0, col0, cols, n, seed, sample, sampler, nx, ny, kind,
+# lens_radius, focal_distance, jitter, o, d, pixel, sample_out
+ENTRY = _build.Entry("camera_rays", "gopbrt_camera_rays", "camera_rays",
+                     (_P, _P) + (_I,) * 5 + (ctypes.c_uint, ctypes.c_longlong) + (_I,) * 4
+                     + (ctypes.c_float,) * 2 + (_P,) * 5)
 
 
 def on_card(camera) -> bool:
@@ -58,14 +67,9 @@ def camera_rays(camera, width: int, row0: int, n_rows: int, sample_idx: int, see
     sample = torch.empty((n,), dtype=torch.int64, device=dev)
     if n == 0:
         return jitter, o, d, pixel, sample
-    fn = _build.load("camera_rays").gopbrt_camera_rays
-    err = fn(r2c.data_ptr(), c2w.data_ptr(), width, row0, x0, x1 - x0, n,
-             int(seed) & 0xFFFFFFFF,
-             int(sample_idx), SAMPLERS[sampler], nx, ny, camera.kind,
-             float(camera.lens_radius), float(camera.focal_distance), jitter.data_ptr(),
-             o.data_ptr(), d.data_ptr(), pixel.data_ptr(), sample.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"camera_rays launch failed: cudaError_t {err}")
-    _build.LAUNCHES["camera_rays"] += 1
+    _build.launch(ENTRY, dev, (
+        r2c.data_ptr(), c2w.data_ptr(), width, row0, x0, x1 - x0, n, int(seed) & 0xFFFFFFFF,
+        int(sample_idx), SAMPLERS[sampler], nx, ny, camera.kind, float(camera.lens_radius),
+        float(camera.focal_distance), jitter.data_ptr(), o.data_ptr(), d.data_ptr(),
+        pixel.data_ptr(), sample.data_ptr()))
     return jitter, o, d, pixel, sample

@@ -3,30 +3,31 @@
 Counterpart of ``gopbrt_tpu/ops/pallas_megakernel.py`` and of the loop of
 ``gopbrt_tpu/ops/pallas_mesh_megakernel.py``.  The CUDA bounce skeleton
 (``csrc/bounce.cuh``, path state in registers, persistent lanes that take
-the next path when theirs ends) has two instances: the brute sweep over
-scene tables in shared memory (``csrc/megakernel.cu``, launched by
-``path_li_fused`` here) and the BVH walk (``csrc/mesh_megakernel.cu``,
-launched by ``ops/mesh_megakernel.mesh_li_fused``).  ``path_li_plain`` is the plain
-version of both, a lane-vectorised PyTorch transcription of the skeleton
-that follows it op for op; ``accel`` picks its intersector.
+the next path when theirs ends) has two instances, each described by a
+``Kernel`` record: the brute sweep over scene tables in shared memory
+(``BRUTE``, ``csrc/megakernel.cu``) and the BVH walk
+(``mesh_megakernel.MESH``, ``csrc/mesh_megakernel.cu``).  ``make_launch``
+launches either.  ``path_li_plain`` is the plain version of both, a
+lane-vectorised PyTorch transcription of the skeleton that follows it op
+for op; ``accel`` picks its intersector.
 
 Scope is the fast-path feature sets (ops/static_info.FastPathInfo): spheres
 and disks (``ok``), plus world-space triangles and plastic (``mesh_ok``);
 matte, mirror, smooth and rough glass; constant or planar-checker kd with
 the ray-cone box filter; point, distant and sphere-area lights.
 
-The kernels are forward only.  ``path_li_fused`` and
-``mesh_megakernel.mesh_li_fused`` return their radiance through
-``replayed``, a ``torch.autograd.Function`` whose backward replays the same
-paths (the same counter streams) through the differentiable chain
-``integrators._li_wavefront`` and backpropagates there: path-replay
-backpropagation, as the reference's ``custom_vjp``
-(pallas_megakernel.py:1309-1357).
+The kernels are forward only.  The integrator's ``li_fused`` returns their
+radiance through ``replayed``, a ``torch.autograd.Function`` whose backward
+replays the same paths (the same counter streams) through the
+differentiable chain it hands in, ``integrators._li_wavefront``, and
+backpropagates there: path-replay backpropagation, as the reference's
+``custom_vjp`` (pallas_megakernel.py:1309-1357).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -1250,18 +1251,45 @@ def as_i32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous()
 
 
-def check_inputs(scene, o, d, pixel, sample, scene_fits=fits,
-                 why="the megakernel takes fast-path scenes of <= 64 prims and 1..16 lights"):
-    """Checks the rays and that ``scene_fits(scene)``; returns pixel and
-    sample as uint32 counters broadcast to [N]."""
-    if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError("o and d must be float32")
-    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
-        raise ValueError(f"o and d must be [N, 3], got {tuple(o.shape)}, {tuple(d.shape)}")
-    if d.device != o.device or scene.device != o.device:
-        raise ValueError("rays and scene must lie on one device")
-    if not scene_fits(scene):
-        raise ValueError(why)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def bounce_entry(lib: str, symbol: str, key: str, own: tuple) -> _build.Entry:
+    """A bounce kernel's C entry: o, d, pixel, sample, L, n, tables,
+    table_words, its ``own`` arguments' types, n_lights, seed, func_int,
+    world_radius, cone_w0, cone_sp, max_depth, rr_start, rr_threshold,
+    flags; after the stream the path counter (csrc/lanes.cuh) and an int,
+    nonzero for the counting instance, which fills the STATS after it."""
+    return _build.Entry(lib, symbol, key,
+                        (_P,) * 5 + (_I, _P, _I) + own + (_I, ctypes.c_uint) + (_F,) * 4
+                        + (_I, _I, _F, _I), after=(_P, _I))
+
+
+class Kernel(NamedTuple):
+    """A bounce kernel as ``make_launch`` launches it and ``path_li_plain``
+    stands in for it."""
+
+    entry: _build.Entry
+    tables_for: Callable  # scene -> the packed tables a launch reads
+    fits: Callable  # scene -> whether the kernel takes it
+    why: str  # the refusal of a scene it does not take
+    accel: str  # path_li_plain's intersector: the kernel's plain twin
+    own: Callable  # (scene, tables) -> the kernel's own arguments
+
+
+# the brute instance, csrc/megakernel.cu: its own argument is n_prims
+BRUTE = Kernel(bounce_entry("megakernel", "gopbrt_path_li", "megakernel", (_I,)), tables_for,
+               fits, "the megakernel takes fast-path scenes of <= 64 prims and 1..16 lights",
+               "brute", lambda scene, kt: (scene.prims.count,))
+
+
+def check_inputs(kernel: Kernel, scene, o, d, pixel, sample, out=None):
+    """Checks the rays (with ``out``, also what a launch asks of them,
+    ``_build.check_rays``) and that ``kernel`` takes the scene; returns
+    pixel and sample as uint32 counters broadcast to [N]."""
+    _build.check_rays(o, d, device=scene.device, card=out is not None, out=out)
+    if not kernel.fits(scene):
+        raise ValueError(kernel.why)
     n = o.shape[0]
     pixel = torch.broadcast_to(rng.as_u32(pixel, o.device), (n,))
     sample = torch.broadcast_to(rng.as_u32(sample, o.device), (n,))
@@ -1278,63 +1306,37 @@ def check_cfg(cfg) -> None:
                          "runs the wavefront chain (integrators.li)")
 
 
-def check_launch(o, d, out):
-    """What a launch needs of the rays and the output buffer."""
-    if o.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {o.device}")
-    if not (o.is_contiguous() and d.is_contiguous() and out.is_contiguous()):
-        raise ValueError("o, d and out must be contiguous")
-    if out.shape != o.shape or out.dtype != torch.float32 or out.device != o.device:
-        raise ValueError("out must be float32 [N, 3] on the rays' device")
-
-
-def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
-    """Everything a CUDA launch needs, prepared once: returns a callable
-    that launches the kernel on the current stream, writing radiance into
-    ``out`` (f32[N,3], on the card), and counts the launch."""
-    pixel, sample = check_inputs(scene, o, d, pixel, sample)
+def make_launch(kernel: Kernel, scene, o, d, pixel, sample, seed, cfg, cone, out):
+    """Everything a CUDA launch of ``kernel`` needs, prepared once: returns
+    a callable that launches it on the current stream, writing radiance
+    into ``out`` (f32[N,3], on the card).  After ``trace.enable()`` it
+    launches the counting instance on a counter of its own and adds its
+    STATS to the tracer's counters under the kernel's ``LAUNCHES`` key."""
+    pixel, sample = check_inputs(kernel, scene, o, d, pixel, sample, out)
     check_cfg(cfg)
-    check_launch(o, d, out)
-
-    fn = _build.load().gopbrt_path_li
-    kt = tables_for(scene)
-    tables = kt.tables
+    kt = kernel.tables_for(scene)
     pix32, smp32 = as_i32_bits(pixel), as_i32_bits(sample)
     w0, sp = (0.0, 0.0) if cone is None else (float(cone[0]), float(cone[1]))
     args = (
-        o.data_ptr(), d.data_ptr(), pix32.data_ptr(), smp32.data_ptr(),
-        out.data_ptr(), o.shape[0], tables.data_ptr(), TABLE_WORDS,
-        scene.prims.count, scene.lights.count, int(seed) & 0xFFFFFFFF,
-        kt.func_int, kt.world_radius, w0, sp,
+        o.data_ptr(), d.data_ptr(), pix32.data_ptr(), smp32.data_ptr(), out.data_ptr(),
+        o.shape[0], kt.tables.data_ptr(), kt.tables.numel(), *kernel.own(scene, kt),
+        scene.lights.count, int(seed) & 0xFFFFFFFF, kt.func_int, kt.world_radius, w0, sp,
         cfg.max_depth, cfg.rr_start_depth, float(cfg.rr_threshold),
         kernel_flags(scene, cone is not None),
     )
-
     next_path = _build.counter(o.device)
 
-    def launch(_keep=(o, d, tables, pix32, smp32, out, next_path)):
-        # _keep holds the tensors behind the pointers in ``args``; after
-        # trace.enable(), the counting instance runs on a counter of its own
+    def launch(_keep=(o, d, kt, scene, pix32, smp32, out, next_path)):
+        # _keep holds the tensors behind the pointers in ``args``
         counting = trace.enabled()
         ctr = _build.counter(o.device) if counting else next_path
-        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream, ctr.data_ptr(),
-                 int(counting))
-        if err != 0:
-            raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
-        _build.LAUNCHES["megakernel"] += 1
+        _build.launch(kernel.entry, o.device, args, ctr.data_ptr(), int(counting))
         if counting:
-            count_stats("megakernel", ctr)
+            for k, name in enumerate(_build.STATS, 1):
+                trace.count(name, ctr[k], key=kernel.entry.key)
         return out
 
     return launch
-
-
-def count_stats(kernel: str, ctr: torch.Tensor) -> None:
-    """The STATS that the counting instance of ``kernel`` wrote after its
-    path counter ``ctr``, to the tracer's counters under the key
-    ``kernel``, on the card."""
-    for k, name in enumerate(_build.STATS, 1):
-        trace.count(name, ctr[k], key=kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -1373,44 +1375,11 @@ class _Replay(torch.autograd.Function):
         return (None, None, None, None, *(next(got) if n else None for n in need))
 
 
-def replayed(run, scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Tensor:
-    """``run()``'s radiance f32[N,3] for the lanes (o, d, pixel, sample),
-    connected by ``_Replay`` to the rays and to the scene's float source
-    tensors; the replay is ``_li_wavefront`` with the same seed and cfg.
-    The cone stays a pair of floats with no gradient: a cone tensor that
-    requires one raises.  A second derivative through the replay raises
-    (``once_differentiable``)."""
-    if cone is not None and any(torch.is_tensor(c) and c.requires_grad for c in cone):
-        raise ValueError("the ray cone is a pair of floats: no gradient reaches it")
-
-    def replay(scene_, o_, d_):
-        from gopbrt_tpu_torch.models import integrators
-
-        return integrators._li_wavefront(scene_, o_, d_, pixel, sample, seed, cfg, cone=cone)
-
+def replayed(run, replay, scene, o, d) -> torch.Tensor:
+    """``run()``'s radiance f32[N,3], connected by ``_Replay`` to the rays
+    and to the scene's float source tensors; ``replay(scene, o, d)`` is the
+    differentiable chain on the same lanes (the integrator's
+    ``_li_wavefront`` with the same counters, seed and cfg).  A second
+    derivative through the replay raises (``once_differentiable``)."""
     paths, sources = zip(*packed.float_sources(scene))
     return _Replay.apply(run, replay, scene, paths, o, d, *sources)
-
-
-def path_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Tensor:
-    """Drop-in for integrators.li on fast-path scenes: radiance f32[N,3].
-
-    CUDA tensors launch the kernel of ``csrc/megakernel.cu`` on the current
-    stream; CPU tensors run ``path_li_plain``.  cone: optional
-    (width0, spread) ray-cone floats enabling the checker box filter.  The
-    result carries a gradient to o, d and the scene's float tensors where
-    they need one, by path replay (``replayed``).  A cfg with nee or mis
-    off raises (``check_cfg``).
-    """
-    check_cfg(cfg)
-    if o.device.type == "cpu":
-        def run():
-            p, s = check_inputs(scene, o, d, pixel, sample)
-            return path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone)
-    else:
-        def run():
-            out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
-            if o.shape[0] == 0:
-                return out
-            return make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out)()
-    return replayed(run, scene, o, d, pixel, sample, seed, cfg, cone)

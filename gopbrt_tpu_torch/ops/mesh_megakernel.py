@@ -7,11 +7,10 @@ per-material shade table (``_mat_shade_np``, here
 (``mesh_tables``: the materials, made at build as in ``build_mesh_tables``,
 and the lights, packed again for a scene whose lights changed, as the
 reference packs them per call; the tree and the primitive records are
-``Scene.bvh_tables``, made at build), and
-``mesh_li_fused``.  On CUDA tensors ``mesh_li_fused`` launches
-``csrc/mesh_megakernel.cu`` (the bounce skeleton over the BVH walk), the
-whole depth in one launch per band; on CPU tensors it runs
-``ops/megakernel.path_li_plain(accel="bvh")``.
+``Scene.bvh_tables``, made at build), and ``MESH``, the kernel's record:
+``megakernel.make_launch`` launches ``csrc/mesh_megakernel.cu`` (the
+bounce skeleton over the BVH walk) with it, the whole depth in one launch
+per band, and ``megakernel.path_li_plain(accel="bvh")`` is its plain twin.
 
 Left out of the port: the phase split and the octant x origin-cell
 re-sort of the wavefront between bounces (pallas_mesh_megakernel.py
@@ -21,14 +20,13 @@ bitcast packing, and the GOPBRT_MESH_* profiling switches.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
-from gopbrt_tpu_torch import _build
 from gopbrt_tpu_torch.ops import megakernel as mk
 from gopbrt_tpu_torch.ops import packed
-from gopbrt_tpu_torch.utils import trace
 
 # Packed table layout read by csrc/mesh_megakernel.cu (struct MeshTables):
 # the material rows, then the light tables of ops/megakernel.TABLE_LAYOUT.
@@ -90,68 +88,12 @@ def tables_for(scene) -> MeshTables:
     return mesh_tables(scene, mt)
 
 
-_WHY = "the mesh megakernel takes mesh fast-path scenes above 64 prims with a BVH"
-
-
-def make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out):
-    """Everything a CUDA launch needs, prepared once: returns a callable
-    that launches the kernel on the current stream, writing radiance into
-    ``out`` (f32[N,3], on the card), and counts the launch."""
-    pixel, sample = mk.check_inputs(scene, o, d, pixel, sample, fits, _WHY)
-    mk.check_cfg(cfg)
-    mk.check_launch(o, d, out)
-    mt, bt = tables_for(scene), scene.bvh_tables
-    fn = _build.load("mesh_megakernel").gopbrt_mesh_li
-    pix32, smp32 = mk.as_i32_bits(pixel), mk.as_i32_bits(sample)
-    w0, sp = (0.0, 0.0) if cone is None else (float(cone[0]), float(cone[1]))
-    args = (
-        o.data_ptr(), d.data_ptr(), pix32.data_ptr(), smp32.data_ptr(),
-        out.data_ptr(), o.shape[0], mt.tables.data_ptr(), MESH_TABLE_WORDS,
-        bt.nodes.data_ptr(), bt.records.data_ptr(), bt.flags, mt.n_mats,
-        scene.lights.count, int(seed) & 0xFFFFFFFF, mt.func_int, mt.world_radius, w0, sp,
-        cfg.max_depth, cfg.rr_start_depth, float(cfg.rr_threshold),
-        mk.kernel_flags(scene, cone is not None),
-    )
-
-    next_path = _build.counter(o.device)
-
-    def launch(_keep=(o, d, mt.tables, bt.nodes, bt.records, pix32, smp32, out,
-                      next_path)):
-        # _keep holds the tensors behind the pointers in ``args``; after
-        # trace.enable(), the counting instance runs on a counter of its own
-        counting = trace.enabled()
-        ctr = _build.counter(o.device) if counting else next_path
-        err = fn(*args, torch.cuda.current_stream(o.device).cuda_stream, ctr.data_ptr(),
-                 int(counting))
-        if err != 0:
-            raise RuntimeError(f"mesh megakernel launch failed: cudaError_t {err}")
-        _build.LAUNCHES["mesh_megakernel"] += 1
-        if counting:
-            mk.count_stats("mesh_megakernel", ctr)
-        return out
-
-    return launch
-
-
-def mesh_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=None) -> torch.Tensor:
-    """Drop-in for integrators.li on mesh fast-path scenes: radiance
-    f32[N,3].  CUDA tensors launch csrc/mesh_megakernel.cu on the current
-    stream; CPU tensors run ``path_li_plain(accel="bvh")``.  cone:
-    optional (width0, spread) ray-cone floats enabling the checker box
-    filter.  The result carries a gradient by path replay
-    (``megakernel.replayed``, pallas_mesh_megakernel.py:1521-1556): the
-    forward reads the build's material rows, the replay ``scene.materials``,
-    as in the reference.  A cfg with nee or mis off raises
-    (``megakernel.check_cfg``)."""
-    mk.check_cfg(cfg)
-    if o.device.type == "cpu":
-        def run():
-            p, s = mk.check_inputs(scene, o, d, pixel, sample, fits, _WHY)
-            return mk.path_li_plain(scene, o, d, p, s, seed, cfg, cone=cone, accel="bvh")
-    else:
-        def run():
-            out = torch.empty(o.shape, dtype=torch.float32, device=o.device)
-            if o.shape[0] == 0:
-                return out
-            return make_launch(scene, o, d, pixel, sample, seed, cfg, cone, out)()
-    return mk.replayed(run, scene, o, d, pixel, sample, seed, cfg, cone)
+# the BVH instance, csrc/mesh_megakernel.cu: its own arguments are the
+# tree's nodes, records and flags and the material count
+MESH = mk.Kernel(
+    mk.bounce_entry("mesh_megakernel", "gopbrt_mesh_li", "mesh_megakernel",
+                    (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)),
+    tables_for, fits,
+    "the mesh megakernel takes mesh fast-path scenes above 64 prims with a BVH", "bvh",
+    lambda scene, mt: (scene.bvh_tables.nodes.data_ptr(), scene.bvh_tables.records.data_ptr(),
+                       scene.bvh_tables.flags, mt.n_mats))

@@ -12,6 +12,7 @@ other filters agree within a few ulps.  The kernel is not differentiable.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -22,6 +23,10 @@ from gopbrt_tpu_torch.ops.filters import FILTER_BOX, FILTER_LANCZOS, Filter
 # the largest filter radius the kernel takes (csrc/splat_rows.cu
 # splat_params): (2 * 64 + 1)^2 taps a pixel
 MAX_RADIUS = 64.0
+
+# rgb, wsum, jitter, L, height, width, row0, rows, kind, radius, alpha, b, c
+ENTRY = _build.Entry("splat_rows", "gopbrt_splat_rows", "splat_rows",
+                     (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_double,) * 4)
 
 
 def on_card(film) -> bool:
@@ -68,11 +73,7 @@ def splat_rows(film, row0: int, jitter: torch.Tensor, L: torch.Tensor, filt: Fil
     if min(h, row0 + rows + rr) <= max(0, row0 - rr):
         return film
     jitter, L = jitter.contiguous(), L.contiguous()
-    fn = _build.load("splat_rows").gopbrt_splat_rows
-    err = fn(rgb.data_ptr(), wsum.data_ptr(), jitter.data_ptr(), L.data_ptr(), h, w, row0, rows,
-             filt.kind, float(filt.radius), float(filt.alpha), float(filt.b), float(filt.c),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"splat_rows launch failed: cudaError_t {err}")
-    _build.LAUNCHES["splat_rows"] += 1
+    _build.launch(ENTRY, dev, (
+        rgb.data_ptr(), wsum.data_ptr(), jitter.data_ptr(), L.data_ptr(), h, w, row0, rows,
+        filt.kind, float(filt.radius), float(filt.alpha), float(filt.b), float(filt.c)))
     return film

@@ -335,7 +335,7 @@ def test_li_is_connected_on_the_fast_path():
     assert type(L.grad_fn).__name__ == "_ReplayBackward"
     assert torch.equal(L.detach(), plain)
     assert torch.equal(plain, megakernel.path_li_plain(
-        scene, o, d, *megakernel.check_inputs(scene, o, d, pix, smp), 0, cfg))
+        scene, o, d, *megakernel.check_inputs(megakernel.BRUTE, scene, o, d, pix, smp), 0, cfg))
     g_c, g_i, g_o = torch.autograd.grad(L.sum(), [checker, inten, o_])
     assert g_o is not None and g_o.shape == o.shape
     for g in (g_c, g_i):

@@ -44,6 +44,32 @@ def test_forbidden_matches_exact_module_names():
     assert not _forbidden("jaxtyping")
 
 
+def _imports(path: Path):
+    """(line, module) of every import in ``path``, in functions too; a
+    ``from package import name`` gives ``package.name``."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield from ((node.lineno, f"{node.module}.{a.name}") for a in node.names)
+
+
+LOWER = sorted((REPO / "gopbrt_tpu_torch" / "ops").rglob("*.py")) + sorted(
+    (REPO / "gopbrt_tpu_torch" / "utils").rglob("*.py")) + [
+    REPO / "gopbrt_tpu_torch" / "_build.py"]
+UPPER = tuple(f"gopbrt_tpu_torch.{p}" for p in ("models", "service", "parallel"))
+
+
+@pytest.mark.parametrize("path", LOWER, ids=lambda p: str(p.relative_to(REPO)))
+def test_kernels_and_utils_import_nothing_above_them(path):
+    """``ops/``, ``utils/`` and ``_build.py`` lie below the integrator, the
+    service and the ranks: none of them imports from those, not even lazily
+    inside a function."""
+    up = [(line, m) for line, m in _imports(path)
+          if any(m == u or m.startswith(u + ".") for u in UPPER)]
+    assert not up, f"{path.name} imports {up}"
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -113,7 +113,7 @@ def test_fused_on_cpu_runs_the_plain_version_without_a_launch(demo):
     before = _build.LAUNCHES["megakernel"]
     cfg = tint.PathConfig(max_depth=3)
     args = (ts, *as_torch(*rays), SEED, cfg)
-    got = tmk.path_li_fused(*args, cone=(0.0, spread))
+    got = tint.li_fused(tmk.BRUTE, *args, cone=(0.0, spread))
     assert torch.equal(got, tmk.path_li_plain(*args, cone=(0.0, spread)))
     assert _build.LAUNCHES["megakernel"] == before
 

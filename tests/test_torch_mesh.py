@@ -99,7 +99,7 @@ def test_li_sends_mesh_scenes_to_the_mesh_megakernel(mesh):
     before = dict(_build.LAUNCHES)
     got = tint.li(*args, cfg)
     assert torch.equal(got, tmk.path_li_plain(*args, cfg, accel="bvh"))
-    assert torch.equal(tmm.mesh_li_fused(*args, cfg), got)
+    assert torch.equal(tint.li_fused(tmm.MESH, *args, cfg), got)
     assert dict(_build.LAUNCHES) == before
     early = tint.PathConfig(max_depth=2, early_exit=True)
     assert torch.equal(tint.li(*args, early), tint._li_wavefront(*args, early))

@@ -125,24 +125,23 @@ def test_path_config_defaults_are_the_reference_s():
 def test_li_sends_gated_cfgs_off_the_megakernels(name, monkeypatch):
     """On CPU tensors: with nee or mis off, ``li`` never calls the fused
     wrappers (patched to raise) and gives ``_li_wavefront``'s radiance; with
-    the defaults it still takes the megakernel's wrapper."""
+    the defaults it still takes the one wrapper, on the scene's kernel."""
     _, ts, rays, _ = _case(name)
     args = (ts, *as_torch(*rays), SEED)
     calls = []
 
     def fused(*a, **k):
-        calls.append(a[-1])
+        calls.append(a[0])
         raise AssertionError("a megakernel ran on a gated cfg")
 
-    monkeypatch.setattr(tmk, "path_li_fused", fused)
-    monkeypatch.setattr(tmm, "mesh_li_fused", fused)
+    monkeypatch.setattr(tint, "li_fused", fused)
     for nee, mis in GATES.values():
         cfg = tint.PathConfig(max_depth=2, nee=nee, mis=mis)
         assert torch.equal(tint.li(*args, cfg), tint._li_wavefront(*args, cfg))
     assert calls == []
     with pytest.raises(AssertionError, match="gated"):
         tint.li(*args, tint.PathConfig(max_depth=2))
-    assert len(calls) == 1
+    assert calls == [tmk.BRUTE if name == "demo" else tmm.MESH]
 
 
 @pytest.mark.parametrize("gate", sorted(GATES))
@@ -154,8 +153,8 @@ def test_megakernel_wrappers_refuse_a_gated_cfg(name, gate):
     nee, mis = GATES[gate]
     cfg = tint.PathConfig(max_depth=2, nee=nee, mis=mis)
     args = (ts, *as_torch(*rays), SEED, cfg)
-    fused = tmk.path_li_fused if name == "demo" else tmm.mesh_li_fused
+    kernel = tmk.BRUTE if name == "demo" else tmm.MESH
     with pytest.raises(ValueError, match="NEE with MIS"):
-        fused(*args)
+        tint.li_fused(kernel, *args)
     with pytest.raises(ValueError, match="NEE with MIS"):
         tmk.path_li_plain(*args, accel="brute" if name == "demo" else "bvh")

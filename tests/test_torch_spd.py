@@ -6,7 +6,8 @@ megakernel's gate on scenes of spheres.
   directions, the floor tangent to the root.
 - The gate: ``mesh_ok`` for the flake and for a seeded random cloud of 300
   spheres without a triangle, still not for the metal mesh; ``li`` sends
-  both to ``mesh_li_fused`` and counts its route in ``li.route``.
+  both to ``li_fused`` on ``mesh_megakernel.MESH`` and counts its route in
+  ``li.route``.
 - Against the benchmark's frozen reference (``portbench/configs/
   sphereflake.py``, loaded from its path): the port's ``render.render`` on
   the CPU at 64x36, every pixel within 1e-5, for the flake at size factor 2
@@ -172,7 +173,7 @@ def test_li_sends_sphere_scenes_to_the_mesh_megakernel(flake, scene_name):
         trace.disable()
     assert req.counter("li.route") == {"bvh_megakernel": 1, "chain": 1}
     assert torch.equal(got, tmk.path_li_plain(*args, cfg, accel="bvh"))
-    assert torch.equal(tmm.mesh_li_fused(*args, cfg), got)
+    assert torch.equal(tint.li_fused(tmm.MESH, *args, cfg), got)
     assert torch.equal(chain, tint._li_wavefront(*args, early))
     assert dict(_build.LAUNCHES) == before
 

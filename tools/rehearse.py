@@ -32,22 +32,23 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from gopbrt_tpu_torch import _build  # noqa: E402
 from gopbrt_tpu_torch.models import film as film_mod  # noqa: E402
-from gopbrt_tpu_torch.models import gallery, meshes, render  # noqa: E402
+from gopbrt_tpu_torch.models import gallery, integrators, meshes, render  # noqa: E402
 from gopbrt_tpu_torch.models.demo import (build_demo_camera, build_demo_scene,  # noqa: E402
                                           demo_settings)
-from gopbrt_tpu_torch.ops import brute_intersect, bvh, megakernel, mesh_megakernel  # noqa: E402
+from gopbrt_tpu_torch.ops import brute_intersect, bvh  # noqa: E402
 
 W, H, BAND_ROWS = 64, 36, 9
 DEV = "cpu"
 PHASES = ("path-config", "null-passes", "hlbvh", "goldens")
 
 
-def counted(mod, name: str, key: str) -> None:
-    """Wrap ``mod.name`` to count a launch under ``key``, as its kernel would."""
+def counted(mod, name: str, key) -> None:
+    """Wrap ``mod.name`` to count a launch under ``key`` (a callable: under
+    ``key`` of the call's arguments), as its kernel would."""
     fn = getattr(mod, name)
 
     def wrapped(*a, **k):
-        _build.LAUNCHES[key] += 1
+        _build.LAUNCHES[key(*a) if callable(key) else key] += 1
         return fn(*a, **k)
     setattr(mod, name, wrapped)
 
@@ -64,8 +65,7 @@ def main(phases) -> None:
                            (brute_intersect, "intersect_p_brute_fused", "intersect_any"),
                            (bvh, "bvh_intersect_fused", "bvh_intersect"),
                            (bvh, "bvh_intersect_p_fused", "bvh_intersect_any"),
-                           (megakernel, "path_li_fused", "megakernel"),
-                           (mesh_megakernel, "mesh_li_fused", "mesh_megakernel"),
+                           (integrators, "li_fused", lambda kernel, *_: kernel.entry.key),
                            (render, "band_rays", "camera_rays"),
                            (film_mod, "add_samples_rows", "splat_rows")):
         counted(mod, name, key)

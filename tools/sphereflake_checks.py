@@ -98,7 +98,7 @@ def main(argv=None) -> int:
     cfg, cone = render.path_config(settings), render._cone(camera, settings)
     _, o, d, pixel, sample = render.band_rays(camera, settings, 0, rows, 0)
     out = torch.empty_like(o)
-    launch = mm.make_launch(scene, o, d, pixel, sample, settings.seed, cfg, cone, out)
+    launch = mk.make_launch(mm.MESH, scene, o, d, pixel, sample, settings.seed, cfg, cone, out)
     got = launch().clone()
     torch.cuda.synchronize()
     t0 = time.perf_counter()

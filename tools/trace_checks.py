@@ -147,9 +147,9 @@ def kernels(cells, dev) -> None:
             lines = [ln.strip() for ln in rec["log"].splitlines()
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             say("ptxas", f"{lib}: " + " | ".join(lines))
-    for cell_name, key, mod, accel in (
-            ("demo.path-d10.1080p-1spp", "megakernel", megakernel, "brute"),
-            ("mesh10k.path-d5.1080p-1spp", "mesh_megakernel", mesh_megakernel, "bvh")):
+    for cell_name, kernel in (("demo.path-d10.1080p-1spp", megakernel.BRUTE),
+                              ("mesh10k.path-d5.1080p-1spp", mesh_megakernel.MESH)):
+        key, accel = kernel.entry.key, kernel.accel
         cell = _cell(cell_name)
         scene, camera = _program(cell)
         settings = render.RenderSettings(**cell.traffic["settings"])._replace(
@@ -158,7 +158,8 @@ def kernels(cells, dev) -> None:
         _, o, d, pix, smp = render.band_rays(camera, settings, rows, rows, 0)
         cfg, cone = render.path_config(settings), render._cone(camera, settings)
         out = torch.empty_like(o)
-        launch = mod.make_launch(scene, o, d, pix, smp, settings.seed, cfg, cone, out)
+        launch = megakernel.make_launch(kernel, scene, o, d, pix, smp, settings.seed, cfg, cone,
+                                        out)
         plain = launch().clone()
         trace.enable()
         try:
@@ -192,26 +193,27 @@ def kernels(cells, dev) -> None:
             f"{statistics.median(ms[False]):.4f}, counting {statistics.median(ms[True]):.4f}")
         if got["steps"] != want:
             for lane, k_steps, p_steps, events in _odd_lanes(
-                    mod, key, accel, scene, (o, d, pix, smp), settings.seed, cfg, cone):
+                    kernel, scene, (o, d, pix, smp), settings.seed, cfg, cone):
                 say("kernels", f"{key}: lane {lane} (pixel {int(pix[lane])}, sample "
                     f"{int(smp[lane])}): kernel steps {k_steps}, plain {p_steps}; radiance "
                     f"kernel {plain[lane].tolist()} plain {ref[lane].tolist()}; the plain "
                     f"version's events on the lane {dict(sorted(events.items()))}")
 
 
-def _odd_lanes(mod, key, accel, scene, rays, seed, cfg, cone, limit=4):
-    """The lanes on which the counting instance of ``key`` makes another
+def _odd_lanes(kernel, scene, rays, seed, cfg, cone, limit=4):
+    """The lanes on which the counting instance of ``kernel`` makes another
     number of steps than the plain version counts: the band halved while a
     part's two counts differ, down to single lanes -> [(lane, kernel steps,
     plain steps, the plain version's events on the lane)]."""
     from gopbrt_tpu_torch.ops import megakernel
 
     trace = _trace()
+    key, accel = kernel.entry.key, kernel.accel
 
     def steps(a: int, b: int):
         part = [x[a:b].contiguous() for x in rays]
         out = torch.empty_like(part[0])
-        launch = mod.make_launch(scene, *part, seed, cfg, cone, out)
+        launch = megakernel.make_launch(kernel, scene, *part, seed, cfg, cone, out)
         trace.enable()
         try:
             with trace.request() as req:
